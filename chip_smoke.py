@@ -7,15 +7,26 @@ Builds the native host library and the CUDA kernels from this checkout,
 then, each phase printing one JSON line:
 
 * main: polishes a simulated 1.0 Mbp genome (30x ONT-like reads, PAF
-  overlaps, -w 500 -m 5 -x -4 -g -8) on the card, times every kernel
-  launch with CUDA events beside its bound from the DP cells it ran, and
-  checks that polishing lowers the edit distance to the truth;
+  overlaps, -w 500 -m 5 -x -4 -g -8) on the card with the default ls POA
+  kernel, times every kernel launch with CUDA events beside its bound
+  from the DP cells it ran, and checks that polishing lowers the edit
+  distance to the truth;
+* main_v2: the same polish with poa_kernel="v2", recorded the same way;
+  its FASTA must be byte-identical to the ls run's;
 * kernel_check: runs each kernel again on the inputs of its largest
   launches in the main run (one per POA depth bucket, per edge band and
-  direction, per base-case band), holds each whole batch against the
-  plain PyTorch version (tolerance 0: all outputs are integers) and
-  times it;
-* parity: the card and the CPU polish a small PAF set to the same bytes.
+  direction, per base-case band; the v2 kernel, colstep on and off, on
+  the POA launches), holds each whole batch against the plain PyTorch
+  version (tolerance 0: all outputs are integers) and times it;
+* parity: the card (both POA kernels) and the CPU polish a small PAF set
+  to the same bytes;
+* probe: the DP-cost probe's gate and per-mode timing table on the card
+  (python -m racon_tpu_torch.tools.dp_cost_probe), then every mode held
+  against its plain version run on the card.
+
+Each path (main, main_v2, probe) runs with the launch counts set to 0
+just before it and read just after; every kernel of the path must have
+launched.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -48,6 +59,9 @@ EDGE_OPS_PER_CELL = 6   # mismatch add, gap add, min, -lane, running min, +lane
 BASE_OPS_PER_CELL = 7   # the edge cell plus the move decision
 
 MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
+# The parity set: small, because its CPU polish runs the plain versions,
+# one window and one DP row at a time in Python.
+PARITY_MBP = 0.02
 
 
 def emit(obj) -> None:
@@ -103,23 +117,25 @@ class MainPathRecorder:
 
     Inside ``with`` it replaces the kernel wrappers where the main path
     looks them up (``align_cuda.edge_rows``, ``align_cuda.base_case``,
-    ``poa_driver.poa_consensus``) by thin wrappers that call the real
-    ones between two CUDA events, count the launch's DP cells and bytes,
-    and keep the inputs of the largest launch (by DP cells) of each
-    kernel and geometry: POA per depth bucket, the edge kernel per band
-    and direction, the base case per band. The real wrappers still
-    count their launches. The POA launch counts its cells on the card
-    (``stats``), which adds one reduction over the batch to its time."""
+    ``poa_driver.poa_consensus``, ``poa_driver.poa_consensus_v2``) by thin
+    wrappers that call the real ones between two CUDA events, count the
+    launch's DP cells and bytes, and keep the inputs of the largest launch
+    (by DP cells) of each kernel and geometry: POA per depth bucket, the
+    edge kernel per band and direction, the base case per band. The real
+    wrappers still count their launches. The POA launches count their
+    cells (and v2 its serial steps) on the card (``stats``), which adds
+    one reduction over the batch to their time."""
 
     def __init__(self, torch, ac, poa_driver):
         self.torch, self.ac, self.pd = torch, ac, poa_driver
         self.launches = []     # (name, [start, end event], ops, bytes)
         self.largest = {}      # (kernel, geometry) -> (cells, inputs)
+        self.steps = 0         # v2 POA serial DP steps, all launches
 
     def __enter__(self):
         self.saved = (self.ac.edge_rows, self.ac.base_case,
-                      self.pd.poa_consensus)
-        edge, base, poa = self.saved
+                      self.pd.poa_consensus, self.pd.poa_consensus_v2)
+        edge, base, poa, poa_v2 = self.saved
 
         def edge_rows(scal, q, t, K, backward):
             return self._call("hirschberg_edge", (K, backward),
@@ -141,13 +157,26 @@ class MainPathRecorder:
                               lambda: poa(cfg, *args, stats=st),
                               lambda out: st["cells"], args, (cfg, args))
 
+        def poa_consensus_v2(cfg, *args, **kw):
+            st = {}
+
+            def cells_of(out):
+                self.steps += st["steps"]
+                return st["cells"]
+
+            return self._call("poa_consensus_v2", (cfg.depth,),
+                              POA_OPS_PER_CELL,
+                              lambda: poa_v2(cfg, *args, stats=st, **kw),
+                              cells_of, args, (cfg, args))
+
         self.ac.edge_rows, self.ac.base_case = edge_rows, base_case
         self.pd.poa_consensus = poa_consensus
+        self.pd.poa_consensus_v2 = poa_consensus_v2
         return self
 
     def __exit__(self, *exc):
-        self.ac.edge_rows, self.ac.base_case, self.pd.poa_consensus = \
-            self.saved
+        (self.ac.edge_rows, self.ac.base_case, self.pd.poa_consensus,
+         self.pd.poa_consensus_v2) = self.saved
         return False
 
     def _call(self, name, geom, ops_per_cell, fn, cells_of, ins, keep):
@@ -200,16 +229,17 @@ def _plain_poa_part(cfg, arrays):
     from racon_tpu_torch.ops import poa
 
     torch.set_num_threads(1)
-    stats = {"cells": 0}
+    stats = {"cells": 0, "steps": 0, "rows": 0}
     outs = poa.poa_batch_plain(cfg, *(torch.from_numpy(a) for a in arrays),
-                               stats=stats)
-    return [o.numpy() for o in outs], stats["cells"]
+                               stats=stats, colstep=True)
+    return [o.numpy() for o in outs], stats
 
 
 def plain_poa_parallel(batches, procs: int):
     """The plain POA version on the host for [(cfg, tensors)], each
     batch's windows split over `procs` processes (the plain version loops
-    over windows in Python). Returns [(outputs, cells)]."""
+    over windows in Python). Returns [(outputs, stats)]: the stats hold
+    the DP cells, the DP rows and the colstep steps."""
     import torch
 
     jobs, spans = [], []
@@ -227,7 +257,8 @@ def plain_poa_parallel(batches, procs: int):
         mine = parts[first:first + n]
         outs = [np.concatenate([p[0][k] for p in mine]) for k in range(5)]
         res.append(([torch.from_numpy(o) for o in outs],
-                    sum(p[1] for p in mine)))
+                    {k: sum(p[1][k] for p in mine)
+                     for k in ("cells", "steps", "rows")}))
     return res
 
 
@@ -254,14 +285,17 @@ class Totals:
 def check_poa(torch, poa_cuda, rec):
     """The main path's largest POA launch of each depth bucket, every
     window held against the plain version (on the host, in parallel
-    processes; its time is that of all buckets together)."""
+    processes; its time is that of all buckets together). Returns the
+    kernel's totals and, for the v2 check, the kept launches with their
+    plain outputs and stats and the plain time."""
     kept = rec.inputs("poa_consensus")
     procs = max(1, min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
     plain = plain_poa_parallel([inp for _, inp in kept], procs)
     plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
-    for (cells_main, (cfg, dev_in)), (want, cells) in zip(kept, plain):
+    for (cells_main, (cfg, dev_in)), (want, pst) in zip(kept, plain):
+        cells = pst["cells"]
         kst = {}
         got = poa_cuda.poa_consensus(cfg, *dev_in, stats=kst)
         torch.cuda.synchronize()
@@ -285,6 +319,52 @@ def check_poa(torch, poa_cuda, rec):
                 "plain_ms": plain_ms / len(kept),
                 "plain_on": f"host, {procs} processes (all buckets' time "
                 "split evenly)", "bound_ms": b_ms, "bound_by": b_by}
+        emit(line)
+        tot.add(line, n_bytes, n_ops)
+    return tot.row(), (kept, plain, plain_ms)
+
+
+def check_poa_v2(torch, poa_v2_cuda, checked):
+    """The v2 kernel, colstep on and off, on the ls main run's kept POA
+    launches, against the plain outputs check_poa computed: every output
+    equal, the kernel's cells and serial steps equal the plain version's
+    (steps without colstep are the DP rows)."""
+    kept, plain, plain_ms = checked
+    tot = Totals()
+    for (_, (cfg, dev_in)), (want, pst) in zip(kept, plain):
+        line = {"phase": "kernel_check", "kernel": "poa_consensus_v2",
+                "input": "largest ls launch of its depth bucket in the main "
+                "run", "windows": dev_in[0].shape[0], "depth": cfg.depth,
+                "dp_cells": pst["cells"], "dp_rows": pst["rows"]}
+        for colstep in (True, False):
+            kst = {}
+            got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, colstep=colstep,
+                                               stats=kst)
+            torch.cuda.synchronize()
+            err = max_abs_err(want, got)
+            want_steps = pst["steps"] if colstep else pst["rows"]
+            require(err == 0, f"v2 POA kernel (depth {cfg.depth}, colstep "
+                    f"{colstep}) differs from its plain version by {err}")
+            require(kst["cells"] == pst["cells"] and
+                    kst["steps"] == want_steps,
+                    f"v2 POA counts (colstep {colstep}): kernel {kst}, plain "
+                    f"cells {pst['cells']}, steps {want_steps}")
+            ms = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
+                cfg, *dev_in, colstep=colstep), 3)
+            key = "colstep" if colstep else "flat"
+            line.update({f"max_abs_err_{key}": err, f"ms_{key}": ms,
+                         f"steps_{key}": kst["steps"]})
+        line["step_ratio"] = line["steps_flat"] / line["steps_colstep"]
+        n_bytes = nbytes(dev_in) + nbytes(want)
+        n_ops = POA_OPS_PER_CELL * pst["cells"]
+        b_ms, b_by = bound(n_bytes, n_ops)
+        line.update({"max_abs_err": max(line["max_abs_err_colstep"],
+                                        line["max_abs_err_flat"]),
+                     "ms": line["ms_colstep"],
+                     "plain_ms": plain_ms / len(kept),
+                     "plain_on": "the ls check's host pass (one plain "
+                     "version for both kernels)",
+                     "bound_ms": b_ms, "bound_by": b_by})
         emit(line)
         tot.add(line, n_bytes, n_ops)
     return tot.row()
@@ -359,13 +439,144 @@ def read_fasta(path: str) -> bytes:
                        if not ln.startswith(">")).encode()
 
 
-def polish(racon_tpu_torch, d, device):
+def polish(racon_tpu_torch, d, device, poa_kernel="ls"):
     p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
-                                      device=device, **MAIN)
+                                      device=device, poa_kernel=poa_kernel,
+                                      **MAIN)
     t0 = time.perf_counter()
     p.initialize()
     out = p.polish(True)
     return out, p.stats, time.perf_counter() - t0
+
+
+# The kernels each path must launch; a POA path must not launch the other
+# POA kernel.
+PATH_KERNELS = {"main": ("poa_consensus", "hirschberg_edge",
+                         "hirschberg_base"),
+                "main_v2": ("poa_consensus_v2", "hirschberg_edge",
+                            "hirschberg_base"),
+                "probe": ("dp_cost_probe",)}
+
+
+def check_launches(path: str, launches: dict) -> None:
+    for name in PATH_KERNELS[path]:
+        require(launches[name] > 0,
+                f"kernel {name} was not launched on the {path} path")
+    if path.startswith("main"):
+        other = "poa_consensus_v2" if path == "main" else "poa_consensus"
+        require(launches[other] == 0,
+                f"the {path} path launched {other}")
+
+
+def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+             gen_s, poa_kernel):
+    """One recorded polish of the main cell: the launch counts are set to
+    0 just before it and read just after."""
+    path = "main" if poa_kernel == "ls" else "main_v2"
+    rec = MainPathRecorder(torch, ac, poa_driver)
+    cuda_lib.reset_launches()
+    with rec:
+        out, st, wall = polish(racon_tpu_torch, d, "cuda", poa_kernel)
+    launches = dict(cuda_lib.LAUNCHES)
+    on_main = rec.summary()
+    genome = read_fasta(d["genome"])
+    draft = read_fasta(d["draft"])
+    polished = "".join(s for _, s in out).encode()
+    ed_draft = native.edit_distance(draft, genome)
+    ed_polished = native.edit_distance(polished, genome)
+    al, co = st["align"], st["consensus"]
+    line = {"phase": path, "poa_kernel": poa_kernel, "mbp": 1.0,
+            "coverage": 30, "generate_s": gen_s, "wall_s": wall,
+            "phase_s": {k[:-2]: v for k, v in st.items()
+                        if k.endswith("_s")},
+            "align_jobs": {"device": al["device"], "host": al["host"],
+                           "host_s": al["host_seconds"]},
+            "windows": {"device": co["device"],
+                        "host_refailed": co["host_fallback"],
+                        "kernel_failed": co["failed"],
+                        "backbone": co["backbone"],
+                        "layers_dropped": co["layers_dropped"],
+                        "batches": co["batches"]},
+            "launches": launches, "kernels": on_main,
+            "kernel_busy": sum(r["device_ms"] for r in on_main.values())
+            / 1e3 / wall, "contigs": len(out),
+            "edit_distance": {"draft": ed_draft, "polished": ed_polished}}
+    if poa_kernel == "v2":
+        line["poa_v2_steps"] = rec.steps
+    emit(line)
+    require(al["device"] > 0, "no alignment job was served on the card")
+    require(co["device"] > 0, "no window was served on the card")
+    check_launches(path, launches)
+    require(ed_polished < ed_draft, "polishing did not lower the edit "
+            f"distance ({ed_draft} -> {ed_polished})")
+    return out, rec, launches, on_main
+
+
+def probe_phase(torch, probe, cuda_lib):
+    """The DP-cost probe's path on the card: its gate and its per-mode
+    timing tables at R=800 for B=16 (the JAX probe's default) and B=528
+    (four programs per SM), with the launch counts set to 0 just before
+    and read just after. Then every mode against its plain version run
+    on the card: at R=32 for the seeds 0 and 7, and at the table's shape
+    (R=800, B=16), which also times the plain versions. Each check holds
+    out, steps and every program's whole last DP row (or ring row)."""
+    import contextlib
+    import io
+
+    cuda_lib.reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        gate_ok = probe.gate(device="cuda")
+    tables = {B: probe.time_modes(800, B, 3, "cuda") for B in (16, 528)}
+    launches = dict(cuda_lib.LAUNCHES)
+    gate_out = buf.getvalue()
+    print(gate_out, end="", flush=True)
+    require(gate_ok and gate_out.count("OK") == 5,
+            f"probe gate failed:\n{gate_out}")
+    check_launches("probe", launches)
+    bound_sum = {}
+    for B, rows in tables.items():
+        print(f"dp_cost_probe on the card: R=800 B={B}", flush=True)
+        probe.print_table(rows)
+        for r in rows:
+            require(r["out_seed0"] != r["out_seed7"],
+                    f"probe mode {r['mode']} ignores its seed")
+            r["bound_ms"], r["bound_by"] = bound(12 * B, r["ops"])
+            r["ns_per_row"] = r["per_node_us"] * 1e3
+            r["over_bound"] = r["warm_s"] * 1e3 / r["bound_ms"]
+        bound_sum[B] = sum(r["bound_ms"] for r in rows)
+        emit({"phase": "probe", "R": 800, "B": B, "modes": rows})
+
+    err, plain_s, small = 0, 0.0, []
+    for mode in range(probe.N_MODES):
+        seed = torch.tensor([0, 7], dtype=torch.int32, device="cuda")
+        want = probe.probe_plain(mode, 32, seed, rows=True)
+        got = probe.probe(mode, 32, seed, rows=True)
+        require(got[2].shape == want[2].shape,
+                f"probe mode {mode}: last rows of shape {tuple(got[2].shape)}"
+                f", plain {tuple(want[2].shape)}")
+        e = max_abs_err(want, got)
+        small.append({"mode": mode, "out": got[0].tolist(),
+                      "steps": got[1].tolist(),
+                      "row_width": got[2].shape[1], "max_abs_err": e})
+        seed = torch.arange(16, dtype=torch.int32, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = probe.probe_plain(mode, 800, seed, rows=True)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        e = max(e, max_abs_err(want, probe.probe(mode, 800, seed,
+                                                 rows=True)))
+        require(e == 0, f"probe mode {mode} differs from its plain version "
+                f"by {e}")
+        err = max(err, e)
+    emit({"phase": "probe_check", "R32_seeds_0_7": small,
+          "R800_B16_max_abs_err": err, "plain_s_R800_B16": plain_s,
+          "gate": gate_out.splitlines()})
+    return launches, {"max_abs_err": err,
+                      "ms": sum(r["warm_s"] for r in tables[16]) * 1e3,
+                      "plain_ms": plain_s * 1e3, "bound_ms": bound_sum[16],
+                      "bound_by": "operations"}
 
 
 def main() -> int:
@@ -378,7 +589,8 @@ def main() -> int:
     import racon_tpu_torch
     from racon_tpu_torch import native
     from racon_tpu_torch.ops import align_cuda as ac
-    from racon_tpu_torch.ops import cuda_lib, poa_cuda, poa_driver
+    from racon_tpu_torch.ops import cuda_lib, poa_cuda, poa_driver, poa_v2_cuda
+    from racon_tpu_torch.tools import dp_cost_probe as probe
     from racon_tpu_torch.tools import simulate
 
     smi = nvidia_smi()
@@ -391,79 +603,74 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp:
-        # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps
+        # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps; then the same
+        # polish with the v2 POA kernel, which must give the same bytes
         t0 = time.perf_counter()
         d = simulate.generate(os.path.join(tmp, "main"), mbp=1.0,
                               coverage=30, seed=11)
         gen_s = time.perf_counter() - t0
-        rec = MainPathRecorder(torch, ac, poa_driver)
-        cuda_lib.reset_launches()
-        with rec:
-            out, st, wall = polish(racon_tpu_torch, d, "cuda")
-        launches = dict(cuda_lib.LAUNCHES)
-        on_main = rec.summary()
-        genome = read_fasta(d["genome"])
-        draft = read_fasta(d["draft"])
-        polished = "".join(s for _, s in out).encode()
-        ed_draft = native.edit_distance(draft, genome)
-        ed_polished = native.edit_distance(polished, genome)
-        al, co = st["align"], st["consensus"]
-        emit({"phase": "main", "mbp": 1.0, "coverage": 30,
-              "generate_s": gen_s, "wall_s": wall,
-              "phase_s": {k[:-2]: v for k, v in st.items()
-                          if k.endswith("_s")},
-              "align_jobs": {"device": al["device"], "host": al["host"],
-                             "host_s": al["host_seconds"]},
-              "windows": {"device": co["device"],
-                          "host_refailed": co["host_fallback"],
-                          "kernel_failed": co["failed"],
-                          "backbone": co["backbone"],
-                          "layers_dropped": co["layers_dropped"],
-                          "batches": co["batches"]},
-              "launches": launches, "kernels": on_main,
-              "kernel_busy": sum(r["device_ms"] for r in on_main.values())
-              / 1e3 / wall, "contigs": len(out),
-              "edit_distance": {"draft": ed_draft, "polished": ed_polished}})
-        require(al["device"] > 0, "no alignment job was served on the card")
-        require(co["device"] > 0, "no window was served on the card")
-        for name, n in launches.items():
-            require(n > 0, f"kernel {name} was not launched on the main "
-                    "path")
-        require(ed_polished < ed_draft, "polishing did not lower the edit "
-                f"distance ({ed_draft} -> {ed_polished})")
+        mods = (torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+                gen_s)
+        out, rec, launches, on_main = run_main(*mods, "ls")
+        out_v2, rec_v2, launches_v2, on_v2 = run_main(*mods, "v2")
+        require(out_v2 == out, "the v2 POA kernel's FASTA differs from the "
+                "ls kernel's")
+        emit({"phase": "main_v2_vs_main", "identical": True})
+        rec_v2.largest.clear()
 
         # each kernel on the main path's largest launches, against its
         # plain version
-        checked = {"poa_consensus": check_poa(torch, poa_cuda, rec),
+        poa_row, poa_plain = check_poa(torch, poa_cuda, rec)
+        checked = {"poa_consensus": poa_row,
+                   "poa_consensus_v2": check_poa_v2(torch, poa_v2_cuda,
+                                                    poa_plain),
                    "hirschberg_edge": check_edge(torch, ac, rec),
                    "hirschberg_base": check_base(torch, ac, rec)}
         rec.largest.clear()
+        del poa_plain
 
-        # parity: the card and the CPU give the same bytes
-        d = simulate.generate(os.path.join(tmp, "parity"), mbp=0.02,
+        # parity: the card, with each POA kernel, and the CPU give the
+        # same bytes
+        d = simulate.generate(os.path.join(tmp, "parity"), mbp=PARITY_MBP,
                               seed=11)
         gpu, gstats, g_s = polish(racon_tpu_torch, d, "cuda")
+        gpu_v2, _, g2_s = polish(racon_tpu_torch, d, "cuda", "v2")
         cpu, cstats, c_s = polish(racon_tpu_torch, d, "cpu")
         require(gpu == cpu, "card and CPU polish the parity set differently")
-        emit({"phase": "parity", "mbp": 0.02, "identical": True,
-              "cuda_s": g_s, "cpu_s": c_s,
+        require(gpu_v2 == cpu, "the card's v2 kernel and the CPU polish the "
+                "parity set differently")
+        emit({"phase": "parity", "mbp": PARITY_MBP, "identical": True,
+              "cuda_s": g_s, "cuda_v2_s": g2_s, "cpu_s": c_s,
               "align_device": gstats["align"]["device"],
               "windows_device": gstats["consensus"]["device"]})
+
+    # the DP-cost probe's path
+    launches_probe, checked["dp_cost_probe"] = probe_phase(torch, probe,
+                                                           cuda_lib)
 
     src = "racon_tpu_torch/csrc/"
     kernels = [
         dict(name="poa_consensus", source=src + "poa.cu",
              replaces="racon_tpu/ops/poa_pallas_ls.py:64"),
+        dict(name="poa_consensus_v2", source=src + "poa_v2.cu",
+             replaces="racon_tpu/ops/poa_pallas.py:73"),
         dict(name="hirschberg_edge", source=src + "align.cu",
              replaces="racon_tpu/ops/align_pallas.py:112"),
         dict(name="hirschberg_base", source=src + "align.cu",
              replaces="racon_tpu/ops/align_pallas.py:299"),
+        dict(name="dp_cost_probe", source=src + "dp_cost_probe.cu",
+             replaces="racon_tpu/tools/dp_cost_probe.py:89"),
     ]
+    path_of = {"poa_consensus_v2": (launches_v2, on_v2),
+               "dp_cost_probe": (launches_probe, None)}
     for k in kernels:
         k.update(checked[k["name"]])
-        m = on_main[k["name"]]
-        k.update(route="cuda", launches=launches[k["name"]], library_ms=None,
-                 main_device_ms=m["device_ms"], main_bound_ms=m["bound_ms"])
+        counts, summary = path_of.get(k["name"], (launches, on_main))
+        k.update(route="cuda", launches=counts[k["name"]], library_ms=None)
+        if summary is not None:
+            m = summary[k["name"]]
+            k.update(main_device_ms=m["device_ms"],
+                     main_bound_ms=m["bound_ms"])
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -53,6 +53,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the kernels run (default cuda; cpu runs "
                    "their plain PyTorch versions)")
+    p.add_argument("--poa-kernel", choices=("ls", "v2"), default="ls",
+                   help="POA consensus kernel: ls (default) or v2, one "
+                   "window per block with per-cell move records; both give "
+                   "the same consensus")
     return p
 
 
@@ -61,6 +65,7 @@ def main(argv=None) -> int:
     try:
         polisher = create_polisher(
             args.sequences, args.overlaps, args.targets, device=args.device,
+            poa_kernel=args.poa_kernel,
             fragment_correction=args.fragment_correction,
             window_length=args.window_length,
             quality_threshold=args.quality_threshold,

@@ -1,0 +1,577 @@
+// DP-cost probe: 19 stripped-down DP loop shapes, one thread block per
+// program, each returning a seed-dependent `out` and a measured count of
+// serial steps or DP cells.
+//
+// Replaces the JAX package's probe kernels build(mode, R, B)
+// (racon_tpu/tools/dp_cost_probe.py:89, pallas_call :602). Every mode
+// computes the same `out` and `steps` as the Pallas probe, including the
+// modes whose arithmetic was a TPU layout experiment (no cross-sublane
+// carry, flat row, paired rows, the lockstep ring, the windowed ring); the
+// plain PyTorch versions in tools/dp_cost_probe.py repeat that arithmetic.
+// On the card each mode measures what its Hopper shape costs
+// (tools/dp_cost_probe.py's docstring names it per mode):
+//   * modes 0-5, 7, 11: a 1,024-column row, 256 threads of 4 contiguous
+//     columns; the row scan is a per-thread max, a warp shuffle scan and a
+//     pass over the 8 warp totals in shared memory between two barriers.
+//     A TPU sublane of 128 columns is one warp here, so mode 5 (no
+//     cross-sublane carry) drops the cross-warp pass and its barriers.
+//   * mode 6: the same row on 1,024 threads of one column each;
+//   * mode 8: two rows per thread per step (ILP);
+//   * modes 9, 10, 12: eight 512-column windows per block, one warp each,
+//     16 columns per lane, a 128-row ring in global memory;
+//   * modes 13-16: a band row carried in registers (one warp for 128
+//     columns, a block for 1,024 with the shift's carry across warps
+//     through shared memory);
+//   * modes 17, 18: a 1,664- or 512-column window of an 8-row ring.
+// H rows and rings live in a global scratch the wrapper allocates (the band
+// modes write their last row there); graph state and query codes in shared
+// memory. The wrapper can return each program's last row from the scratch,
+// so a check covers every column, not only the two that make `out`. What bounds each mode on an H100
+// is its serial chain of rows (shuffles, barriers, dependent loads), not
+// bytes or integer throughput: that chain is what the probe measures.
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+#define FULL 0xffffffffu
+#define NEG_ (-(1 << 28))
+#define G_ (-8)
+#define NSLOT 2048   // node slots: the TPU probe's (8, 256) node tile
+#define NE 12        // in-edge slots
+#define ROW 1024     // flat DP row: the TPU probe's (8, 128) row
+#define LS_W 512     // lockstep window row: (4, 128)
+#define LS_G 8       // lockstep windows per program
+#define RING 128     // lockstep ring rows
+#define GSLOTS 16    // lockstep graph-row slots (mode 10)
+#define JC2 13       // banded-POA flat row chunks of 128 (modes 17/18)
+#define CB 4         // banded-POA window chunks (mode 18)
+#define RING2 8      // banded-POA ring rows
+
+namespace {
+
+__device__ __forceinline__ int sc_of(int j, int ub) {
+  return (j & 3) == ub ? 5 : -4;
+}
+
+__device__ __forceinline__ int warp_scan_bin(int v, int lane) {
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(FULL, v, d);
+    if (lane >= d) v = max(v, o);
+  }
+  return v;
+}
+
+// Radix-4 inclusive max-scan: rounds of three independent shifted copies,
+// tree-combined (3 rounds instead of 5, the same work).
+__device__ __forceinline__ int warp_scan_r4(int v, int lane) {
+  for (int w = 1; w < 32; w *= 4) {
+    const int a = __shfl_up_sync(FULL, v, w);
+    const int b = __shfl_up_sync(FULL, v, 2 * w);
+    const int c = __shfl_up_sync(FULL, v, 3 * w);
+    const int a2 = lane >= w ? a : INT_MIN;
+    const int b2 = (2 * w < 32 && lane >= 2 * w) ? b : INT_MIN;
+    const int c2 = (3 * w < 32 && lane >= 3 * w) ? c : INT_MIN;
+    v = max(max(v, a2), max(b2, c2));
+  }
+  return v;
+}
+
+// Exclusive prefix max of the threads' totals over the block (INT_MIN for
+// thread 0). Ends after a barrier; the caller's next barrier protects red.
+template <bool R4>
+__device__ __forceinline__ int block_excl(int tot, int* red) {
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int inc = R4 ? warp_scan_r4(tot, lane) : warp_scan_bin(tot, lane);
+  if (lane == 31) red[wid] = inc;
+  int ex = __shfl_up_sync(FULL, inc, 1);
+  if (lane == 0) ex = INT_MIN;
+  __syncthreads();
+  for (int q = 0; q < wid; ++q) ex = max(ex, red[q]);
+  return ex;
+}
+
+// ---- modes 0-5, 7, 11: the v2 dp_body's row on a 1,024-column row -------
+
+struct Graph {
+  int* order;
+  int* base;
+  float* key;
+  int* in_cnt;
+  int* has_out;
+};
+
+template <int MODE>
+__device__ __forceinline__ void row_a(int r, int* H, const int* in_src,
+                                      const Graph& g, int* red) {
+  constexpr int LEVEL =
+      (MODE == 5 || MODE == 7) ? 0 : (MODE == 11 ? 1 : MODE);
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int j0 = tid * 4;
+  const int u = LEVEL >= 1 ? g.order[r] : r;
+  int ub = 1, cnt = 0;
+  if (LEVEL >= 2) { ub = g.base[u]; cnt = g.in_cnt[u]; }
+  // P[k] is column j0 - 1 + k; mode 5's shift wraps inside the warp's 128
+  const int jl = (MODE == 5 && (j0 & 127) == 0) ? j0 + 127 : j0 - 1;
+  const bool left = j0 > 0;
+  int P[5];
+  // below level 3 the row read is the previous one; at level 3 and up
+  // the predecessors' rows, or the virtual row 0 when none is valid
+  const int* pr = LEVEL >= 3 ? H : H + (size_t)u * ROW;
+  bool any = false;
+  if (LEVEL >= 3) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) P[k] = NEG_;
+    for (int e = 0; e < cnt; ++e) {
+      const int src = max(in_src[e * NSLOT + u], 0);
+      const bool ok = g.key[src] >= 0.f;
+      if (ok) {
+        const int* q = H + (size_t)(src + 1) * ROW;
+        if (left) P[0] = max(P[0], q[jl]);
+#pragma unroll
+        for (int k = 1; k < 5; ++k) P[k] = max(P[k], q[j0 + k - 1]);
+        if (LEVEL >= 4 && tid == 0) g.has_out[src] = 1;
+      }
+      any = any || ok;
+    }
+  }
+  if (!any) {
+    P[0] = left ? pr[jl] : NEG_;
+#pragma unroll
+    for (int k = 1; k < 5; ++k) P[k] = pr[j0 + k - 1];
+  }
+  int x[4], run = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const int j = j0 + k;
+    const int diag = (j == 0 ? NEG_ : P[k]) + sc_of(j, ub);
+    const int V = max(diag, P[k + 1] + G_);
+    run = max(run, V - j * G_);
+    x[k] = run;
+  }
+  int ex;
+  if (MODE == 5) {  // per-warp scan only: no carry across warps
+    const int inc = warp_scan_bin(run, lane);
+    ex = __shfl_up_sync(FULL, inc, 1);
+    if (lane == 0) ex = INT_MIN;
+  } else {
+    ex = block_excl<MODE == 7>(run, red);
+  }
+  int* hr = H + (size_t)(u + 1) * ROW;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) hr[j0 + k] = max(x[k], ex) + (j0 + k) * G_;
+  if (MODE == 5) __syncwarp(); else __syncthreads();
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(256)
+probe_a(int R, const int* __restrict__ seed, int* __restrict__ out,
+        int* __restrict__ steps, int* __restrict__ scratch, size_t per) {
+  constexpr int LEVEL =
+      (MODE == 5 || MODE == 7) ? 0 : (MODE == 11 ? 1 : MODE);
+  extern __shared__ int sh[];
+  const int tid = threadIdx.x;
+  int* red = sh;
+  Graph g;
+  g.order = sh + 8;
+  g.base = g.order + NSLOT;
+  g.key = (float*)(g.base + NSLOT);
+  g.in_cnt = (int*)(g.key + NSLOT);
+  g.has_out = g.in_cnt + NSLOT;
+  int* H = scratch + (size_t)blockIdx.x * per;
+  int* in_src = H + (size_t)(R + 1) * ROW;
+  const int sd = seed[blockIdx.x];
+  if (LEVEL >= 1) {
+    for (int i = tid; i < NSLOT; i += 256) {
+      g.order[i] = i;
+      g.base[i] = i % 4;
+      g.key[i] = (float)(MODE == 11 ? i / 2 : i);
+      g.in_cnt[i] = i > 0 ? 2 : 0;
+      g.has_out[i] = 0;
+      for (int e = 0; e < NE; ++e)
+        in_src[e * NSLOT + i] = e == 0 ? max(i - 1, 0)
+                                : e == 1 ? max(i - 2, 0) : 0;
+    }
+  }
+  for (int j = tid; j < ROW; j += 256) H[j] = j * G_ + sd;
+  __syncthreads();
+  int it = 0;
+  if (MODE == 11) {  // the colstep loop: rank r + 1 rides along when it
+    for (int r = 0; r < R; ++it) {  // shares rank r's column key
+      row_a<MODE>(r, H, in_src, g, red);
+      const bool pair =
+          r + 1 < R && g.key[g.order[r + 1]] == g.key[g.order[r]];
+      if (pair) row_a<MODE>(r + 1, H, in_src, g, red);
+      r += pair ? 2 : 1;
+    }
+  } else {
+    for (int r = 0; r < R; ++r, ++it) row_a<MODE>(r, H, in_src, g, red);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    out[blockIdx.x] = H[(size_t)R * ROW] + H[(size_t)R * ROW + 1];
+    steps[blockIdx.x] = it;
+  }
+}
+
+// ---- mode 6: the same row, one column per thread on 1,024 threads --------
+
+__global__ void __launch_bounds__(1024)
+probe_flat(int R, const int* __restrict__ seed, int* __restrict__ out,
+           int* __restrict__ steps, int* __restrict__ scratch, size_t per) {
+  __shared__ int red[32];
+  const int j = threadIdx.x;
+  int* H = scratch + (size_t)blockIdx.x * per;
+  H[j] = j * G_ + seed[blockIdx.x];
+  __syncthreads();
+  for (int r = 0; r < R; ++r) {
+    const int* pr = H + (size_t)r * ROW;
+    const int diag = (j == 0 ? NEG_ : pr[j - 1]) + sc_of(j, 1);
+    const int v = max(diag, pr[j] + G_) - j * G_;
+    const int ex = block_excl<false>(v, red);
+    H[(size_t)(r + 1) * ROW + j] = max(v, ex) + j * G_;
+    __syncthreads();
+  }
+  if (j == 0) {
+    out[blockIdx.x] = H[(size_t)R * ROW];
+    steps[blockIdx.x] = R;
+  }
+}
+
+// ---- mode 8: two independent rows per step ------------------------------
+
+__global__ void __launch_bounds__(256)
+probe_pair(int R, const int* __restrict__ seed, int* __restrict__ out,
+           int* __restrict__ steps, int* __restrict__ scratch, size_t per) {
+  __shared__ int red[2][8];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int j0 = tid * 4;
+  int* H = scratch + (size_t)blockIdx.x * per;  // row r: [2][ROW]
+  for (int i = tid; i < 2 * ROW; i += 256)
+    H[i] = (i % ROW) * G_ + seed[blockIdx.x];
+  __syncthreads();
+  for (int r = 0; r < R; ++r) {
+    int x[2][4], run[2], inc[2], ex[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int* pr = H + ((size_t)r * 2 + p) * ROW;
+      int P[5];
+      P[0] = j0 > 0 ? pr[j0 - 1] : NEG_;
+#pragma unroll
+      for (int k = 1; k < 5; ++k) P[k] = pr[j0 + k - 1];
+      run[p] = INT_MIN;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int j = j0 + k;
+        const int diag = (j == 0 ? NEG_ : P[k]) + sc_of(j, 1);
+        run[p] = max(run[p], max(diag, P[k + 1] + G_) - j * G_);
+        x[p][k] = run[p];
+      }
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      inc[p] = warp_scan_bin(run[p], lane);
+      if (lane == 31) red[p][wid] = inc[p];
+      ex[p] = __shfl_up_sync(FULL, inc[p], 1);
+      if (lane == 0) ex[p] = INT_MIN;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      for (int q = 0; q < wid; ++q) ex[p] = max(ex[p], red[p][q]);
+      int* hr = H + ((size_t)(r + 1) * 2 + p) * ROW;
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        hr[j0 + k] = max(x[p][k], ex[p]) + (j0 + k) * G_;
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    out[blockIdx.x] = H[(size_t)R * 2 * ROW];
+    steps[blockIdx.x] = R;
+  }
+}
+
+// ---- modes 9, 10, 12: eight lockstep windows, one warp each -------------
+
+template <int MODE>
+__device__ __forceinline__ void row_ls(int r, int* ring, const int* gls,
+                                       int wnd, int lane) {
+  const int j0 = lane * 16;
+  int P[17];
+  const int* pr = ring + ((size_t)(r % RING) * LS_G + wnd) * LS_W;
+  P[0] = j0 > 0 ? pr[j0 - 1] : NEG_;
+#pragma unroll
+  for (int k = 1; k < 17; ++k) P[k] = pr[j0 + k - 1];
+  if (MODE == 10) {
+    // twelve graph-row loads of 8 values at lane r % 128, summed
+    int acc = 0;
+    for (int i = lane; i < NE * 8; i += 32) {
+      const int e = i >> 3, s = i & 7;
+      acc += gls[(((r + e) % GSLOTS) * 8 + s) * 128 + (r % 128)];
+    }
+    for (int d = 16; d > 0; d >>= 1) acc += __shfl_xor_sync(FULL, acc, d);
+    const int nd = acc % 4 + 1;
+    for (int d = 1; d <= 4; ++d) {  // depth-4 delta scan over ring rows
+      if (d <= nd) {
+        const int* q =
+            ring + ((size_t)(((r - d) % RING + RING) % RING) * LS_G + wnd) *
+                       LS_W;
+        if (j0 > 0) P[0] = max(P[0], q[j0 - 1]);
+#pragma unroll
+        for (int k = 1; k < 17; ++k) P[k] = max(P[k], q[j0 + k - 1]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 17; ++k) P[k] += acc & 1;
+  }
+  int x[16], run = INT_MIN;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    const int j = j0 + k;
+    const int diag = (j == 0 ? NEG_ : P[k]) + sc_of(j, 1);
+    run = max(run, max(diag, P[k + 1] + G_) - j * G_);
+    x[k] = run;
+  }
+  const int inc = warp_scan_bin(run, lane);
+  int ex = __shfl_up_sync(FULL, inc, 1);
+  if (lane == 0) ex = INT_MIN;
+  int* hr = ring + ((size_t)((r + 1) % RING) * LS_G + wnd) * LS_W;
+#pragma unroll
+  for (int k = 0; k < 16; ++k) hr[j0 + k] = max(x[k], ex) + (j0 + k) * G_;
+  __syncwarp();
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(256)
+probe_ls(int R, const int* __restrict__ seed, int* __restrict__ out,
+         int* __restrict__ steps, int* __restrict__ scratch, size_t per) {
+  extern __shared__ int gls[];  // mode 10: [GSLOTS][8][128]
+  const int tid = threadIdx.x, lane = tid & 31, wnd = tid >> 5;
+  int* ring = scratch + (size_t)blockIdx.x * per;
+  const int sd = seed[blockIdx.x];
+  // every ring slot holds defined, seed-derived data: mode 10 reads rows
+  // the DP has not written yet
+  for (int i = tid; i < RING * LS_G * LS_W; i += 256)
+    ring[i] = (i % LS_W) * G_ + sd - i / (LS_G * LS_W);
+  if (MODE == 10)
+    for (int i = tid; i < GSLOTS * 8 * 128; i += 256)
+      gls[i] = (i % 128 + i / 1024) % 7;
+  __syncthreads();
+  int it = 0;
+  if (MODE == 12) {  // two unconditional ranks per serial iteration
+    for (int p = 0; p < (R + 1) / 2; ++p, ++it) {
+      row_ls<MODE>(2 * p, ring, gls, wnd, lane);
+      if (2 * p + 1 < R) row_ls<MODE>(2 * p + 1, ring, gls, wnd, lane);
+    }
+  } else {
+    for (int r = 0; r < R; ++r, ++it) row_ls<MODE>(r, ring, gls, wnd, lane);
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const int* hr = ring + (size_t)(R % RING) * LS_G * LS_W;
+    out[blockIdx.x] = hr[0] + hr[1];
+    steps[blockIdx.x] = it;
+  }
+}
+
+// ---- modes 13-16: a band row carried in registers -----------------------
+
+template <int MODE>
+__global__ void __launch_bounds__(256)
+probe_band(int R, const int* __restrict__ seed, int* __restrict__ out,
+           int* __restrict__ steps, int* __restrict__ scratch, size_t per) {
+  __shared__ int codes[NSLOT];
+  __shared__ int xbuf[2][8];
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const int j0 = tid * 4;
+  for (int i = tid; i < NSLOT; i += blockDim.x) {
+    if (MODE == 14) {  // slot w holds codes 4w..4w+3, one byte each
+      int pw = 0;
+      for (int p = 0; p < 4; ++p) pw += ((4 * i + p) % 5) << (8 * p);
+      codes[i] = pw;
+    } else {
+      codes[i] = i % 5;
+    }
+  }
+  int x[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) x[k] = (j0 + k) * G_ + seed[blockIdx.x];
+  __syncthreads();
+  int par = 0;
+  auto step = [&](int r, int qc) {
+    int l0 = __shfl_up_sync(FULL, x[3], 1);
+    if (MODE == 15) {  // the shift's carry across warps
+      if (lane == 31) xbuf[par][wid] = x[3];
+      __syncthreads();
+      if (lane == 0 && wid > 0) l0 = xbuf[par][wid - 1];
+      par ^= 1;
+    }
+    int nx[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = j0 + k;
+      const int col = j + (MODE == 16 ? r : 0);
+      const int sc = col % 5 == qc ? 5 : -4;
+      const int lft = k == 0 ? l0 : x[k - 1];
+      nx[k] = max((j == 0 ? NEG_ : lft) + sc, x[k] + G_);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) x[k] = nx[k];
+  };
+  int cnt = 0;
+  if (MODE == 14) {  // one packed word per 4 rows
+    for (int it = 0; it < (R + 3) / 4; ++it, ++cnt) {
+      const int qword = codes[it];
+      for (int p = 0; p < 4; ++p)
+        if (it * 4 + p < R) step(it * 4 + p, (qword >> (8 * p)) & 0xFF);
+    }
+  } else {
+    const int width = MODE == 15 ? ROW : 128;
+    for (int r = 0; r < R; ++r) {
+      step(r, codes[r]);
+      cnt += MODE >= 15 ? width : 1;
+    }
+  }
+  int* last = scratch + (size_t)blockIdx.x * per;  // the last row, for checks
+#pragma unroll
+  for (int k = 0; k < 4; ++k) last[j0 + k] = x[k];
+  if (tid == 0) {
+    out[blockIdx.x] = x[0] + x[1];
+    steps[blockIdx.x] = cnt;
+  }
+}
+
+// ---- modes 17, 18: banded-POA rows on an 8-row ring of 13 chunks --------
+
+template <int MODE>
+__global__ void __launch_bounds__(256)
+probe_window(int R, const int* __restrict__ seed, int* __restrict__ out,
+             int* __restrict__ steps, int* __restrict__ scratch, size_t per) {
+  constexpr int W = MODE == 17 ? JC2 : CB;
+  constexpr int NC = W * 128;
+  constexpr int CH = (NC + 255) / 256;
+  __shared__ int red[8];
+  const int tid = threadIdx.x;
+  const int j0 = tid * CH;
+  int* ring = scratch + (size_t)blockIdx.x * per;  // [RING2 * JC2][128]
+  const int sd = seed[blockIdx.x];
+  for (int i = tid; i < RING2 * JC2 * 128; i += 256)
+    ring[i] = (i / 128) % 97 + sd;
+  __syncthreads();
+  int cells = 0;
+  for (int r = 0; r < R; ++r) {
+    // window origin tracks the rank's backbone column
+    const int cb0 = min(max(r * JC2 / R - CB / 2, 0), JC2 - W);
+    const int* pr = ring + (size_t)((r % RING2) * JC2 + cb0) * 128;
+    int P[CH + 1];
+#pragma unroll
+    for (int k = 0; k <= CH; ++k) {
+      const int j = j0 - 1 + k;
+      P[k] = (j >= 0 && j < NC) ? pr[j] : NEG_;
+    }
+    int x[CH], run = INT_MIN;
+#pragma unroll
+    for (int k = 0; k < CH; ++k) {
+      const int j = j0 + k;
+      if (j < NC) {
+        const int diag = (j == 0 ? NEG_ : P[k]) + sc_of(j, 1);
+        run = max(run, max(diag, P[k + 1] + G_) - j * G_);
+      }
+      x[k] = run;
+    }
+    const int ex = block_excl<false>(run, red);
+    int* hr = ring + (size_t)(((r + 1) % RING2) * JC2 + cb0) * 128;
+#pragma unroll
+    for (int k = 0; k < CH; ++k)
+      if (j0 + k < NC) hr[j0 + k] = max(x[k], ex) + (j0 + k) * G_;
+    __syncthreads();
+    cells += NC;
+  }
+  if (tid == 0) {
+    const int* hr = ring + (size_t)(R % RING2) * JC2 * 128;
+    out[blockIdx.x] = hr[0] + hr[1];
+    steps[blockIdx.x] = cells;
+  }
+}
+
+template <typename K>
+cudaError_t launch(K kernel, int threads, size_t smem, int B,
+                   cudaStream_t st, int R, const int* seed, int* out,
+                   int* steps, int* scratch, size_t per) {
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<B, threads, smem, st>>>(R, seed, out, steps, scratch, per);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_band(int B, cudaStream_t st, int R, const int* seed,
+                        int* out, int* steps, int* scratch, size_t per) {
+  probe_band<MODE><<<B, MODE == 15 ? 256 : 32, 0, st>>>(R, seed, out, steps,
+                                                         scratch, per);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Scratch int32 words per program.
+long long rt_probe_scratch_words(int mode, int R) {
+  switch (mode) {
+    case 6: return (long long)(R + 1) * ROW;
+    case 8: return (long long)(R + 1) * 2 * ROW;
+    case 9: case 10: case 12: return (long long)RING * LS_G * LS_W;
+    case 15: return ROW;                      // the last band row
+    case 13: case 14: case 16: return 128;
+    case 17: case 18: return (long long)RING2 * JC2 * 128;
+    default: return (long long)(R + 1) * ROW + (long long)NE * NSLOT;
+  }
+}
+
+// One block per program: seed i32[B] in, out and steps i32[B] out,
+// scratch i32[B, rt_probe_scratch_words(mode, R)].
+int rt_probe_launch(int mode, int R, const void* seed, void* out, void* steps,
+                    void* scratch, int B, void* stream) {
+  if (mode < 0 || mode > 18 || R < 1 || R > NSLOT - 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int* sd = (const int*)seed;
+  int* o = (int*)out;
+  int* s = (int*)steps;
+  int* sc = (int*)scratch;
+  const size_t per = (size_t)rt_probe_scratch_words(mode, R);
+  const size_t red = 8 * sizeof(int);                 // scan scratch only
+  const size_t graph = (8 + 5 * NSLOT) * sizeof(int);  // + graph state
+  const size_t gls = GSLOTS * 8 * 128 * sizeof(int);   // mode 10's rows
+  auto go = [&](auto kernel, int threads, size_t smem) {
+    return (int)launch(kernel, threads, smem, B, st, R, sd, o, s, sc, per);
+  };
+  switch (mode) {
+    case 0: return go(probe_a<0>, 256, red);
+    case 1: return go(probe_a<1>, 256, graph);
+    case 2: return go(probe_a<2>, 256, graph);
+    case 3: return go(probe_a<3>, 256, graph);
+    case 4: return go(probe_a<4>, 256, graph);
+    case 5: return go(probe_a<5>, 256, red);
+    case 6: return go(probe_flat, 1024, 0);
+    case 7: return go(probe_a<7>, 256, red);
+    case 8: return go(probe_pair, 256, 0);
+    case 9: return go(probe_ls<9>, 256, 0);
+    case 10: return go(probe_ls<10>, 256, gls);
+    case 11: return go(probe_a<11>, 256, graph);
+    case 12: return go(probe_ls<12>, 256, 0);
+    case 13: return (int)launch_band<13>(B, st, R, sd, o, s, sc, per);
+    case 14: return (int)launch_band<14>(B, st, R, sd, o, s, sc, per);
+    case 15: return (int)launch_band<15>(B, st, R, sd, o, s, sc, per);
+    case 16: return (int)launch_band<16>(B, st, R, sd, o, s, sc, per);
+    case 17: return go(probe_window<17>, 256, 0);
+    default: return go(probe_window<18>, 256, 0);
+  }
+}
+
+}  // extern "C"

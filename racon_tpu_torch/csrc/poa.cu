@@ -37,12 +37,14 @@
 #include <math.h>
 #include <stdint.h>
 
-#define NEG_ (-(1 << 28))
-#define NT 256
-#define NWARP (NT / 32)
+#include "poa_common.cuh"
+
 #define CHMAX 8  // columns per thread: max_len + 1 <= NT * CHMAX
 
 namespace {
+
+using poa_common::better;
+using poa_common::block_best;
 
 struct Cfg {
   int N, ML, MB, E, D, ma, mm, gp;
@@ -95,41 +97,6 @@ __device__ inline Shared carve(char* p, int N, int ML) {
   return s;
 }
 
-// Lexicographic "better": larger a, then larger b, then smaller index.
-__device__ __forceinline__ bool better(int a1, int b1, int i1, int a2, int b2,
-                                       int i2) {
-  if (a1 != a2) return a1 > a2;
-  if (b1 != b2) return b1 > b2;
-  return i1 < i2;
-}
-
-// Block-wide argmax by (a desc, b desc, idx asc); idx < 0 marks "none".
-// All threads get the winner. Uses s.red_*.
-__device__ void block_best(const Shared& s, int& a, int& b, int& idx) {
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  for (int d = 16; d > 0; d >>= 1) {
-    int a2 = __shfl_down_sync(0xffffffffu, a, d);
-    int b2 = __shfl_down_sync(0xffffffffu, b, d);
-    int i2 = __shfl_down_sync(0xffffffffu, idx, d);
-    if (i2 >= 0 && (idx < 0 || better(a2, b2, i2, a, b, idx))) {
-      a = a2; b = b2; idx = i2;
-    }
-  }
-  __syncthreads();
-  if (lane == 0) {
-    s.red_v[wid] = a; s.red_w[wid] = b; s.red_i[wid] = idx;
-  }
-  __syncthreads();
-  a = s.red_v[0]; b = s.red_w[0]; idx = s.red_i[0];
-  for (int w = 1; w < NWARP; ++w) {
-    int a2 = s.red_v[w], b2 = s.red_w[w], i2 = s.red_i[w];
-    if (i2 >= 0 && (idx < 0 || better(a2, b2, i2, a, b, idx))) {
-      a = a2; b = b2; idx = i2;
-    }
-  }
-  __syncthreads();
-}
-
 // Rank order over the n used nodes: stable sort by key, ties by node id.
 __device__ void rebuild_order(const Shared& s, int n) {
   for (int u = threadIdx.x; u < n; u += NT) {
@@ -171,6 +138,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   const int win = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   Shared s = carve(smem, N, ML);
+  const poa_common::Red red{s.red_v, s.red_w, s.red_i};
 
   int* H = scratch + (size_t)win * scratch_per;
   int* src = H + (size_t)(N + 1) * HS;
@@ -238,7 +206,9 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     const int r0 = s.misc[2], n_sub = s.misc[3];
     dp_cells += (long long)n_sub * (L + 1);
 
-    // --- DP over the subgraph in rank order
+    // --- DP over the subgraph in rank order. sub[u] becomes 2 once u's row
+    // is computed; a predecessor ranked later (equal keys along an edge)
+    // has no row yet and counts as a row of NEG, as in the plain version.
     const int CH = (L + 1 + NT - 1) / NT;
     const int j0 = tid * CH;
     for (int r = r0; r < r0 + n_sub; ++r) {
@@ -252,6 +222,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
         const int sv = src[(size_t)u * E + e];
         if (sv < 0 || !s.sub[sv]) continue;
         any = true;
+        if (s.sub[sv] != 2) continue;
         const int* hr = H + (size_t)(sv + 1) * HS;
 #pragma unroll
         for (int k = 0; k <= CHMAX; ++k) {
@@ -297,6 +268,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
         const int j = j0 + k;
         if (k < CH && j <= L) hrow[j] = max(x[k], excl) + j * gp;
       }
+      if (tid == 0) s.sub[u] = 2;
       __syncthreads();
     }
     if (n_sub == 0) {  // the plain version's untouched row of node 0
@@ -320,7 +292,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
       const int sc = s.has_out[u] ? NEG_ : H[(size_t)(u + 1) * HS + L];
       if (bi < 0 || better(sc, 0, r, ba, bbv, bi)) { ba = sc; bi = r; }
     }
-    block_best(s, ba, bbv, bi);
+    block_best(red, ba, bbv, bi);
     const int start_u = bi >= 0 ? s.order[bi] : 0;
 
     // --- traceback (warp 0)
@@ -422,22 +394,9 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
           failed = 1;
         } else {
           if (lane == 0) cov[nid] += 1;
-          if (prev >= 0) {
-            int sv = -2;
-            if (lane < E) sv = src[(size_t)nid * E + lane];
-            const unsigned msame = __ballot_sync(0xffffffffu, sv == prev);
-            const unsigned mempty = __ballot_sync(0xffffffffu, sv == -1);
-            if (msame) {
-              if (lane == __ffs(msame) - 1) ew[(size_t)nid * E + lane] += prev_w + wj;
-            } else if (mempty) {
-              if (lane == __ffs(mempty) - 1) {
-                ew[(size_t)nid * E + lane] = prev_w + wj;
-                src[(size_t)nid * E + lane] = prev;
-              }
-            } else {
-              failed = 1;
-            }
-          }
+          if (prev >= 0 &&
+              !poa_common::add_edge(src, ew, E, nid, prev, prev_w + wj, lane))
+            failed = 1;
         }
         __syncwarp();
         prev = nid;
@@ -450,105 +409,12 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     rebuild_order(s, s.misc[0]);
   }
 
-  // --- consensus: heaviest bundle in rank order (warp 0)
+  // --- consensus
   const int n = s.misc[0];
-  for (int i = tid; i < N; i += NT) {
-    s.score[i] = 0;
-    s.pred[i] = -1;
-  }
-  __syncthreads();
-  if (wid == 0) {
-    for (int r = 0; r < n; ++r) {
-      const int u = s.order[r];
-      int sv = -1, wv = NEG_, ps = NEG_;
-      if (lane < E) {
-        sv = src[(size_t)u * E + lane];
-        if (sv >= 0) { wv = ew[(size_t)u * E + lane]; ps = s.score[sv]; }
-      }
-      const bool valid = sv >= 0;
-      const unsigned mval = __ballot_sync(0xffffffffu, valid);
-      int wmax = wv;
-      for (int d = 16; d > 0; d >>= 1)
-        wmax = max(wmax, __shfl_xor_sync(0xffffffffu, wmax, d));
-      // among slots with w == wmax: largest ps, then lowest slot
-      int bp = (valid && wv == wmax) ? ps : INT_MIN;
-      int bl = (valid && wv == wmax) ? lane : 64;
-      for (int d = 16; d > 0; d >>= 1) {
-        const int p2 = __shfl_xor_sync(0xffffffffu, bp, d);
-        const int l2 = __shfl_xor_sync(0xffffffffu, bl, d);
-        if (p2 > bp || (p2 == bp && l2 < bl)) { bp = p2; bl = l2; }
-      }
-      const int slot_src = __shfl_sync(0xffffffffu, sv, bl & 31);
-      if (lane == 0) {
-        s.score[u] = mval ? wmax + bp : 0;
-        s.pred[u] = mval ? slot_src : -1;
-      }
-      __syncwarp();
-    }
-  }
-  __syncthreads();
-  int ba = INT_MIN, bbv = 0, bi = -1;
-  for (int r = tid; r < n; r += NT) {
-    const int sc = s.score[s.order[r]];
-    if (bi < 0 || better(sc, 0, r, ba, bbv, bi)) { ba = sc; bi = r; }
-  }
-  block_best(s, ba, bbv, bi);
-  const int summit = bi >= 0 ? s.order[bi] : 0;
-
-  // backward walk to a source, then reverse
-  if (tid == 0) {
-    int u = summit, cnt = 0;
-    while (u != -1 && cnt < N) {
-      s.path[cnt++] = u;
-      u = s.pred[u];
-    }
-    s.misc[4] = cnt;
-  }
-  __syncthreads();
-  {
-    const int cnt = s.misc[4];
-    // reverse path[0, cnt) in place
-    for (int i = tid; i < cnt / 2; i += NT) {
-      const int a = s.path[i];
-      s.path[i] = s.path[cnt - 1 - i];
-      s.path[cnt - 1 - i] = a;
-    }
-  }
-  __syncthreads();
-
-  // forward walk from the summit along the heaviest out-edges to a sink
-  int cnt = s.misc[4];
-  int u = summit;
-  while (cnt < N) {
-    int a = INT_MIN, b2 = 0, idx = -1;
-    for (int v = tid; v < n; v += NT) {
-      int wvv = NEG_;
-      for (int e = 0; e < E; ++e)
-        if (src[(size_t)v * E + e] == u) wvv = max(wvv, ew[(size_t)v * E + e]);
-      if (wvv > NEG_ && (idx < 0 || better(wvv, s.score[v], v, a, b2, idx))) {
-        a = wvv; b2 = s.score[v]; idx = v;
-      }
-    }
-    block_best(s, a, b2, idx);
-    if (idx < 0) break;
-    if (tid == 0) s.path[cnt] = idx;
-    ++cnt;
-    u = idx;
-  }
-  __syncthreads();
-
-  int* cb = cons_base + (size_t)win * N;
-  int* cc = cons_cov + (size_t)win * N;
-  for (int i = tid; i < N; i += NT) {
-    if (i < cnt) {
-      const int v = s.path[i];
-      cb[i] = s.base[v];
-      cc[i] = cov[v];
-    } else {
-      cb[i] = -1;
-      cc[i] = 0;
-    }
-  }
+  const int cnt = poa_common::consensus(
+      s.order, s.base, n, N, E, src, ew, cov, s.score, s.pred, s.path,
+      &s.misc[4], red, cons_base + (size_t)win * N,
+      cons_cov + (size_t)win * N);
   if (tid == 0) {
     cons_len[win] = cnt;
     failed_out[win] = s.misc[1] ? 1 : 0;

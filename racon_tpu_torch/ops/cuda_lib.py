@@ -6,7 +6,7 @@ that the wrappers call through ``ctypes`` (pointers as ``c_void_p``, the
 stream from ``torch.cuda.current_stream().cuda_stream``). The build runs
 at first use, one ``nvcc`` per source, all started together, under a file
 lock so that concurrent processes build once. ``--fmad=false`` and IEEE
-division keep the POA kernel's float32 column keys bit-identical to the
+division keep the POA kernels' float32 column keys bit-identical to the
 plain version's.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
@@ -26,14 +26,15 @@ from typing import Dict
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("poa", "align")
+SOURCES = ("poa", "poa_v2", "align", "dp_cost_probe")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
-LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "hirschberg_edge": 0,
-                            "hirschberg_base": 0}
+LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_v2": 0,
+                            "hirschberg_edge": 0, "hirschberg_base": 0,
+                            "dp_cost_probe": 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 

@@ -1,9 +1,9 @@
 """Batched partial-order alignment (POA): the plain PyTorch version.
 
-This is the reference the CUDA kernel (ops/poa_cuda.py, csrc/poa.cu) is
-held against, and what the wrapper runs for tensors on the CPU. It is a
-straight translation of the JAX package's batched POA, one window at a
-time:
+This is the reference both CUDA kernels (ops/poa_cuda.py, csrc/poa.cu;
+ops/poa_v2_cuda.py, csrc/poa_v2.cu) are held against, and what their
+wrappers run for tensors on the CPU. It is a straight translation of the
+JAX package's batched POA, one window at a time:
 
 * the graph lives in fixed-size arrays per window; every node belongs to
   a column with a float32 key (backbone column i has key i, insertion
@@ -32,6 +32,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .colstep import n_column_steps
 
 NEG = -(1 << 28)
 _F = np.float32
@@ -84,7 +86,7 @@ def _rank_order(key: np.ndarray, nodes: np.ndarray) -> np.ndarray:
 
 def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
                wts: np.ndarray, L: int, begin: int, end: int, bb_len: int,
-               stats: Optional[dict]) -> None:
+               stats: Optional[dict], colstep: bool) -> None:
     N, E, ML = cfg.max_nodes, cfg.max_edges, cfg.max_len
     gp, ma, mm = cfg.gap, cfg.match, cfg.mismatch
     offset = int(_F(0.01) * _F(bb_len))
@@ -120,6 +122,9 @@ def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
         H[u + 1] = torch.cummax(V - jg, dim=0).values + jg
     if stats is not None:
         stats["cells"] = stats.get("cells", 0) + n_sub * (L + 1)
+        steps = n_column_steps(g.key[order]) if colstep else n_sub
+        stats["steps"] = stats.get("steps", 0) + steps
+        stats["rows"] = stats.get("rows", 0) + n_sub
     Hn = H.numpy()
     sq = seq.numpy()
 
@@ -285,7 +290,8 @@ def _consensus(cfg: PoaConfig, g: _Graph):
 
 
 def polish_window(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
-                  begins, ends, stats: Optional[dict] = None):
+                  begins, ends, stats: Optional[dict] = None,
+                  colstep: bool = True):
     """One window: init graph, fold in layers, consensus. CPU tensors in;
     (cons_base, cons_cov, cons_len, failed, n_nodes) out."""
     bl = int(bb_len)
@@ -296,19 +302,24 @@ def polish_window(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
         if L <= 0 or g.failed:
             continue
         _add_layer(cfg, g, seqs[li], ws[li].numpy(), L, bg[li], en[li], bl,
-                   stats)
+                   stats, colstep)
     cb, cc, cl = _consensus(cfg, g)
     return cb, cc, cl, g.failed, g.n
 
 
 def poa_batch_plain(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
-                    lens, begins, ends, stats: Optional[dict] = None):
+                    lens, begins, ends, stats: Optional[dict] = None,
+                    colstep: bool = True):
     """Batched POA on the CPU: the same nine arrays, in the same order, as
-    the kernel takes; returns (cons_base i32[B,N], cons_cov i32[B,N],
+    the kernels take; returns (cons_base i32[B,N], cons_cov i32[B,N],
     cons_len i32[B], failed bool[B], n_nodes i32[B]) on the CPU.
 
-    `stats`, when given, accumulates the DP cell count ("cells") that
-    the run needed."""
+    `stats`, when given, accumulates the DP cells ("cells") and DP rows
+    ("rows": subgraph nodes summed over the layers) that the run needed,
+    and the serial DP iterations ("steps") of the v2 kernel's loop over
+    each layer's subgraph: ``n_column_steps`` of its rank-ordered keys
+    with `colstep`, its node count without. The outputs do not depend on
+    `colstep`."""
     args = [t.cpu().contiguous() for t in (bb, bbw, bb_len, n_layers, seqs,
                                             ws, lens, begins, ends)]
     bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends = args
@@ -321,7 +332,7 @@ def poa_batch_plain(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     for b in range(B):
         cb, cc, cl, fl, nn = polish_window(
             cfg, bb[b], bbw[b], bb_len[b], n_layers[b], seqs[b], ws[b],
-            lens[b], begins[b], ends[b], stats)
+            lens[b], begins[b], ends[b], stats, colstep)
         cons_base[b] = torch.from_numpy(cb)
         cons_cov[b] = torch.from_numpy(cc)
         cons_len[b], failed[b], n_nodes[b] = cl, fl, nn

@@ -44,7 +44,8 @@ def _lib():
     return _LIB
 
 
-def _check(cfg: PoaConfig, args, dev):
+def check_inputs(cfg: PoaConfig, args, dev) -> int:
+    """Both POA wrappers' argument check; returns the batch size."""
     bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends = args
     B, D = bb.shape[0], cfg.depth
     req = cuda_lib.require
@@ -74,7 +75,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats)
     dev = bb.device
-    B = _check(cfg, args, dev)
+    B = check_inputs(cfg, args, dev)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)

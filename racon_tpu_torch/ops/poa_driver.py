@@ -1,11 +1,14 @@
 """Consensus-phase driver: packs windows into depth-bucketed batches, runs
-the POA kernel, trims and installs the results, and re-polishes on the
+a POA kernel, trims and installs the results, and re-polishes on the
 host every window the kernel flags ``failed``.
 
 A copy of the JAX package's driver (racon_tpu/ops/poa_driver.py) reduced
-to one path: no kernel tiers, no journal, no sanitizer, no band ladder, no
-sharding. The kernel keeps H in global memory, so neither depth nor window
-class ever keeps a window off the card.
+to one path: no journal, no sanitizer, no band ladder, no sharding, and no
+lattice. The kernel is an argument, ``poa_kernel``: "ls" (ops/poa_cuda.py,
+the default, as in the JAX package) or "v2" (ops/poa_v2_cuda.py); both
+compute one function, and neither steps down to the other. Both keep H in
+global memory, so neither depth nor window class ever keeps a window off
+the card.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import torch
 from . import poa
 from .encoding import decode, encode
 from .poa_cuda import poa_consensus
+from .poa_v2_cuda import poa_consensus_v2
 
 DEPTH_CAP = 200                    # layers per window, as the reference
 DEPTH_BUCKETS = (8, 32, DEPTH_CAP)
 NODE_FACTOR = 3                    # max_nodes = 3 x window length
+POA_KERNELS = ("ls", "v2")
 
 
 def window_class(bb_len: int) -> int:
@@ -58,11 +63,21 @@ def tgs_trim(codes: np.ndarray, cov: np.ndarray, n_seqs: int):
     return codes[begin:end + 1]
 
 
+def kernel_for(poa_kernel: str):
+    """The POA wrapper for a kernel name, looked up in this module when
+    called (so a caller may wrap it here)."""
+    if poa_kernel not in POA_KERNELS:
+        raise ValueError(f"poa_kernel must be 'ls' or 'v2', got "
+                         f"{poa_kernel!r}")
+    return poa_consensus if poa_kernel == "ls" else poa_consensus_v2
+
+
 def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
-                        trim: bool, device="cuda",
-                        batch_windows: int = 256) -> dict:
+                        trim: bool, device="cuda", batch_windows: int = 256,
+                        poa_kernel: str = "ls") -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
+    `poa_kernel` ("ls" or "v2") picks the kernel.
 
     Returns {device, host_fallback, backbone, failed, layers_dropped,
     batches, host_seconds}: windows served by the kernel, re-polished on
@@ -70,6 +85,7 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     layers dropped at admission, kernel batches run, and the wall time of
     the host re-polish."""
     device = torch.device(device)
+    kernel_for(poa_kernel)
     n = pipeline.num_windows()
     stats = {"device": 0, "host_fallback": 0, "backbone": 0, "failed": 0,
              "layers_dropped": 0, "batches": 0}
@@ -105,7 +121,8 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
             if not chunk:
                 continue
             packed = _pack(chunk, cfg)
-            outs = poa_consensus(cfg, *poa.batch_to_tensors(packed, device))
+            outs = kernel_for(poa_kernel)(
+                cfg, *poa.batch_to_tensors(packed, device))
             stats["batches"] += 1
             _install(pipeline, chunk, _unpack(outs), trim, stats, fallback)
 

@@ -17,7 +17,7 @@ from typing import List, Tuple
 import torch
 
 from .ops.align_driver import run_alignment_phase
-from .ops.poa_driver import run_consensus_phase
+from .ops.poa_driver import kernel_for, run_consensus_phase
 from .pipeline import Pipeline
 
 
@@ -37,7 +37,8 @@ class TorchPolisher:
 
     ``device`` is where the kernels run ("cuda", the default, or "cpu"
     for the plain PyTorch versions); ``batch_windows`` is the POA batch
-    in windows. The other keyword arguments are racon's (window_length,
+    in windows; ``poa_kernel`` picks the POA kernel ("ls", the default,
+    or "v2"; both compute the same consensus). The other keyword arguments are racon's (window_length,
     quality_threshold, error_threshold, trim, match, mismatch, gap,
     fragment_correction, num_threads).
 
@@ -45,9 +46,12 @@ class TorchPolisher:
     counts."""
 
     def __init__(self, sequences: str, overlaps: str, target: str, *,
-                 device="cuda", batch_windows: int = 256, **racon_kwargs):
+                 device="cuda", batch_windows: int = 256,
+                 poa_kernel: str = "ls", **racon_kwargs):
         self.device = _resolve_device(device)
+        kernel_for(poa_kernel)
         self.batch_windows = batch_windows
+        self.poa_kernel = poa_kernel
         self._kwargs = dict(racon_kwargs)
         self._pipeline = Pipeline(sequences, overlaps, target,
                                   **racon_kwargs)
@@ -76,13 +80,15 @@ class TorchPolisher:
             "consensus", run_consensus_phase, self._pipeline,
             match=kw.get("match", 3), mismatch=kw.get("mismatch", -5),
             gap=kw.get("gap", -4), trim=kw.get("trim", True),
-            device=self.device, batch_windows=self.batch_windows)
+            device=self.device, batch_windows=self.batch_windows,
+            poa_kernel=self.poa_kernel)
         return self._timed("stitch", self._pipeline.stitch, drop_unpolished)
 
 
 def create_polisher(sequences: str, overlaps: str, target: str, *,
-                    device="cuda", **kwargs) -> TorchPolisher:
+                    device="cuda", poa_kernel: str = "ls",
+                    **kwargs) -> TorchPolisher:
     """Factory, as the JAX package's create_polisher for its device
     backend."""
     return TorchPolisher(sequences, overlaps, target, device=device,
-                         **kwargs)
+                         poa_kernel=poa_kernel, **kwargs)

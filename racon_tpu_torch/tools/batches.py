@@ -70,6 +70,50 @@ def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
     return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
 
 
+#: (run length R, growing layers K, seed) of each equal_key_batch window.
+EQUAL_KEY_WINDOWS = ((5, 11, 0), (7, 12, 0), (7, 11, 0), (12, 10, 1),
+                     (9, 12, 3), (7, 10, 0))
+
+
+def equal_key_batch(cfg: PoaConfig, windows=EQUAL_KEY_WINDOWS):
+    """Windows whose float32 column keys run out of precision. On a random
+    64-base backbone, layer k of K (full span) repeats the bases inserted
+    so far between columns 40 and 41 and inserts R more, so the new
+    columns' keys crowd towards 41 until some round to 41 itself: an edge
+    then joins two nodes of equal key whose source has the larger id and
+    ranks later. A last layer over columns 41..63 meets such nodes, some
+    with every in-subgraph predecessor ranked after them. cfg needs
+    depth >= 13, max_len >= 208 and max_backbone >= 64."""
+    B, n, c = len(windows), 64, 40
+    D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
+    bb = np.zeros((B, MB), np.uint8)
+    bbw = np.zeros((B, MB), np.int32)
+    bb_len = np.full(B, n, np.int32)
+    n_layers = np.zeros(B, np.int32)
+    seqs = np.zeros((B, D, ML), np.uint8)
+    ws = np.zeros((B, D, ML), np.int32)
+    lens = np.zeros((B, D), np.int32)
+    begins = np.zeros((B, D), np.int32)
+    ends = np.full((B, D), n - 1, np.int32)
+    for b, (R, K, seed) in enumerate(windows):
+        rng = np.random.default_rng(seed)
+        back = rng.integers(0, 4, n).astype(np.uint8)
+        bb[b, :n], bbw[b, :n] = back, 10
+        ins = np.zeros(0, np.uint8)
+        lays = []
+        for _ in range(K):
+            ins = np.concatenate([ins, rng.integers(0, 4, R).astype(np.uint8)])
+            lays.append(np.concatenate([back[:c + 1], ins, back[c + 1:]]))
+        lays.append(back[c + 1:])
+        begins[b, K] = c + 1
+        n_layers[b] = len(lays)
+        for li, lay in enumerate(lays):
+            seqs[b, li, :len(lay)] = lay
+            ws[b, li, :len(lay)] = 10
+            lens[b, li] = len(lay)
+    return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
+
+
 def align_pairs(seed: int, count: int, lo: int, hi: int, rate=(0.02, 0.18)):
     """`count` (query, target) code pairs: a random query of lo..hi bases
     and a target mutated from it at a rate drawn from `rate`."""

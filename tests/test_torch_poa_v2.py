@@ -1,0 +1,231 @@
+"""racon_tpu_torch's v2 POA tier against the JAX package's.
+
+The JAX package's v2 Pallas kernel (``build_pallas_poa_kernel``, interpret
+mode on the CPU) and the port's plain PyTorch version, which the port's v2
+wrapper runs for CPU tensors, take one numpy batch. ``failed`` must agree
+on every window, and all five outputs on every window v2 did not fail
+(tolerance 0: every output is an integer). End to end,
+``TorchPolisher(device="cpu", poa_kernel="v2")`` must write the same
+FASTA as ``racon_tpu.TpuPolisher`` serving its v2 tier in interpret mode.
+The CUDA kernel is held against the plain version in
+tests/test_torch_cuda.py and by chip_smoke.py.
+"""
+
+import random
+
+import numpy as np
+import pytest
+
+import racon_tpu
+import racon_tpu_torch
+from racon_tpu.ops import colstep as jcolstep
+from racon_tpu.ops import poa_pallas
+from racon_tpu_torch import cli
+from racon_tpu_torch.ops import colstep, poa, poa_driver, poa_v2_cuda
+from racon_tpu_torch.tools import batches
+from tests.test_pallas import mutate
+from tests.test_pallas_ls import CFG, _alloc, _set_window
+from tests.test_torch_poa import _args, _fuzz_batch, _mixed_batch
+from tests.test_torch_polish import KW, _paf_dataset
+
+
+def _pallas_v2(cfg, a, colstep_on):
+    fn = poa_pallas.build_pallas_poa_kernel(
+        cfg, interpret=True, colstep=colstep_on)(len(a["bb"]))
+    cb, cc, cl, fl, nn = (np.asarray(x) for x in fn(
+        a["bb_len"][:, None], a["nl"][:, None], a["lens"], a["bg"],
+        a["en"], a["bb"].astype(np.int32), a["bbw"],
+        a["seqs"].astype(np.int32), a["ws"]))
+    return [cb, cc, cl[:, 0], fl[:, 0].astype(bool), nn[:, 0]]
+
+
+def _plain_v2(cfg, a, colstep_on, stats=None):
+    t = poa.batch_to_tensors(_args(a) + (None,), "cpu")
+    return [x.numpy() for x in poa_v2_cuda.poa_consensus_v2(
+        cfg, *t, colstep=colstep_on, stats=stats)]
+
+
+def _assert_v2_equal(cfg, a, colstep_on):
+    want = _pallas_v2(cfg, a, colstep_on)
+    got = _plain_v2(cfg, a, colstep_on)
+    np.testing.assert_array_equal(got[3], want[3], err_msg="failed")
+    for b in np.nonzero(~want[3])[0]:
+        for k, (w, g) in enumerate(zip(want, got)):
+            np.testing.assert_array_equal(
+                np.asarray(g[b]).astype(np.int64),
+                np.asarray(w[b]).astype(np.int64),
+                err_msg=f"window {b} output {k}")
+    return got
+
+
+@pytest.mark.parametrize("colstep_on", [True, False])
+def test_mixed_batch_equals_pallas_v2(colstep_on):
+    got = _assert_v2_equal(CFG, _mixed_batch(), colstep_on)
+    assert not got[3].any()
+
+
+@pytest.mark.parametrize("colstep_on", [True, False])
+@pytest.mark.parametrize("seed", [101, 202, 303])
+def test_fuzz_equals_pallas_v2(seed, colstep_on):
+    _assert_v2_equal(CFG, _fuzz_batch(seed), colstep_on)
+
+
+def test_overflow_window_fails_as_pallas_v2():
+    """Node slots run out: failed and n_nodes agree with the v2 kernel."""
+    cfg = CFG._replace(max_nodes=128)
+    rng = random.Random(3)
+    a = _alloc(1, cfg)
+    truth = bytes(rng.choice(b"ACGT") for _ in range(100))
+    _set_window(a, 0, truth, [bytes(rng.choice(b"ACGT") for _ in range(100))
+                              for _ in range(3)])
+    want, got = _pallas_v2(cfg, a, True), _plain_v2(cfg, a, True)
+    assert got[3][0] and want[3][0]
+    np.testing.assert_array_equal(got[4], want[4])
+
+
+_KEY_LISTS = {
+    "chain": [0.0, 1.0, 2.0, 3.0],
+    "bubble": [0.0, 1.0, 1.0, 2.0],
+    "branch_heavy": [0.0, 1.0, 1.0, 1.0, 2.0, 2.0],
+    "one_column": [5.0] * 8,
+    "empty": [],
+    "random": sorted(random.Random(11).choice((0.5, 1.0, 1.5, 2.0, 2.25,
+                                               3.0)) for _ in range(37)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_KEY_LISTS))
+def test_colstep_copy_equals_jax(name):
+    keys = _KEY_LISTS[name]
+    assert colstep.pair_schedule(keys) == jcolstep.pair_schedule(keys)
+    assert colstep.n_column_steps(keys) == jcolstep.n_column_steps(keys)
+    assert colstep.compression(keys) == jcolstep.compression(keys)
+    assert colstep.PACK == jcolstep.PACK
+
+
+def test_plain_steps_count_column_steps(monkeypatch):
+    """stats["steps"] is the sum over layers of n_column_steps of the
+    subgraph's rank-ordered keys with colstep, its node count without;
+    the cells and the outputs do not depend on colstep."""
+    seen = []
+
+    def spy(keys):
+        seen.append(np.array(keys))
+        return colstep.n_column_steps(keys)
+
+    monkeypatch.setattr(poa, "n_column_steps", spy)
+    a = _fuzz_batch(505)
+    on, off = {}, {}
+    got_on = _plain_v2(CFG, a, True, on)
+    got_off = _plain_v2(CFG, a, False, off)
+    assert seen and all((np.diff(k) >= 0).all() for k in seen)
+    assert on["steps"] == sum(jcolstep.n_column_steps(k) for k in seen)
+    assert off["steps"] == on["rows"] == sum(len(k) for k in seen)
+    assert on["steps"] < off["steps"]
+    assert on["cells"] == off["cells"] > 0
+    for w, g in zip(got_on, got_off):
+        np.testing.assert_array_equal(w, g)
+
+
+def test_paf_polish_byte_identical_to_jax_v2(tmp_path, monkeypatch):
+    paths = _paf_dataset(tmp_path)
+    p = racon_tpu_torch.TorchPolisher(*paths, device="cpu", poa_kernel="v2",
+                                      **KW)
+    p.initialize()
+    got = p.polish(True)
+    for k, v in {"RACON_TPU_PALLAS": "1", "RACON_TPU_POA_KERNEL": "v2",
+                 "RACON_TPU_DEVICE_ALIGNER": "hirschberg"}.items():
+        monkeypatch.setenv(k, v)
+    q = racon_tpu.TpuPolisher(*paths, **KW)
+    q.initialize()
+    assert got == q.polish(True)
+    assert q.report.as_dict()["phases"]["consensus"]["served"]["v2"] > 0
+    assert p.stats["consensus"]["device"] > 0
+
+
+def test_cli_poa_kernel_v2_writes_the_same_fasta(tmp_path, capsys):
+    paths = _paf_dataset(tmp_path)
+    flags = ["--device", "cpu", "-w", "100", "-m", "5", "-x", "-4", "-g",
+             "-8"]
+    assert cli.main(flags + list(paths)) == 0
+    ls_out = capsys.readouterr().out
+    assert cli.main(flags + ["--poa-kernel", "v2"] + list(paths)) == 0
+    assert capsys.readouterr().out == ls_out != ""
+
+
+def test_bad_poa_kernel_raises(tmp_path):
+    paths = _paf_dataset(tmp_path)
+    with pytest.raises(ValueError, match="poa_kernel"):
+        racon_tpu_torch.TorchPolisher(*paths, device="cpu",
+                                      poa_kernel="xla", **KW)
+    with pytest.raises(ValueError, match="poa_kernel"):
+        poa_driver.kernel_for("lockstep")
+    assert poa_driver.kernel_for("v2") is poa_v2_cuda.poa_consensus_v2
+
+
+def test_v2_wrapper_rejects_bad_input():
+    t = list(poa.batch_to_tensors(_args(_alloc(2, CFG)) + (None,), "meta"))
+    bad = list(t)
+    bad[0] = bad[0].int()
+    with pytest.raises(ValueError, match="bb"):
+        poa_v2_cuda.poa_consensus_v2(CFG, *bad)
+    with pytest.raises(ValueError, match="max_edges"):
+        poa_v2_cuda.poa_consensus_v2(CFG._replace(max_edges=16), *t)
+
+
+def _late_predecessors(cfg, packed):
+    """Per window of an equal_key_batch, over the layers the plain version
+    folds in: the subgraph nodes whose in-subgraph predecessors all rank
+    after them, and those with some ranked after them, some before."""
+    t = poa.batch_to_tensors(packed, "cpu")
+    res = []
+    for b in range(t[0].shape[0]):
+        bb, bbw, bb_len, nl, seqs, ws, lens, begins, ends = (x[b] for x in t)
+        n = int(bb_len)
+        assert int(np.float32(0.01) * n) == 0   # no layer spans the window
+        g = poa._Graph(cfg, bb, bbw, n)
+        all_late = mixed = 0
+        for li in range(int(nl)):
+            if g.failed:
+                break
+            lo, hi = np.float32(begins[li]), np.float32(ends[li])
+            sub = np.zeros(cfg.max_nodes, bool)
+            sub[:g.n] = (g.key[:g.n] >= lo) & (g.key[:g.n] <= hi)
+            order = poa._rank_order(g.key, np.nonzero(sub)[0])
+            rank = {int(u): r for r, u in enumerate(order)}
+            for u in order:
+                ps = [rank[int(s)] for s in g.src[u] if s >= 0 and sub[s]]
+                late = sum(r > rank[int(u)] for r in ps)
+                all_late += bool(late) and late == len(ps)
+                mixed += 0 < late < len(ps)
+            poa._add_layer(cfg, g, seqs[li], ws[li].numpy(), int(lens[li]),
+                           int(begins[li]), int(ends[li]), n, None, True)
+        res.append((all_late, mixed, g.failed))
+    return res
+
+
+def test_equal_key_batch_meets_late_predecessors():
+    """The batch that holds the kernels to the plain version where a DP
+    row's predecessor is not computed yet (tests/test_torch_cuda.py) has
+    such rows: with every predecessor late (the window then fails), and
+    with some late, some not (it may not fail)."""
+    cfg = poa.PoaConfig(max_nodes=384, max_len=256, max_backbone=128,
+                        depth=16)
+    res = _late_predecessors(cfg, batches.equal_key_batch(cfg))
+    assert all(a > 0 and f for a, _, f in res if a)
+    assert sum(a > 0 for a, _, _ in res) >= 3
+    assert any(m > 0 and not f for a, m, f in res)
+    plain = poa.poa_batch_plain(cfg, *poa.batch_to_tensors(
+        batches.equal_key_batch(cfg), "cpu"))
+    assert plain[3].tolist() == [f for _, _, f in res]
+
+
+def test_v2_two_windows_deep_batch_equals_pallas_v2():
+    """Deeper windows than the fuzz batches: 24 layers of 90 bases."""
+    rng = random.Random(17)
+    a = _alloc(2, CFG)
+    for b in range(2):
+        truth = bytes(rng.choice(b"ACGT") for _ in range(90))
+        _set_window(a, b, mutate(truth, 0.1, rng),
+                    [mutate(truth, 0.1, rng) for _ in range(CFG.depth)])
+    _assert_v2_equal(CFG, a, True)
