@@ -7,26 +7,34 @@ Builds the native host library and the CUDA kernels from this checkout,
 then, each phase printing one JSON line:
 
 * main: polishes a simulated 1.0 Mbp genome (30x ONT-like reads, PAF
-  overlaps, -w 500 -m 5 -x -4 -g -8) on the card with the default ls POA
-  kernel, times every kernel launch with CUDA events beside its bound
-  from the DP cells it ran, and checks that polishing lowers the edit
-  distance to the truth;
-* main_v2: the same polish with poa_kernel="v2", recorded the same way;
-  its FASTA must be byte-identical to the ls run's;
+  overlaps, -w 500 -m 5 -x -4 -g -8) on the card with the default POA
+  kernel (poa_driver.DEFAULT_POA_KERNEL), times every kernel launch with
+  CUDA events beside its bound from the DP cells it ran, and checks that
+  polishing lowers the edit distance to the truth;
+* main_ls or main_v2: the same polish with the other POA kernel, recorded
+  the same way; its FASTA must be byte-identical to the main run's;
+* occupancy: each POA kernel's registers, spill bytes, shared bytes and
+  blocks per SM at the main path's geometry, and v2's shared-memory plan;
 * kernel_check: runs each kernel again on the inputs of its largest
   launches in the main run (one per POA depth bucket, per edge band and
   direction, per base-case band; the v2 kernel, colstep on and off, on
   the POA launches), holds each whole batch against the plain PyTorch
-  version (tolerance 0: all outputs are integers) and times it;
+  version (tolerance 0: all outputs are integers) and times it; the v2
+  lines also give the kernel's per-phase times (init, dp, end_pick,
+  traceback, update, consensus: max and mean over the launch's windows,
+  from clock64() cycles over the card's highest SM clock), printed as
+  "v2 POA phases" lines;
+* poa_decision: v2 over ls and colstep over flat on each depth bucket's
+  largest launch, the numbers that settle the default POA kernel;
 * parity: the card (both POA kernels) and the CPU polish a small PAF set
   to the same bytes;
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe), then every mode held
   against its plain version run on the card.
 
-Each path (main, main_v2, probe) runs with the launch counts set to 0
-just before it and read just after; every kernel of the path must have
-launched.
+Each path (main, main_<other kernel>, probe) runs with the launch counts
+set to 0 just before it and read just after; every kernel of the path
+must have launched.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -37,15 +45,11 @@ card; fails without one.
 from __future__ import annotations
 
 import json
-import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor
-
-import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -79,6 +83,26 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock, MHz, as nvidia-smi reports it: the
+    rate at which the kernels' clock64() counts when the card runs at full
+    clock."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout
+    return float(out.strip().splitlines()[0])
+
+
+def phase_ms(names, st, windows: int, mhz: float) -> dict:
+    """Per phase: ms of the window that spent the most cycles in it, and
+    the mean over the launch's windows (cycles over the SM clock)."""
+    return {n: {"max_ms": mx / (mhz * 1e3), "mean_ms": sm / windows
+                / (mhz * 1e3)}
+            for n, sm, mx in zip(names, st["phase_cycles"],
+                                 st["phase_cycles_max"])}
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -222,46 +246,6 @@ class MainPathRecorder:
                                      key=lambda kv: kv[0]) if k[0] == name]
 
 
-def _plain_poa_part(cfg, arrays):
-    """One process's share of the plain POA run: numpy in, numpy out."""
-    import torch
-
-    from racon_tpu_torch.ops import poa
-
-    torch.set_num_threads(1)
-    stats = {"cells": 0, "steps": 0, "rows": 0}
-    outs = poa.poa_batch_plain(cfg, *(torch.from_numpy(a) for a in arrays),
-                               stats=stats, colstep=True)
-    return [o.numpy() for o in outs], stats
-
-
-def plain_poa_parallel(batches, procs: int):
-    """The plain POA version on the host for [(cfg, tensors)], each
-    batch's windows split over `procs` processes (the plain version loops
-    over windows in Python). Returns [(outputs, stats)]: the stats hold
-    the DP cells, the DP rows and the colstep steps."""
-    import torch
-
-    jobs, spans = [], []
-    for cfg, dev_in in batches:
-        host = [t.cpu().numpy() for t in dev_in]
-        cuts = np.linspace(0, host[0].shape[0], procs + 1).astype(int)
-        spans.append((len(jobs), procs))
-        jobs += [(cfg, [a[lo:hi] for a in host])
-                 for lo, hi in zip(cuts[:-1], cuts[1:])]
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(procs, mp_context=ctx) as ex:
-        parts = list(ex.map(_plain_poa_part, *zip(*jobs)))
-    res = []
-    for first, n in spans:
-        mine = parts[first:first + n]
-        outs = [np.concatenate([p[0][k] for p in mine]) for k in range(5)]
-        res.append(([torch.from_numpy(o) for o in outs],
-                    {k: sum(p[1][k] for p in mine)
-                     for k in ("cells", "steps", "rows")}))
-    return res
-
-
 class Totals:
     """A kernel's check numbers summed over its checked launches."""
 
@@ -288,12 +272,16 @@ def check_poa(torch, poa_cuda, rec):
     processes; its time is that of all buckets together). Returns the
     kernel's totals and, for the v2 check, the kept launches with their
     plain outputs and stats and the plain time."""
+    from racon_tpu_torch.tools.batches import plain_poa_parallel
+
     kept = rec.inputs("poa_consensus")
+    require(kept, "no POA launch of the main run was kept to check")
     procs = max(1, min(8, os.cpu_count() or 1))
     t0 = time.perf_counter()
     plain = plain_poa_parallel([inp for _, inp in kept], procs)
     plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
+    per_bucket = {}
     for (cells_main, (cfg, dev_in)), (want, pst) in zip(kept, plain):
         cells = pst["cells"]
         kst = {}
@@ -321,16 +309,21 @@ def check_poa(torch, poa_cuda, rec):
                 "split evenly)", "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
         tot.add(line, n_bytes, n_ops)
-    return tot.row(), (kept, plain, plain_ms)
+        per_bucket[cfg.depth] = ms
+    return (tot.row(), per_bucket), (kept, plain, plain_ms)
 
 
 def check_poa_v2(torch, poa_v2_cuda, checked):
     """The v2 kernel, colstep on and off, on the ls main run's kept POA
     launches, against the plain outputs check_poa computed: every output
     equal, the kernel's cells and serial steps equal the plain version's
-    (steps without colstep are the DP rows)."""
+    (steps without colstep are the DP rows). Each line also holds the
+    kernel's per-phase times (max and mean over the launch's windows,
+    from its clock64() phase counts over the SM clock)."""
     kept, plain, plain_ms = checked
+    mhz = sm_clock_mhz()
     tot = Totals()
+    per_bucket = {}
     for (_, (cfg, dev_in)), (want, pst) in zip(kept, plain):
         line = {"phase": "kernel_check", "kernel": "poa_consensus_v2",
                 "input": "largest ls launch of its depth bucket in the main "
@@ -352,8 +345,16 @@ def check_poa_v2(torch, poa_v2_cuda, checked):
             ms = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
                 cfg, *dev_in, colstep=colstep), 3)
             key = "colstep" if colstep else "flat"
+            phases = phase_ms(poa_v2_cuda.PHASES, kst, dev_in[0].shape[0],
+                              mhz)
             line.update({f"max_abs_err_{key}": err, f"ms_{key}": ms,
-                         f"steps_{key}": kst["steps"]})
+                         f"steps_{key}": kst["steps"],
+                         f"phases_{key}": phases, "sm_clock_mhz": mhz})
+            print(f"v2 POA phases, depth {cfg.depth}, "
+                  f"{dev_in[0].shape[0]} windows, {key} ({ms:.2f} ms a "
+                  f"launch; max / mean ms over windows): " + ", ".join(
+                      f"{n} {v['max_ms']:.2f} / {v['mean_ms']:.2f}"
+                      for n, v in phases.items()), flush=True)
         line["step_ratio"] = line["steps_flat"] / line["steps_colstep"]
         n_bytes = nbytes(dev_in) + nbytes(want)
         n_ops = POA_OPS_PER_CELL * pst["cells"]
@@ -367,14 +368,40 @@ def check_poa_v2(torch, poa_v2_cuda, checked):
                      "bound_ms": b_ms, "bound_by": b_by})
         emit(line)
         tot.add(line, n_bytes, n_ops)
-    return tot.row()
+        per_bucket[cfg.depth] = (line["ms_colstep"], line["ms_flat"])
+    return tot.row(), per_bucket
+
+
+def poa_decision(default, ls_ms, v2_ms):
+    """The numbers that settle which POA kernel and which v2 DP loop to
+    keep, each depth bucket's largest launch timed in this run: v2 (with
+    colstep) over ls, and v2 with colstep over v2 without. v2 is to be
+    the default where it is at least 10% faster than ls on every bucket;
+    the colstep loop stays where it is at least 5% faster than the flat
+    loop on every bucket."""
+    buckets = sorted(ls_ms)
+    require(buckets and sorted(v2_ms) == buckets,
+            "the POA decision needs both kernels timed on every bucket")
+    v2_over_ls = {d: v2_ms[d][0] / ls_ms[d] for d in buckets}
+    colstep_over_flat = {d: v2_ms[d][0] / v2_ms[d][1] for d in buckets}
+    return {"phase": "poa_decision", "default": default,
+            "ls_ms": ls_ms, "v2_ms": {d: v2_ms[d][0] for d in buckets},
+            "v2_flat_ms": {d: v2_ms[d][1] for d in buckets},
+            "v2_over_ls": v2_over_ls,
+            "v2_beats_ls_by_10pct": all(r <= 0.9 for r in
+                                        v2_over_ls.values()),
+            "colstep_over_flat": colstep_over_flat,
+            "colstep_beats_flat_by_5pct": all(
+                r <= 0.95 for r in colstep_over_flat.values())}
 
 
 def check_edge(torch, ac, rec):
     """The main path's largest edge launch of each band and direction,
     the whole batch held against the plain version on the card."""
     tot = Totals()
-    for cells, (scal, q, t, K, backward) in rec.inputs("hirschberg_edge"):
+    kept = rec.inputs("hirschberg_edge")
+    require(kept, "no edge launch of the main run was kept to check")
+    for cells, (scal, q, t, K, backward) in kept:
         got = ac.edge_rows(scal, q, t, K, backward)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -407,7 +434,9 @@ def check_base(torch, ac, rec):
     batch held against the plain version (DP on the card, traceback on
     the host)."""
     tot = Totals()
-    for cells, (scal, q, t, K) in rec.inputs("hirschberg_base"):
+    kept = rec.inputs("hirschberg_base")
+    require(kept, "no base-case launch of the main run was kept to check")
+    for cells, (scal, q, t, K) in kept:
         got = ac.base_case(scal, q, t, K)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -449,30 +478,27 @@ def polish(racon_tpu_torch, d, device, poa_kernel="ls"):
     return out, p.stats, time.perf_counter() - t0
 
 
-# The kernels each path must launch; a POA path must not launch the other
-# POA kernel.
-PATH_KERNELS = {"main": ("poa_consensus", "hirschberg_edge",
-                         "hirschberg_base"),
-                "main_v2": ("poa_consensus_v2", "hirschberg_edge",
-                            "hirschberg_base"),
-                "probe": ("dp_cost_probe",)}
+# The POA kernel's launch-count name for each poa_kernel.
+POA_NAME = {"ls": "poa_consensus", "v2": "poa_consensus_v2"}
 
 
-def check_launches(path: str, launches: dict) -> None:
-    for name in PATH_KERNELS[path]:
+def check_launches(path: str, launches: dict, poa_kernel=None) -> None:
+    """Every kernel of the path launched; a polish path (poa_kernel given)
+    launched its POA kernel and not the other."""
+    names = (("dp_cost_probe",) if poa_kernel is None else
+             (POA_NAME[poa_kernel], "hirschberg_edge", "hirschberg_base"))
+    for name in names:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the {path} path")
-    if path.startswith("main"):
-        other = "poa_consensus_v2" if path == "main" else "poa_consensus"
-        require(launches[other] == 0,
-                f"the {path} path launched {other}")
+    for kernel, name in POA_NAME.items():
+        if poa_kernel is not None and kernel != poa_kernel:
+            require(launches[name] == 0, f"the {path} path launched {name}")
 
 
 def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
-             gen_s, poa_kernel):
+             gen_s, poa_kernel, path):
     """One recorded polish of the main cell: the launch counts are set to
     0 just before it and read just after."""
-    path = "main" if poa_kernel == "ls" else "main_v2"
     rec = MainPathRecorder(torch, ac, poa_driver)
     cuda_lib.reset_launches()
     with rec:
@@ -506,7 +532,7 @@ def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
     emit(line)
     require(al["device"] > 0, "no alignment job was served on the card")
     require(co["device"] > 0, "no window was served on the card")
-    check_launches(path, launches)
+    check_launches(path, launches, poa_kernel)
     require(ed_polished < ed_draft, "polishing did not lower the edit "
             f"distance ({ed_draft} -> {ed_polished})")
     return out, rec, launches, on_main
@@ -603,45 +629,67 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp:
-        # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps; then the same
-        # polish with the v2 POA kernel, which must give the same bytes
+        # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps, with the
+        # default POA kernel; then the same polish with the other POA
+        # kernel (phase main_<kernel>), which must give the same bytes
         t0 = time.perf_counter()
         d = simulate.generate(os.path.join(tmp, "main"), mbp=1.0,
                               coverage=30, seed=11)
         gen_s = time.perf_counter() - t0
         mods = (torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
                 gen_s)
-        out, rec, launches, on_main = run_main(*mods, "ls")
-        out_v2, rec_v2, launches_v2, on_v2 = run_main(*mods, "v2")
-        require(out_v2 == out, "the v2 POA kernel's FASTA differs from the "
-                "ls kernel's")
-        emit({"phase": "main_v2_vs_main", "identical": True})
-        rec_v2.largest.clear()
+        first = poa_driver.DEFAULT_POA_KERNEL
+        second = "ls" if first == "v2" else "v2"
+        runs = {first: run_main(*mods, first, "main"),
+                second: run_main(*mods, second, f"main_{second}")}
+        require(runs[second][0] == runs[first][0], f"the {second} POA "
+                f"kernel's FASTA differs from the {first} kernel's")
+        emit({"phase": f"main_{second}_vs_main", "identical": True})
+        # kept launches: the POA checks take the ls run's (one plain pass
+        # serves both POA kernels), the aligner checks the main run's;
+        # the rest are dropped
+        rec, rec_ls = runs[first][1], runs["ls"][1]
+        for r in (runs["ls"][1], runs["v2"][1]):
+            for key in list(r.largest):
+                if (r is not rec_ls or key[0] != "poa_consensus") and \
+                        (r is not rec or key[0].startswith("poa")):
+                    del r.largest[key]
+
+        # the POA kernels' resources at the main path's geometries
+        for cfg in sorted({c for _, (c, _) in
+                           rec_ls.inputs("poa_consensus")},
+                          key=lambda c: c.depth):
+            occ = {"poa_consensus": poa_cuda.occupancy(cfg),
+                   "poa_consensus_v2": poa_v2_cuda.occupancy(cfg)}
+            emit({"phase": "occupancy", "depth": cfg.depth,
+                  "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
+                  "v2_plan": poa_v2_cuda.plan(cfg), **occ})
 
         # each kernel on the main path's largest launches, against its
         # plain version
-        poa_row, poa_plain = check_poa(torch, poa_cuda, rec)
-        checked = {"poa_consensus": poa_row,
-                   "poa_consensus_v2": check_poa_v2(torch, poa_v2_cuda,
-                                                    poa_plain),
+        (poa_row, ls_ms), poa_plain = check_poa(torch, poa_cuda, rec_ls)
+        v2_row, v2_ms = check_poa_v2(torch, poa_v2_cuda, poa_plain)
+        checked = {"poa_consensus": poa_row, "poa_consensus_v2": v2_row,
                    "hirschberg_edge": check_edge(torch, ac, rec),
                    "hirschberg_base": check_base(torch, ac, rec)}
         rec.largest.clear()
+        rec_ls.largest.clear()
         del poa_plain
+        emit(poa_decision(first, ls_ms, v2_ms))
 
         # parity: the card, with each POA kernel, and the CPU give the
         # same bytes
         d = simulate.generate(os.path.join(tmp, "parity"), mbp=PARITY_MBP,
                               seed=11)
-        gpu, gstats, g_s = polish(racon_tpu_torch, d, "cuda")
-        gpu_v2, _, g2_s = polish(racon_tpu_torch, d, "cuda", "v2")
-        cpu, cstats, c_s = polish(racon_tpu_torch, d, "cpu")
+        gpu, gstats, g_s = polish(racon_tpu_torch, d, "cuda", first)
+        gpu_2, _, g2_s = polish(racon_tpu_torch, d, "cuda", second)
+        cpu, cstats, c_s = polish(racon_tpu_torch, d, "cpu", first)
         require(gpu == cpu, "card and CPU polish the parity set differently")
-        require(gpu_v2 == cpu, "the card's v2 kernel and the CPU polish the "
-                "parity set differently")
+        require(gpu_2 == cpu, f"the card's {second} kernel and the CPU "
+                "polish the parity set differently")
         emit({"phase": "parity", "mbp": PARITY_MBP, "identical": True,
-              "cuda_s": g_s, "cuda_v2_s": g2_s, "cpu_s": c_s,
-              "align_device": gstats["align"]["device"],
+              f"cuda_{first}_s": g_s, f"cuda_{second}_s": g2_s,
+              "cpu_s": c_s, "align_device": gstats["align"]["device"],
               "windows_device": gstats["consensus"]["device"]})
 
     # the DP-cost probe's path
@@ -661,11 +709,14 @@ def main() -> int:
         dict(name="dp_cost_probe", source=src + "dp_cost_probe.cu",
              replaces="racon_tpu/tools/dp_cost_probe.py:89"),
     ]
-    path_of = {"poa_consensus_v2": (launches_v2, on_v2),
-               "dp_cost_probe": (launches_probe, None)}
+    # launches and main-run sums: each POA kernel from its own polish, the
+    # aligner kernels from the main one
+    path_of = {POA_NAME[kn]: (r[2], r[3]) for kn, r in runs.items()}
+    path_of["dp_cost_probe"] = (launches_probe, None)
     for k in kernels:
         k.update(checked[k["name"]])
-        counts, summary = path_of.get(k["name"], (launches, on_main))
+        counts, summary = path_of.get(k["name"],
+                                      (runs[first][2], runs[first][3]))
         k.update(route="cuda", launches=counts[k["name"]], library_ms=None)
         if summary is not None:
             m = summary[k["name"]]

@@ -10,6 +10,7 @@ import argparse
 import sys
 
 from .native import NativeError
+from .ops.poa_driver import DEFAULT_POA_KERNEL, POA_KERNELS
 from .polisher import create_polisher
 
 
@@ -53,10 +54,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the kernels run (default cuda; cpu runs "
                    "their plain PyTorch versions)")
-    p.add_argument("--poa-kernel", choices=("ls", "v2"), default="ls",
-                   help="POA consensus kernel: ls (default) or v2, one "
-                   "window per block with per-cell move records; both give "
-                   "the same consensus")
+    p.add_argument("--poa-kernel", choices=POA_KERNELS,
+                   default=DEFAULT_POA_KERNEL,
+                   help=f"POA consensus kernel (default {DEFAULT_POA_KERNEL})"
+                   ": ls or v2, one window per block each; both give the "
+                   "same consensus")
     return p
 
 

@@ -395,7 +395,8 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
         } else {
           if (lane == 0) cov[nid] += 1;
           if (prev >= 0 &&
-              !poa_common::add_edge(src, ew, E, nid, prev, prev_w + wj, lane))
+              !poa_common::add_edge(src, ew, E, E, nid, prev, prev_w + wj,
+                                    lane))
             failed = 1;
         }
         __syncwarp();
@@ -412,7 +413,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   // --- consensus
   const int n = s.misc[0];
   const int cnt = poa_common::consensus(
-      s.order, s.base, n, N, E, src, ew, cov, s.score, s.pred, s.path,
+      s.order, s.base, n, N, E, E, src, ew, cov, s.score, s.pred, s.path,
       &s.misc[4], red, cons_base + (size_t)win * N,
       cons_cov + (size_t)win * N);
   if (tid == 0) {
@@ -460,6 +461,26 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
       (int*)cons_base, (int*)cons_cov, (int*)cons_len, (uint8_t*)failed,
       (int*)n_nodes, (long long*)cells, (int*)scratch, per);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers a thread, local (spill) bytes a thread, dynamic
+// shared bytes a block and resident blocks per SM at (N, ML); out[4].
+int rt_poa_occupancy(int N, int ML, int* out) {
+  const size_t sm = shared_bytes(N, ML);
+  cudaError_t err = cudaFuncSetAttribute(
+      poa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, poa_kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, poa_kernel, NT,
+                                                      sm);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)sm;
+  out[3] = blocks;
+  return (int)err;
 }
 
 }  // extern "C"

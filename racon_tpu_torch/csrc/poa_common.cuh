@@ -2,6 +2,12 @@
 // the block reduction that picks a winner by (value, secondary, index), the
 // in-edge update of the graph update, and the heaviest-bundle consensus.
 // Each follows the plain version ops/poa.py bit for bit.
+//
+// The graph's arrays live where each kernel keeps them, so the edge update
+// and the consensus are templates on their element types: csrc/poa.cu
+// passes int32 arrays (in-edge tables in global memory), csrc/poa_v2.cu
+// int16 node ids, uint8 bases and int16 in-edge sources in shared memory.
+// A node's in-edge slots are E of a row of ES (ES >= E).
 
 #pragma once
 
@@ -14,6 +20,28 @@
 #define NWARP (NT / 32)
 
 namespace poa_common {
+
+// How an edge weight (global memory) grows and is read, by where the
+// in-edge sources live. With the sources in global memory (int32) the
+// weight is a plain read-modify-write; with the sources in shared memory
+// (int16) nothing waits for the weight, so the add is a fire-and-forget
+// atomic, performed in L2, and the consensus reads the weights from L2.
+template <typename SrcT>
+struct EdgeSpace;
+template <>
+struct EdgeSpace<int> {
+  static __device__ __forceinline__ void add(int* p, int v) { *p += v; }
+  static __device__ __forceinline__ int load(const int* p) { return *p; }
+};
+template <>
+struct EdgeSpace<int16_t> {
+  static __device__ __forceinline__ void add(int* p, int v) {
+    atomicAdd(p, v);
+  }
+  static __device__ __forceinline__ int load(const int* p) {
+    return __ldcg(p);
+  }
+};
 
 // Lexicographic "better": larger a, then larger b, then smaller index.
 __device__ __forceinline__ bool better(int a1, int b1, int i1, int a2, int b2,
@@ -61,18 +89,20 @@ __device__ inline void block_best(const Red& red, int& a, int& b, int& idx) {
 // slot that already holds prev, else takes the first empty slot (lanes
 // test the <= 32 slots at once; ballots give the first in slot order).
 // Returns false when every slot is taken by another source.
-__device__ inline bool add_edge(int* src, int* ew, int E, int nid, int prev,
-                                int wadd, int lane) {
+template <typename SrcT>
+__device__ inline bool add_edge(SrcT* src, int* ew, int E, int ES, int nid,
+                                int prev, int wadd, int lane) {
   int sv = -2;
-  if (lane < E) sv = src[(size_t)nid * E + lane];
+  if (lane < E) sv = src[(size_t)nid * ES + lane];
   const unsigned msame = __ballot_sync(0xffffffffu, sv == prev);
   const unsigned mempty = __ballot_sync(0xffffffffu, sv == -1);
   if (msame) {
-    if (lane == __ffs(msame) - 1) ew[(size_t)nid * E + lane] += wadd;
+    if (lane == __ffs(msame) - 1)
+      EdgeSpace<SrcT>::add(&ew[(size_t)nid * ES + lane], wadd);
   } else if (mempty) {
     if (lane == __ffs(mempty) - 1) {
-      ew[(size_t)nid * E + lane] = wadd;
-      src[(size_t)nid * E + lane] = prev;
+      ew[(size_t)nid * ES + lane] = wadd;
+      src[(size_t)nid * ES + lane] = (SrcT)prev;
     }
   } else {
     return false;
@@ -85,13 +115,14 @@ __device__ inline bool add_edge(int* src, int* ew, int E, int nid, int prev,
 // rank order), the backward walk to a source, the forward walk along the
 // heaviest out-edges (then the higher score, then the lower node id) to a
 // sink; writes bases and coverages of the path to cb, cc (N each, padded
-// with -1 and 0) and returns its length. score, pred and path are N-int
+// with -1 and 0) and returns its length. score, pred and path are N-entry
 // shared arrays; *count is a shared int.
-__device__ inline int consensus(const int* order, const int* base, int n,
-                                int N, int E, const int* src, const int* ew,
-                                const int* cov, int* score, int* pred,
-                                int* path, int* count, const Red& red,
-                                int* cb, int* cc) {
+template <typename IdT, typename BaseT, typename SrcT, typename CovT>
+__device__ inline int consensus(const IdT* order, const BaseT* base, int n,
+                                int N, int E, int ES, const SrcT* src,
+                                const int* ew, const CovT* cov, int* score,
+                                IdT* pred, IdT* path, int* count,
+                                const Red& red, int* cb, int* cc) {
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   for (int i = tid; i < N; i += NT) {
     score[i] = 0;
@@ -103,8 +134,11 @@ __device__ inline int consensus(const int* order, const int* base, int n,
       const int u = order[r];
       int sv = -1, wv = NEG_, ps = NEG_;
       if (lane < E) {
-        sv = src[(size_t)u * E + lane];
-        if (sv >= 0) { wv = ew[(size_t)u * E + lane]; ps = score[sv]; }
+        sv = src[(size_t)u * ES + lane];
+        if (sv >= 0) {
+          wv = EdgeSpace<SrcT>::load(&ew[(size_t)u * ES + lane]);
+          ps = score[sv];
+        }
       }
       const bool valid = sv >= 0;
       const unsigned mval = __ballot_sync(0xffffffffu, valid);
@@ -122,7 +156,7 @@ __device__ inline int consensus(const int* order, const int* base, int n,
       const int slot_src = __shfl_sync(0xffffffffu, sv, bl & 31);
       if (lane == 0) {
         score[u] = mval ? wmax + bp : 0;
-        pred[u] = mval ? slot_src : -1;
+        pred[u] = (IdT)(mval ? slot_src : -1);
       }
       __syncwarp();
     }
@@ -140,7 +174,7 @@ __device__ inline int consensus(const int* order, const int* base, int n,
   if (tid == 0) {
     int u = summit, cnt = 0;
     while (u != -1 && cnt < N) {
-      path[cnt++] = u;
+      path[cnt++] = (IdT)u;
       u = pred[u];
     }
     *count = cnt;
@@ -148,7 +182,7 @@ __device__ inline int consensus(const int* order, const int* base, int n,
   __syncthreads();
   int cnt = *count;
   for (int i = tid; i < cnt / 2; i += NT) {
-    const int a = path[i];
+    const IdT a = path[i];
     path[i] = path[cnt - 1 - i];
     path[cnt - 1 - i] = a;
   }
@@ -161,15 +195,15 @@ __device__ inline int consensus(const int* order, const int* base, int n,
     for (int v = tid; v < n; v += NT) {
       int wvv = NEG_;
       for (int e = 0; e < E; ++e)
-        if (src[(size_t)v * E + e] == u)
-          wvv = max(wvv, ew[(size_t)v * E + e]);
+        if (src[(size_t)v * ES + e] == u)
+          wvv = max(wvv, EdgeSpace<SrcT>::load(&ew[(size_t)v * ES + e]));
       if (wvv > NEG_ && (idx < 0 || better(wvv, score[v], v, a, b2, idx))) {
         a = wvv; b2 = score[v]; idx = v;
       }
     }
     block_best(red, a, b2, idx);
     if (idx < 0) break;
-    if (tid == 0) path[cnt] = idx;
+    if (tid == 0) path[cnt] = (IdT)idx;
     ++cnt;
     u = idx;
   }

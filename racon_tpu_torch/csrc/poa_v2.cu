@@ -3,47 +3,67 @@
 //
 // Replaces the JAX package's Pallas kernel build_pallas_poa_kernel
 // (racon_tpu/ops/poa_pallas.py:73). It computes what the plain version
-// ops/poa.py:poa_batch_plain computes, bit for bit, as csrc/poa.cu does, but
-// takes the Pallas v2 kernel's design choices, re-thought for the card:
-//   * Move records. Beside each DP cell of H the DP writes one byte,
+// ops/poa.py:poa_batch_plain computes, bit for bit, as csrc/poa.cu does.
+//
+// What bounds it on an H100: one window's serial chain. A launch holds at
+// most 256 windows, two blocks on an SM, and lasts as long as its slowest
+// window's chain: for each layer, one DP row after another, the end-node
+// pick, the traceback and the graph update. Neither bytes nor integer
+// throughput come near their limits. The DP rows are most of the chain
+// (clock64() phase counts on the card). So the design takes round trips
+// to global memory, and instructions, off that chain:
+//   * The graph lives on chip. The in-edge sources (int16, N x ES with
+//     ES = max_edges rounded up to 4), keys, bases (uint8), the rank order,
+//     rank_of and the consensus path (int16) and the node coverage are in
+//     dynamic shared memory. Only H, the move bytes and the edge weights
+//     are in the global scratch; the update adds to a weight with a
+//     fire-and-forget atomic and the consensus reads the weights from L2.
+//   * A DP row reads no global memory in the common case. Its in-edge
+//     slots are read four at a time (one 8-byte shared load), then their
+//     ranks. The last RING rows of H stay in a shared ring by rank, so a
+//     near predecessor (columns hold a few nodes) is a few shared loads at
+//     32-bit offsets; a far one, a uniform branch, comes from the global H,
+//     and only the rows some later row reads from there are written there.
+//   * Instructions, not latency alone: two windows share an SM, and their
+//     16 warps run the same row code, so a row's instruction count sets
+//     its time. The thread's columns are unrolled to the next of 2, 4 or 8
+//     at or above its share (2 at w=500), and the predecessor columns it
+//     reads are clamped once, not masked per load.
+//   * Same-column pairs run at once (colstep). When rank r + 1 shares
+//     rank r's key and order[r] is not among order[r + 1]'s in-edges (keys
+//     can collide along an edge where float32 runs out of precision), the
+//     two rows run on the two halves of the block with one scan-and-barrier
+//     pass; otherwise they run one after the other in the same iteration.
+//     Each rank's step (one row, or a pair of either kind) is found before
+//     the DP, in parallel. The kernel counts its iterations ("steps"),
+//     which the plain version counts with ops/colstep.py.
+//   * Move records. Beside each DP cell the DP writes one byte,
 //     move | pred slot << 2 (0 diagonal, 1 up, 2 left; slot VSLOT = the
-//     virtual start row), into a global scratch. The traceback is one byte
-//     load per step instead of re-deriving each move from the predecessors'
-//     rows of H. A move is recorded as the plain version's traceback would
-//     re-derive it: diagonal before up on ties, left only if strictly
-//     better, and the first predecessor slot that attains the maximum.
-//   * Incremental rank order. The rank order (stable by key, ties by node
-//     id) is kept sorted through the graph update: a new node's rank is a
-//     binary search over the sorted keys (count of keys <= its key) and the
-//     ranks behind it shift by one slot (one warp, read before write). The
-//     matched-node search of the update is a binary search to the column's
-//     first rank. No per-layer rebuild.
-//   * End-node selection fused into the DP sweep. Each row's score at
-//     column L lands in esc[rank] and every in-subgraph predecessor is
-//     marked has_out as the DP enumerates it; the pick is one block
-//     reduction over the subgraph's ranks (first maximum in rank order).
-//   * colstep. When rank r + 1 shares rank r's column key, both rows run in
-//     the same serial iteration, one after the other in rank order, so the
-//     result does not depend on the pairing. The kernel counts the
-//     iterations ("steps"), which the plain version counts with
-//     ops/colstep.py.
-//
-// Layout: H, (N + 1) x (max_len + 1) int32 per window (4.7 MB at w=500),
-// the move bytes (1.2 MB), the in-edge tables (src, w: E x N int32) and the
-// node coverage live in a global scratch the wrapper allocates. Keys,
-// bases, the rank order, rank_of, the end scores, has_out and the layer's
-// sequence, weights and traceback records live in about 51 KB of dynamic
-// shared memory (N=1536, max_len=768), so shared memory does not limit the
-// blocks per SM below the registers' three (80 registers a thread). A DP
-// row splits its L + 1 columns into contiguous chunks, one per thread; the
-// linear-gap pass H[j] = j*g + cummax(V[j] - j*g) is a block scan. The
-// traceback runs on one thread, the graph update on warp 0; the consensus
-// is csrc/poa_common.cuh's, shared with csrc/poa.cu.
-//
-// What bounds it on an H100: the serial dependency chains (one DP row after
-// another, two block barriers per row, the traceback, the update), not
-// bytes or integer throughput; many windows run at once so that one
-// window's latency hides behind the others'.
+//     virtual start row): diagonal before up on ties, left only if strictly
+//     better, the first slot that attains the maximum: the move the plain
+//     traceback re-derives from H. The traceback (warp 0) fetches, with one
+//     trip to global memory, the move byte of its cell and those of every
+//     cell a move from it can reach: two steps a trip.
+//   * The graph update freezes the rank order. Each position's matched
+//     node is searched in the frozen order, one thread per position; the
+//     serial walk (warp 0) only gives new nodes their ids in sequence and
+//     adds the edges, and searches the layer's new nodes where a matched
+//     key has no old node of the base. After the walk one block-wide pass
+//     merges the new nodes into the order by (key, id), which is what
+//     inserting each after every key <= its own gives, since every new id
+//     is larger than every old one.
+//   * End-node selection is fused into the DP sweep (end scores by rank,
+//     has_out marked as the DP enumerates in-edges); the pick is one block
+//     reduction. The consensus is csrc/poa_common.cuh's, shared with
+//     csrc/poa.cu.
+// Shared memory is about 107 KB at N=1536, max_len=768 (the ring 24.6 KB
+// of it), so two blocks fit an SM: 264 slots for the 256 windows of the
+// largest batches. The graph grows with the window (N = 3 w, max_len =
+// 1.5 w), so each launch plans its shared memory against the card's limit
+// a block: the ring holds 8, 4 or 2 rows, the largest that fits (a row
+// further back comes from the global H), and where even 2 do not, the
+// in-edge sources move to the global scratch (the kernel's GSRC
+// instantiation). The plan fits every geometry the ls kernel takes.
 //
 // A predecessor whose row is not computed yet in this layer (possible only
 // where float32 keys collide along an edge and the edge's source has the
@@ -53,6 +73,9 @@
 // traceback re-derives their moves from H as the plain version does. Float
 // discipline: keys are float32 in the plain version's order of operations;
 // the library is built with --fmad=false and IEEE division.
+//
+// Thread 0 of each block counts clock64() cycles per phase (NPHASE) for the
+// optional phases output.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -61,9 +84,12 @@
 
 #include "poa_common.cuh"
 
-#define CHMAX 8    // columns per thread: max_len + 1 <= NT * CHMAX
-#define VSLOT 15   // pred slot of the virtual start row; max_edges <= 15
+#define CHMAX 8        // columns per thread: max_len + 1 <= NT * CHMAX
+#define VSLOT 15       // pred slot of the virtual start row; max_edges <= 15
 #define MV_REDERIVE 3  // move of a row that read an uncomputed predecessor
+#define NPHASE 6       // init, DP, end pick, traceback, update, consensus
+#define RING 8         // most DP rows of H kept in shared memory, by rank
+#define HALF (NT / 2)  // threads of a half block (one row of a pair)
 
 namespace {
 
@@ -71,49 +97,115 @@ using poa_common::better;
 using poa_common::block_best;
 
 struct Cfg {
-  int N, ML, MB, E, D, ma, mm, gp, colstep;
+  int N, ML, MB, E, ES, D, ma, mm, gp, colstep;
+  int ring;  // DP rows in the shared ring: 8, 4 or 2
 };
 
 struct Shared {
+  long long* ph;     // [NPHASE] thread 0's cycles per phase
+  int* ring;         // [ring][ML + 1] the last DP rows, slot rank % ring
   float* key;        // [N] column key by node id
-  int* base;         // [N]
-  int* order;        // [N] node id by rank; [0, n) sorted by (key, id)
-  int* rank_of;      // [N] rank by node id (layers); pred (consensus)
   int* esc;          // [N] end score by rank (layers); score (consensus)
-  int* path;         // [N] consensus path
+  int* cov;          // [N] node coverage
   float* nkey;       // [ML] next matched key at j' >= j (traceback)
   int* runrem;       // [ML] remaining insertion run; 0 marks a match
-  int* seq;          // [ML]
   int* wts;          // [ML]
   int* red_v;        // [NWARP] reduction scratch
   int* red_i;        // [NWARP]
   int* red_w;        // [NWARP]
   int* misc;         // [8]: n, failed, r_lo, r_hi, path count
+  int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
+                     // memory, or the global scratch with GSRC)
+  int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
+  int16_t* rank_of;  // [N] rank by node id (layers); pred (consensus)
+  int16_t* path;     // [N] consensus path; the merged order (update)
+  int16_t* found;    // [ML] each position's matched old node, or -1
+  uint8_t* base;     // [N]
+  uint8_t* seq;      // [ML]
   uint8_t* has_out;  // [N] node has an out-edge inside the subgraph
+  uint8_t* step;     // [N] by rank: 0 one row, 1 or 2 a pair (see DP)
+  uint8_t* far;      // [N] by rank: a later row reads this row of H from
+                     // the global scratch (not from the ring)
 };
 
-__host__ __device__ inline size_t shared_bytes(int N, int ML) {
-  return (size_t)N * (4 * 6 + 1) + (size_t)ML * 4 * 4 + NWARP * 4 * 3 +
-         8 * 4 + 64;
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
 }
 
-__device__ inline Shared carve(char* p, int N, int ML) {
+// In-edge slots a node's row holds: max_edges rounded up to 4.
+__host__ __device__ inline int edge_stride(int E) { return (E + 3) & ~3; }
+
+// The carve below, as byte offsets, for a ring of `ring` rows and the
+// in-edge sources in shared memory unless gsrc; returns the total.
+__host__ __device__ inline size_t shared_layout(int N, int ML, int ES,
+                                                int ring, bool gsrc,
+                                                size_t* off) {
+  size_t p = 0;
+  off[0] = p; p += NPHASE * 8;
+  off[1] = p; p += (size_t)ring * (ML + 1) * 4;
+  off[2] = p; p += (size_t)N * 4 * 3 + (size_t)ML * 4 * 3 + NWARP * 4 * 3 +
+                   8 * 4;
+  off[3] = p = align16(p); p += (gsrc ? 0 : (size_t)N * ES * 2) +
+                                (size_t)N * 2 * 3 + (size_t)ML * 2;
+  off[4] = p; p += (size_t)N * 4 + ML;
+  return align16(p);
+}
+
+__host__ __device__ inline size_t shared_bytes(int N, int ML, int ES,
+                                               int ring, bool gsrc) {
+  size_t off[5];
+  return shared_layout(N, ML, ES, ring, gsrc, off);
+}
+
+// A window's global scratch, as int32 word offsets: H [N + 1][ML + 1],
+// the edge weights [N][ES], the in-edge sources (int16 [N][ES], used with
+// GSRC), the move bytes [N + 1][ML + 1]; off[3] is the total, a multiple
+// of 4 words so that every window's sources are 16-byte aligned.
+__host__ __device__ inline void scratch_layout(int N, int ML, int ES,
+                                               size_t* off) {
+  const size_t cells = (size_t)(N + 1) * (ML + 1);
+  const size_t edges = (size_t)N * ES;
+  off[0] = cells;
+  off[1] = (cells + edges + 3) & ~(size_t)3;
+  off[2] = off[1] + edges / 2;
+  off[3] = (off[2] + (cells + 3) / 4 + 3) & ~(size_t)3;
+}
+
+// gsrc: the in-edge sources' global home, or null to carve them here.
+__device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
+                               int16_t* gsrc) {
+  size_t off[5];
+  shared_layout(N, ML, ES, ring, gsrc != nullptr, off);
   Shared s;
+  s.ph = (long long*)(base + off[0]);
+  s.ring = (int*)(base + off[1]);
+  char* p = base + off[2];
   s.key = (float*)p; p += N * 4;
-  s.base = (int*)p; p += N * 4;
-  s.order = (int*)p; p += N * 4;
-  s.rank_of = (int*)p; p += N * 4;
   s.esc = (int*)p; p += N * 4;
-  s.path = (int*)p; p += N * 4;
+  s.cov = (int*)p; p += N * 4;
   s.nkey = (float*)p; p += ML * 4;
   s.runrem = (int*)p; p += ML * 4;
-  s.seq = (int*)p; p += ML * 4;
   s.wts = (int*)p; p += ML * 4;
   s.red_v = (int*)p; p += NWARP * 4;
   s.red_i = (int*)p; p += NWARP * 4;
   s.red_w = (int*)p; p += NWARP * 4;
-  s.misc = (int*)p; p += 8 * 4;
+  s.misc = (int*)p;
+  p = base + off[3];
+  if (gsrc) {
+    s.src = gsrc;
+  } else {
+    s.src = (int16_t*)p; p += (size_t)N * ES * 2;
+  }
+  s.order = (int16_t*)p; p += N * 2;
+  s.rank_of = (int16_t*)p; p += N * 2;
+  s.path = (int16_t*)p; p += N * 2;
+  s.found = (int16_t*)p;
+  p = base + off[4];
+  s.base = (uint8_t*)p; p += N;
+  s.seq = (uint8_t*)p; p += ML;
   s.has_out = (uint8_t*)p; p += N;
+  s.step = (uint8_t*)p; p += N;
+  s.far = (uint8_t*)p;
   return s;
 }
 
@@ -130,88 +222,112 @@ __device__ __forceinline__ int count_keys(const Shared& s, int n, float k,
   return lo;
 }
 
-// First node id with key == k0 and base == b, or -1 (warp 0, all lanes
-// get the answer). Equal keys are adjacent in rank order, by id.
-__device__ int find_node(const Shared& s, int n, float k0, int b, int lane) {
-  for (int r0 = count_keys(s, n, k0, false); r0 < n; r0 += 32) {
-    const int r = r0 + lane;
-    const int v = r < n ? s.order[r] : -1;
-    const bool same = v >= 0 && s.key[v] == k0;
-    const unsigned mhit = __ballot_sync(0xffffffffu, same && s.base[v] == b);
-    if (mhit) return __shfl_sync(0xffffffffu, v, __ffs(mhit) - 1);
-    if (__ballot_sync(0xffffffffu, !same)) return -1;
+// First node id among the n nodes of the frozen order with key == k0 and
+// base == b, or -1 (one thread). Equal keys are adjacent in rank order, by
+// id.
+__device__ int find_old(const Shared& s, int n, float k0, int b) {
+  for (int r = count_keys(s, n, k0, false); r < n; ++r) {
+    const int v = s.order[r];
+    if (s.key[v] != k0) return -1;
+    if (s.base[v] == b) return v;
   }
   return -1;
 }
 
-// Place node `nid` at rank p of the sorted order over [0, n): ranks
-// [p, n) move up one slot (warp 0, each chunk read before it is written,
-// chunks from the top down).
-__device__ void insert_rank(const Shared& s, int p, int n, int nid,
-                            int lane) {
-  for (int top = n; top > p; top -= 32) {
-    const int i = top - 1 - lane;
-    const int v = i >= p ? s.order[i] : 0;
-    __syncwarp();
-    if (i >= p) s.order[i + 1] = v;
-    __syncwarp();
+// First id in [lo, hi) (this layer's new nodes) with key == k0 and
+// base == b, or -1 (warp 0, all lanes get the answer).
+__device__ int find_new(const Shared& s, int lo, int hi, float k0, int b,
+                        int lane) {
+  for (int v0 = lo; v0 < hi; v0 += 32) {
+    const int v = v0 + lane;
+    const unsigned m = __ballot_sync(
+        0xffffffffu, v < hi && s.key[v] == k0 && s.base[v] == b);
+    if (m) return v0 + __ffs(m) - 1;
   }
-  if (lane == 0) s.order[p] = nid;
-  __syncwarp();
+  return -1;
 }
 
 struct Win {
-  int* H;
-  uint8_t* MV;
-  int* src;
-  int* ew;
-  int* cov;
+  int* H;       // [N + 1][ML + 1]
+  int* ew;      // [N][ES] in-edge weights
+  uint8_t* MV;  // [N + 1][ML + 1] move records
 };
 
-// One DP row: node order[r] over columns [0, L], its moves, its end score.
+// One DP row, rank r (node order[r]), over columns [0, L], its moves and
+// its end score, by a group of threads: gt is the thread's index in the
+// group, wb the group's first warp; the thread takes columns
+// [gt * CH, gt * CH + CH). Every thread of the block calls it the same
+// number of times (two block barriers). The row goes to the ring, and to
+// the global H where a later row reads it from there (far[r]) or where
+// all_global (the traceback may re-derive moves from H).
+template <int CHM>
 __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
                                        const Win& w, int r, int r_lo,
-                                       int r_hi, int L, int CH, int j0) {
-  const int HS = c.ML + 1, E = c.E, gp = c.gp;
-  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+                                       int r_hi, int L, int CH, int gt,
+                                       int wb, bool all_global) {
+  const int HS = c.ML + 1, gp = c.gp;
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int j0 = gt * CH;
   const int u = s.order[r];
   const int ub = s.base[u];
-  int P[CHMAX + 1], S[CHMAX + 1];
+  int P[CHM + 1], S[CHM + 1];
+  int jc[CHM + 1];  // the predecessor columns this thread reads, clamped
 #pragma unroll
-  for (int k = 0; k <= CHMAX; ++k) { P[k] = NEG_; S[k] = VSLOT; }
+  for (int k = 0; k <= CHM; ++k) {
+    P[k] = NEG_;
+    S[k] = VSLOT;
+    jc[k] = min(max(j0 - 1 + k, 0), L);
+  }
   bool any = false, stale = false;
-  for (int e = 0; e < E; ++e) {
-    const int sv = w.src[(size_t)u * E + e];
-    if (sv < 0) break;                     // slots fill from 0
-    const int rk = s.rank_of[sv];
-    if (rk < r_lo || rk >= r_hi) continue; // outside the subgraph
-    any = true;
-    if (tid == 0) s.has_out[sv] = 1;
-    if (rk >= r) {                         // row not computed: all NEG
-      stale = true;
-      continue;
-    }
-    const int* hr = w.H + (size_t)(sv + 1) * HS;
+  // the in-edge slots four at a time; slots fill from 0
+  for (int e0 = 0; e0 < c.E; e0 += 4) {
+    const uint2 q = *(const uint2*)(s.src + (size_t)u * c.ES + e0);
+    const int sv[4] = {(int)(int16_t)(q.x & 0xffffu), (int)(int16_t)(q.x >> 16),
+                       (int)(int16_t)(q.y & 0xffffu), (int)(int16_t)(q.y >> 16)};
+    if (sv[0] < 0) break;
+    int rk[4];
+    bool use[4];
 #pragma unroll
-    for (int k = 0; k <= CHMAX; ++k) {
-      const int j = j0 - 1 + k;
-      if (k <= CH && j >= 0 && j <= L) {
-        const int v = hr[j];
-        if (v > P[k]) { P[k] = v; S[k] = e; }  // strict: first max slot
-      }
+    for (int t = 0; t < 4; ++t) {
+      rk[t] = sv[t] >= 0 ? s.rank_of[sv[t]] : -1;
+      const bool in = sv[t] >= 0 && rk[t] >= r_lo && rk[t] < r_hi;
+      any |= in;
+      stale |= in && rk[t] >= r;            // row not computed: all NEG
+      if (in && gt == 0) s.has_out[sv[t]] = 1;
+      use[t] = in && rk[t] < r;
     }
+    // each predecessor row (a uniform branch): from the ring where near,
+    // else from the global H; the first slot attaining the max wins
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      if (!use[t]) continue;
+      int v[CHM + 1];
+      if (r - rk[t] < c.ring) {
+        const int* rr = s.ring + (rk[t] & (c.ring - 1)) * HS;
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) v[k] = rr[jc[k]];
+      } else {
+        const int* hr = w.H + (size_t)(sv[t] + 1) * HS;
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) v[k] = hr[jc[k]];
+      }
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k)
+        if (v[k] > P[k]) { P[k] = v[k]; S[k] = e0 + t; }
+    }
+    if (sv[3] < 0) break;
   }
   if (!any) {
 #pragma unroll
-    for (int k = 0; k <= CHMAX; ++k) {
+    for (int k = 0; k <= CHM; ++k) {
       P[k] = (j0 - 1 + k) * gp;
       S[k] = VSLOT;
     }
   }
-  int x[CHMAX], V[CHMAX], m[CHMAX];
+  int x[CHM], V[CHM], m[CHM];
   int run = INT_MIN;
 #pragma unroll
-  for (int k = 0; k < CHMAX; ++k) {
+  for (int k = 0; k < CHM; ++k) {
     const int j = j0 + k;
     int v = INT_MIN;
     V[k] = INT_MIN;
@@ -229,7 +345,7 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
     run = max(run, v);
     x[k] = run;
   }
-  // block inclusive max-scan of the thread totals
+  // the group's inclusive max-scan of the thread totals
   int tot = run;
   for (int d = 1; d < 32; d <<= 1) {
     const int o = __shfl_up_sync(0xffffffffu, tot, d);
@@ -239,21 +355,51 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
   int excl = __shfl_up_sync(0xffffffffu, tot, 1);
   if (lane == 0) excl = INT_MIN;
   __syncthreads();
-  for (int q = 0; q < wid; ++q) excl = max(excl, s.red_v[q]);
+  for (int q = wb; q < wid; ++q) excl = max(excl, s.red_v[q]);
   int* hrow = w.H + (size_t)(u + 1) * HS;
+  const bool global = all_global || s.far[r];
+  int* rrow = s.ring + (size_t)(r & (c.ring - 1)) * HS;
   uint8_t* mrow = w.MV + (size_t)(u + 1) * HS;
 #pragma unroll
-  for (int k = 0; k < CHMAX; ++k) {
+  for (int k = 0; k < CHM; ++k) {
     const int j = j0 + k;
     if (k < CH && j <= L) {
       const int row = max(x[k], excl) + j * gp;
-      hrow[j] = row;
+      if (global) hrow[j] = row;
+      rrow[j] = row;
       // left only if better
       mrow[j] = (uint8_t)(stale ? MV_REDERIVE : row > V[k] ? 2 : m[k]);
       if (j == L) s.esc[r] = row;
     }
   }
   __syncthreads();
+}
+
+// dp_row with the thread's columns unrolled to the next of 2, 4 or 8 at
+// or above CH (a uniform branch): a DP row's instructions are what bounds
+// it once two windows share an SM, and a column beyond CH costs as much as
+// one within.
+__device__ __forceinline__ void dp_row_ch(const Shared& s, const Cfg& c,
+                                          const Win& w, int r, int r_lo,
+                                          int r_hi, int L, int CH, int gt,
+                                          int wb, bool all_global) {
+  if (CH <= 2)
+    dp_row<2>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+  else if (CH <= 4)
+    dp_row<4>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+  else
+    dp_row<CHMAX>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+}
+
+// Whether node a is among node b's in-edge sources.
+__device__ __forceinline__ bool has_src(const Shared& s, const Cfg& c, int b,
+                                        int a) {
+  for (int e = 0; e < c.E; ++e) {
+    const int sv = s.src[(size_t)b * c.ES + e];
+    if (sv < 0) return false;
+    if (sv == a) return true;
+  }
+  return false;
 }
 
 // The plain version's move at (u, j), re-derived from the finished rows of
@@ -268,7 +414,7 @@ __device__ int rederive(const Shared& s, const Cfg& c, const Win& w, int u,
   int diag = -2, up = -2;  // -2: no such move
   bool any = false;
   for (int e = 0; e < c.E; ++e) {
-    const int sv = w.src[(size_t)u * c.E + e];
+    const int sv = s.src[(size_t)u * c.ES + e];
     if (sv < 0) break;
     const int rk = s.rank_of[sv];
     if (rk < r_lo || rk >= r_hi) continue;
@@ -286,7 +432,148 @@ __device__ int rederive(const Shared& s, const Cfg& c, const Win& w, int u,
   return 2;
 }
 
-__global__ void __launch_bounds__(NT)
+// Traceback state: the cell (u, j), steps taken, the insertion run and
+// next matched key being written, and whether the walk ran off column 0.
+struct Walk {
+  int u, j, tb, run;
+  float nk;
+  bool off;
+};
+
+// One traceback step from cell (u, j) whose move byte is mv (every lane of
+// warp 0 the same; lane 0 writes the position records). Returns the lane
+// of traceback()'s fetch that holds the next cell's move byte, or -1 where
+// none does (a re-derived move, or the virtual row).
+__device__ __forceinline__ int tb_step(const Shared& s, const Cfg& c,
+                                       const Win& w, Walk& k, int mv,
+                                       int r_lo, int r_hi, int lane) {
+  ++k.tb;
+  int move = mv & 3, nxt = -1, at = -1;
+  const int sl = mv >> 2;
+  if (move == MV_REDERIVE) {
+    move = rederive(s, c, w, k.u, k.j, r_lo, r_hi, &nxt);
+    at = move == 2 ? 30 : -1;
+  } else if (move < 2 && sl != VSLOT) {
+    nxt = s.src[(size_t)k.u * c.ES + sl];
+    at = move == 0 ? sl : 15 + sl;
+  } else if (move == 2) {
+    at = 30;
+  }
+  if (move == 0) {           // diagonal: position j-1 matches u
+    k.nk = s.key[k.u]; k.run = 0;
+    --k.j;
+    if (lane == 0) { s.nkey[k.j] = k.nk; s.runrem[k.j] = 0; }
+    k.u = nxt;
+  } else if (move == 1) {    // up
+    k.u = nxt;
+  } else {                   // left: position j-1 is inserted
+    --k.j;
+    if (k.j < 0) { k.off = true; return -1; }
+    ++k.run;
+    if (lane == 0) { s.nkey[k.j] = k.nk; s.runrem[k.j] = k.run; }
+  }
+  return k.u < 0 ? -1 : at;
+}
+
+// The traceback along the move records, by warp 0, from the end node
+// start_u at column L. It writes each position's next matched key and
+// remaining run as it descends; an empty subgraph fails the layer as the
+// plain version's walk from node 0's empty row does. Two steps per trip to
+// global memory: the lanes fetch the move byte of the cell (u, j) (lane
+// 31) together with those of every cell a move from it can reach (lane e:
+// the diagonal through slot e, lane 15 + e: up through slot e, lane 30:
+// left), so the step after the next needs no other load.
+__device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
+                          int start_u, int L, int n_sub, int r_lo,
+                          int r_hi) {
+  const int HS = c.ML + 1, lane = threadIdx.x & 31;
+  const int limit = c.N + c.ML + 2;
+  Walk k{start_u, L, 0, c.ML - L, INFINITY, false};
+  while (n_sub > 0 && !(k.u == -1 && k.j == 0) && k.tb < limit) {
+    if (k.u == -1) {             // virtual row: only left moves
+      ++k.tb;
+      --k.j;
+      ++k.run;
+      if (lane == 0) { s.nkey[k.j] = k.nk; s.runrem[k.j] = k.run; }
+      continue;
+    }
+    const int e = lane < 15 ? lane : lane - 15;
+    const int sv = lane < 30 && e < c.E ? s.src[(size_t)k.u * c.ES + e] : -1;
+    const uint8_t* mrow = w.MV + (size_t)(k.u + 1) * HS;
+    int got = 0;
+    if (lane == 31)
+      got = mrow[k.j];
+    else if (lane == 30)
+      got = k.j > 0 ? mrow[k.j - 1] : 0;
+    else if (sv >= 0 && (lane >= 15 || k.j > 0))
+      got = w.MV[(size_t)(sv + 1) * HS + k.j - (lane < 15)];
+    const int at = tb_step(s, c, w, k, __shfl_sync(0xffffffffu, got, 31),
+                           r_lo, r_hi, lane);
+    const int mv2 = __shfl_sync(0xffffffffu, got, at < 0 ? 0 : at);
+    if (k.off) break;
+    if (at < 0 || (k.u == -1 && k.j == 0) || k.tb >= limit) continue;
+    tb_step(s, c, w, k, mv2, r_lo, r_hi, lane);
+    if (k.off) break;
+  }
+  if (lane == 0) {
+    if (!(k.u == -1 && k.j == 0)) s.misc[1] = 1;
+    for (int jj = k.j - 1; jj >= 0; --jj) {  // positions the walk missed
+      s.nkey[jj] = k.nk; s.runrem[jj] = ++k.run;
+    }
+  }
+}
+
+// Merges the layer's new ids [n, nn) into the frozen order[0, n) by
+// (key, id); an old node goes before a new one of equal key, since every
+// new id is larger than every old one. Each node's rank is counted: an old
+// node's rank plus the new keys below its key; a new node's place among
+// the new ones (its index, where the walk left their keys non-decreasing,
+// as it does, else counted) plus the old keys <= its key. Block-wide; path
+// is the scratch.
+__device__ void merge_new(const Shared& s, int n, int nn) {
+  const int tid = threadIdx.x;
+  const int M = nn - n;
+  int unsorted = 0;
+  for (int m = tid; m + 1 < M; m += NT)
+    unsorted |= s.key[n + m] > s.key[n + m + 1];
+  const bool sorted = !__syncthreads_or(unsorted);
+  for (int i = tid; i < n; i += NT) {    // old: i + new keys < its key
+    const int o = s.order[i];
+    const float k = s.key[o];
+    int below = 0;
+    if (sorted) {
+      int lo = 0, hi = M;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s.key[n + mid] < k) lo = mid + 1; else hi = mid;
+      }
+      below = lo;
+    } else {
+      for (int m = 0; m < M; ++m) below += s.key[n + m] < k;
+    }
+    s.path[i + below] = (int16_t)o;
+  }
+  for (int m = tid; m < M; m += NT) {    // new: its place among the new
+    const float k = s.key[n + m];        // plus old keys <= its key
+    int before = m;
+    if (!sorted) {
+      before = 0;
+      for (int q = 0; q < M; ++q) {
+        const float kq = s.key[n + q];
+        before += kq < k || (kq == k && q < m);
+      }
+    }
+    s.path[before + count_keys(s, n, k, true)] = (int16_t)(n + m);
+  }
+  __syncthreads();
+  for (int i = tid; i < nn; i += NT) s.order[i] = s.path[i];
+  __syncthreads();
+}
+
+// GSRC: the in-edge sources live in the window's global scratch (where the
+// graph is too large to keep them in shared memory).
+template <bool GSRC>
+__global__ void __launch_bounds__(NT, 2)
 poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
               const int* __restrict__ bbw, const int* __restrict__ bb_len_a,
               const int* __restrict__ n_layers_a,
@@ -296,21 +583,32 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
               int* __restrict__ cons_cov, int* __restrict__ cons_len,
               uint8_t* __restrict__ failed_out, int* __restrict__ n_nodes,
               long long* __restrict__ cells, long long* __restrict__ steps,
-              int* __restrict__ scratch, size_t scratch_per) {
+              long long* __restrict__ phases, int* __restrict__ scratch,
+              size_t scratch_per) {
   extern __shared__ __align__(16) char smem[];
-  const int N = c.N, ML = c.ML, E = c.E;
+  const int N = c.N, ML = c.ML, E = c.E, ES = c.ES;
   const int HS = ML + 1;
   const int win = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  Shared s = carve(smem, N, ML);
+  size_t so[4];
+  scratch_layout(N, ML, ES, so);
+  int* const wbase = scratch + (size_t)win * scratch_per;
+  Shared s = carve(smem, N, ML, ES, c.ring,
+                   GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
   const poa_common::Red red{s.red_v, s.red_w, s.red_i};
+  // Thread 0 adds the cycles since the last mark to phase k's sum.
+  long long tmark = clock64();
+#define PHASE(k)                                 \
+  if (tid == 0) {                                \
+    const long long t_ = clock64();              \
+    s.ph[k] += t_ - tmark;                       \
+    tmark = t_;                                  \
+  }
 
   Win w;
-  w.H = scratch + (size_t)win * scratch_per;
-  w.src = w.H + (size_t)(N + 1) * HS;
-  w.ew = w.src + (size_t)N * E;
-  w.cov = w.ew + (size_t)N * E;
-  w.MV = (uint8_t*)(w.cov + N);
+  w.H = wbase;
+  w.ew = wbase + so[0];
+  w.MV = (uint8_t*)(wbase + so[2]);
 
   const int bb_len = bb_len_a[win];
   const uint8_t* bbp = bb + (size_t)win * c.MB;
@@ -319,22 +617,23 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   // --- graph init: backbone chain; keys 0..bb_len-1 are already sorted
   for (int i = tid; i < N; i += NT) {
     const bool used = i < bb_len;
-    s.base[i] = used ? (int)bbp[i] : -1;
+    s.base[i] = used ? bbp[i] : 0xff;
     s.key[i] = used ? (float)i : INFINITY;
-    s.order[i] = i;
-    w.cov[i] = used ? 1 : 0;
-    for (int e = 0; e < E; ++e) {
-      w.src[(size_t)i * E + e] = -1;
-      w.ew[(size_t)i * E + e] = 0;
+    s.order[i] = (int16_t)i;
+    s.cov[i] = used ? 1 : 0;
+    for (int e = 0; e < ES; ++e) {
+      s.src[(size_t)i * ES + e] = -1;
+      w.ew[(size_t)i * ES + e] = 0;
     }
     if (used && i > 0) {
-      w.src[(size_t)i * E] = i - 1;
-      w.ew[(size_t)i * E] = bbwp[i - 1] + bbwp[i];
+      s.src[(size_t)i * ES] = (int16_t)(i - 1);
+      w.ew[(size_t)i * ES] = bbwp[i - 1] + bbwp[i];
     }
   }
   if (tid == 0) {
     s.misc[0] = bb_len;  // n
     s.misc[1] = 0;       // failed
+    for (int k = 0; k < NPHASE; ++k) s.ph[k] = 0;
   }
   __syncthreads();
 
@@ -354,12 +653,13 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     const uint8_t* sq = seqs + ((size_t)win * c.D + li) * ML;
     const int* wq = ws + ((size_t)win * c.D + li) * ML;
     for (int j = tid; j < ML; j += NT) {
-      s.seq[j] = j < L ? (int)sq[j] : 0;
+      s.seq[j] = j < L ? sq[j] : 0;
       s.wts[j] = j < L ? wq[j] : 0;
     }
     for (int r = tid; r < n; r += NT) {
-      s.rank_of[s.order[r]] = r;
+      s.rank_of[s.order[r]] = (int16_t)r;
       s.has_out[r] = 0;
+      s.far[r] = 0;
     }
     if (tid == 0) {
       s.misc[2] = count_keys(s, n, lo, false);  // r_lo
@@ -369,20 +669,57 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     const int r_lo = s.misc[2], r_hi = s.misc[3];
     const int n_sub = r_hi - r_lo;
     dp_cells += (long long)n_sub * (L + 1);
+    PHASE(0);
 
-    // --- DP over the subgraph in rank order, same-column pairs per step
+    // --- DP over the subgraph in rank order, a same-column pair per step
+    // with colstep. The pairs are ops/colstep.pair_schedule's: rank r
+    // starts one where rank r + 1 has its key and r is an even distance
+    // from the first rank of that key in the subgraph. Each rank's step
+    // code, found in parallel: 0 one row; 1 a pair whose first node is
+    // among the second's in-edges, the rows one after the other; 2 a pair
+    // run on the two halves of the block at once.
     const int CH = (L + 1 + NT - 1) / NT;
-    const int j0 = tid * CH;
-    for (int r = r_lo; r < r_hi; ++dp_steps) {
-      dp_row(s, c, w, r, r_lo, r_hi, L, CH, j0);
-      if (c.colstep && r + 1 < r_hi &&
-          s.key[s.order[r + 1]] == s.key[s.order[r]]) {
-        dp_row(s, c, w, r + 1, r_lo, r_hi, L, CH, j0);
-        r += 2;
-      } else {
-        r += 1;
+    const int CHh = (L + 1 + HALF - 1) / HALF;
+    // The same pass marks each row that a row c.ring or more ranks later
+    // reads (from the global H), and finds whether some row has an
+    // in-subgraph predecessor not computed before it (then every row goes
+    // to the global H, for the traceback's re-derivation).
+    int late = 0;
+    for (int r = r_lo + tid; r < r_hi; r += NT) {
+      const int u0 = s.order[r];
+      int code = 0;
+      if (c.colstep && r + 1 < r_hi) {
+        const int u1 = s.order[r + 1];
+        const float k = s.key[u0];
+        if (s.key[u1] == k &&
+            ((r - max(r_lo, count_keys(s, n, k, false))) & 1) == 0)
+          code = CHh <= CHMAX && !has_src(s, c, u1, u0) ? 2 : 1;
+      }
+      s.step[r] = (uint8_t)code;
+      for (int e = 0; e < E; ++e) {
+        const int sv = s.src[(size_t)u0 * ES + e];
+        if (sv < 0) break;
+        const int rk = s.rank_of[sv];
+        if (rk < r_lo || rk >= r_hi) continue;
+        if (rk >= r) late = 1;
+        else if (r - rk >= c.ring) s.far[rk] = 1;
       }
     }
+    const bool all_global = __syncthreads_or(late);
+    for (int r = r_lo; r < r_hi; ++dp_steps) {
+      const int code = s.step[r];
+      if (code == 2) {
+        const int h = tid / HALF;
+        dp_row_ch(s, c, w, r + h, r_lo, r_hi, L, CHh, tid % HALF,
+                  h * (NWARP / 2), all_global);
+      } else {
+        dp_row_ch(s, c, w, r, r_lo, r_hi, L, CH, tid, 0, all_global);
+        if (code == 1)
+          dp_row_ch(s, c, w, r + 1, r_lo, r_hi, L, CH, tid, 0, all_global);
+      }
+      r += code ? 2 : 1;
+    }
+    PHASE(1);
 
     // --- end node: first best end score in rank order among subgraph
     // nodes with no out-edge inside the subgraph
@@ -393,50 +730,22 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     }
     block_best(red, ba, bbv, bi);
     const int start_u = bi >= 0 ? s.order[bi] : 0;
+    PHASE(2);
 
-    if (wid == 0) {
-      // --- traceback along the move records (lane 0). It writes each
-      // position's next matched key and remaining run as it descends; an
-      // empty subgraph fails the layer as the plain version's walk from
-      // node 0's empty row does.
-      if (lane == 0) {
-        int u = start_u, j = L, tb = 0, run = ML - L;
-        float nk = INFINITY;
-        while (n_sub > 0 && !(u == -1 && j == 0) && tb < N + ML + 2) {
-          ++tb;
-          if (u == -1) {             // virtual row: only left moves
-            --j;
-            s.nkey[j] = nk; s.runrem[j] = ++run;
-            continue;
-          }
-          const int mv = w.MV[(size_t)(u + 1) * HS + j];
-          int move = mv & 3, nxt = -1;
-          if (move == MV_REDERIVE)
-            move = rederive(s, c, w, u, j, r_lo, r_hi, &nxt);
-          else if (move < 2 && (mv >> 2) != VSLOT)
-            nxt = w.src[(size_t)u * E + (mv >> 2)];
-          if (move == 0) {           // diagonal: position j-1 matches u
-            nk = s.key[u]; run = 0;
-            --j;
-            s.nkey[j] = nk; s.runrem[j] = 0;
-            u = nxt;
-          } else if (move == 1) {    // up
-            u = nxt;
-          } else {                   // left: position j-1 is inserted
-            --j;
-            if (j < 0) break;
-            s.nkey[j] = nk; s.runrem[j] = ++run;
-          }
-        }
-        if (!(u == -1 && j == 0)) s.misc[1] = 1;
-        for (int jj = j - 1; jj >= 0; --jj) {  // positions the walk missed
-          s.nkey[jj] = nk; s.runrem[jj] = ++run;
-        }
-      }
-      __syncwarp();
+    // --- traceback along the move records (warp 0)
+    if (wid == 0) traceback(s, c, w, start_u, L, n_sub, r_lo, r_hi);
+    __syncthreads();
+    PHASE(3);
 
-      // --- graph update (warp 0)
-      int nn = s.misc[0];
+    // --- graph update. Each matched position's node among the n old
+    // nodes, one thread per position, in the frozen order.
+    for (int jj = tid; jj < L; jj += NT)
+      s.found[jj] = (int16_t)(s.runrem[jj] == 0
+                                  ? find_old(s, n, s.nkey[jj], s.seq[jj])
+                                  : -1);
+    __syncthreads();
+    if (wid == 0) {                // the walk (warp 0)
+      int nn = n;
       int failed = s.misc[1];
       int prev = -1, prev_w = 0;
       float prev_key = -1.0f;
@@ -446,49 +755,59 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
         const float nkj = s.nkey[jj];
         const int run_j = s.runrem[jj];
         const bool is_match = run_j == 0;  // nkey[jj] is the matched key
-        const int found = is_match ? find_node(s, nn, nkj, b, lane) : -1;
-        const float hi2 = isfinite(nkj) ? nkj : prev_key + 1.0f;
-        const float rr = (float)run_j;
-        const float lo2 = prev >= 0 ? prev_key : hi2 - rr - 1.0f;
-        const float k_new = lo2 + (hi2 - lo2) / (rr + 1.0f);
-        const float key_val = is_match ? nkj : k_new;
+        int found = is_match ? s.found[jj] : -1;
+        if (is_match && found < 0 && nn > n)
+          found = find_new(s, n, nn, nkj, b, lane);
+        float key_val = nkj;
+        if (!is_match) {             // an insertion between its neighbours
+          const float hi2 = isfinite(nkj) ? nkj : prev_key + 1.0f;
+          const float rr = (float)run_j;
+          const float lo2 = prev >= 0 ? prev_key : hi2 - rr - 1.0f;
+          key_val = lo2 + (hi2 - lo2) / (rr + 1.0f);
+        }
         const bool overflow = found < 0 && nn >= N;
         int nid;
+        float nid_key;               // the next position's prev_key
         if (found >= 0) {
           nid = found;
+          nid_key = s.key[nid];
         } else {
           nid = min(nn, N - 1);
           if (!overflow) {
-            insert_rank(s, count_keys(s, nn, key_val, true), nn, nid, lane);
-            if (lane == 0) { s.base[nid] = b; s.key[nid] = key_val; }
+            if (lane == 0) { s.base[nid] = (uint8_t)b; s.key[nid] = key_val; }
             ++nn;
+            nid_key = key_val;
+          } else {
+            nid_key = s.key[nid];
           }
         }
-        __syncwarp();
         if (overflow) {
           failed = 1;
         } else {
-          if (lane == 0) w.cov[nid] += 1;
+          if (lane == 0) s.cov[nid] += 1;
           // edge prev -> nid, weight w[j-1] + w[j]
-          if (prev >= 0 && !poa_common::add_edge(w.src, w.ew, E, nid, prev,
-                                                 prev_w + wj, lane))
+          if (prev >= 0 && !poa_common::add_edge(s.src, w.ew, E, ES, nid,
+                                                 prev, prev_w + wj, lane))
             failed = 1;
         }
         __syncwarp();
         prev = nid;
-        prev_key = s.key[nid];
+        prev_key = nid_key;
         prev_w = wj;
       }
       if (lane == 0) { s.misc[0] = nn; s.misc[1] = failed; }
     }
     __syncthreads();
+    if (s.misc[0] > n) merge_new(s, n, s.misc[0]);
+    PHASE(4);
   }
+  PHASE(0);  // the graph init when no layer ran; else the last skip
 
   // --- consensus; score in esc, pred in rank_of
   const int n = s.misc[0];
   const int cnt = poa_common::consensus(
-      s.order, s.base, n, N, E, w.src, w.ew, w.cov, s.esc, s.rank_of, s.path,
-      &s.misc[4], red, cons_base + (size_t)win * N,
+      s.order, s.base, n, N, E, ES, s.src, w.ew, s.cov, s.esc, s.rank_of,
+      s.path, &s.misc[4], red, cons_base + (size_t)win * N,
       cons_cov + (size_t)win * N);
   if (tid == 0) {
     cons_len[win] = cnt;
@@ -497,47 +816,133 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     if (cells) cells[win] = dp_cells;
     if (steps) steps[win] = dp_steps;
   }
+  PHASE(5);
+  if (phases && tid == 0)
+    for (int k = 0; k < NPHASE; ++k)
+      phases[(size_t)k * gridDim.x + win] = s.ph[k];
+#undef PHASE
+}
+
+// The launch's shared-memory plan at (N, ML, ES): the largest ring of
+// RING, RING / 2, ... 2 rows that fits the card's opt-in shared memory a
+// block, with the in-edge sources in shared memory where any ring fits so,
+// else in the global scratch. cudaErrorInvalidValue where nothing fits.
+cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, size_t* sm) {
+  int dev = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  for (int g = 0; g < 2; ++g)
+    for (int rg = RING; rg >= 2; rg >>= 1) {
+      const size_t b = shared_bytes(N, ML, ES, rg, g != 0);
+      if (b <= (size_t)cap) {
+        *ring = rg;
+        *gsrc = g != 0;
+        *sm = b;
+        return cudaSuccess;
+      }
+    }
+  return cudaErrorInvalidValue;
+}
+
+using Kernel = decltype(&poa_v2_kernel<false>);
+
+// The kernel instantiation a plan launches, with its shared-memory limit
+// raised to sm.
+cudaError_t planned_kernel(bool gsrc, size_t sm, Kernel* fn) {
+  *fn = gsrc ? &poa_v2_kernel<true> : &poa_v2_kernel<false>;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sm);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Scratch int32 words per window: H, src, w, cov, then the move bytes.
+// Scratch int32 words per window (scratch_layout).
 long long rt_poa_v2_scratch_words(int N, int ML, int E) {
-  const long long cells = (long long)(N + 1) * (ML + 1);
-  return cells + 2LL * N * E + N + (cells + 3) / 4;
+  size_t off[4];
+  scratch_layout(N, ML, edge_stride(E), off);
+  return (long long)off[3];
+}
+
+// The shared-memory plan at (N, ML, E): out[0] the ring's rows, out[1] 1
+// where the in-edge sources are in shared memory, out[2] the dynamic
+// shared bytes a block. cudaErrorInvalidValue where the graph does not
+// fit.
+int rt_poa_v2_plan(int N, int ML, int E, int* out) {
+  int ring = 0;
+  bool gsrc = false;
+  size_t sm = 0;
+  const cudaError_t err = plan(N, ML, edge_stride(E), &ring, &gsrc, &sm);
+  out[0] = ring;
+  out[1] = gsrc ? 0 : 1;
+  out[2] = (int)sm;
+  return (int)err;
 }
 
 // One block per window. Inputs as rt_poa_launch (csrc/poa.cu); colstep
 // pairs same-column ranks per serial step. Outputs: cons_base, cons_cov
 // i32[B,N], cons_len i32[B], failed u8[B], n_nodes i32[B]; cells and steps
 // i64[B] (each may be null): each window's DP cells (sum over its layers of
-// subgraph nodes x (layer length + 1)) and serial DP iterations.
-// scratch i32[B, rt_poa_v2_scratch_words].
+// subgraph nodes x (layer length + 1)) and serial DP iterations;
+// phases i64[NPHASE, B] (may be null): each window's clock64() cycles in
+// graph init and layer set-up, DP, end-node pick, traceback, graph update
+// and consensus, as thread 0 sees them.
+// scratch i32[B, rt_poa_v2_scratch_words]. Node ids are int16: N <= 32767.
 int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      int gp, int colstep, const void* bb, const void* bbw,
                      const void* bb_len, const void* n_layers,
                      const void* seqs, const void* ws, const void* lens,
                      const void* begins, const void* ends, void* cons_base,
                      void* cons_cov, void* cons_len, void* failed,
-                     void* n_nodes, void* cells, void* steps, void* scratch,
-                     int B, void* stream) {
-  if (E > VSLOT || ML + 1 > NT * CHMAX) return (int)cudaErrorInvalidValue;
-  Cfg c{N, ML, MB, E, D, ma, mm, gp, colstep ? 1 : 0};
-  const size_t sm = shared_bytes(N, ML);
-  cudaError_t err = cudaFuncSetAttribute(
-      poa_v2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+                     void* n_nodes, void* cells, void* steps, void* phases,
+                     void* scratch, int B, void* stream) {
+  if (E > VSLOT || ML + 1 > NT * CHMAX || N > 32767)
+    return (int)cudaErrorInvalidValue;
+  const int ES = edge_stride(E);
+  int ring = 0;
+  bool gsrc = false;
+  size_t sm = 0;
+  cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &sm);
+  Kernel fn = nullptr;
+  if (err == cudaSuccess) err = planned_kernel(gsrc, sm, &fn);
   if (err != cudaSuccess) return (int)err;
+  Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, colstep ? 1 : 0, ring};
   const size_t per = (size_t)rt_poa_v2_scratch_words(N, ML, E);
-  poa_v2_kernel<<<B, NT, sm, (cudaStream_t)stream>>>(
+  fn<<<B, NT, sm, (cudaStream_t)stream>>>(
       c, (const uint8_t*)bb, (const int*)bbw, (const int*)bb_len,
       (const int*)n_layers, (const uint8_t*)seqs, (const int*)ws,
       (const int*)lens, (const int*)begins, (const int*)ends,
       (int*)cons_base, (int*)cons_cov, (int*)cons_len, (uint8_t*)failed,
-      (int*)n_nodes, (long long*)cells, (long long*)steps, (int*)scratch,
-      per);
+      (int*)n_nodes, (long long*)cells, (long long*)steps,
+      (long long*)phases, (int*)scratch, per);
   return (int)cudaGetLastError();
+}
+
+// The kernel's registers a thread, local (spill) bytes a thread, dynamic
+// shared bytes a block and resident blocks per SM at (N, ML) with 12 edge
+// slots, as the launch plans them; out[4].
+int rt_poa_v2_occupancy(int N, int ML, int* out) {
+  int ring = 0;
+  bool gsrc = false;
+  size_t sm = 0;
+  cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &sm);
+  Kernel fn = nullptr;
+  if (err == cudaSuccess) err = planned_kernel(gsrc, sm, &fn);
+  if (err != cudaSuccess) return (int)err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, (const void*)fn);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, sm);
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)sm;
+  out[3] = blocks;
+  return (int)err;
 }
 
 }  // extern "C"

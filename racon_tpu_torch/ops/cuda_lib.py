@@ -121,6 +121,18 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
+def occupancy(fn, N: int, ML: int, what: str) -> Dict[str, int]:
+    """A POA kernel's resources at (max_nodes, max_len) through its
+    ``rt_*_occupancy`` export: registers and local (spill) bytes a thread,
+    dynamic shared bytes and resident blocks per SM."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = (ctypes.c_int * 4)()
+    check(fn(N, ML, out), f"{what} occupancy query")
+    return dict(zip(("regs", "local_bytes", "shared_bytes",
+                     "blocks_per_sm"), out))
+
+
 def stream_of(t) -> ctypes.c_void_p:
     import torch
 

@@ -44,6 +44,13 @@ def _lib():
     return _LIB
 
 
+def occupancy(cfg: PoaConfig) -> dict:
+    """The kernel's registers, spill bytes, shared bytes and blocks per
+    SM at cfg's geometry (needs the card)."""
+    return cuda_lib.occupancy(_lib().rt_poa_occupancy, cfg.max_nodes,
+                              cfg.max_len, "POA kernel")
+
+
 def check_inputs(cfg: PoaConfig, args, dev) -> int:
     """Both POA wrappers' argument check; returns the batch size."""
     bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends = args

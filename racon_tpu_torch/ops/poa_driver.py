@@ -4,10 +4,13 @@ host every window the kernel flags ``failed``.
 
 A copy of the JAX package's driver (racon_tpu/ops/poa_driver.py) reduced
 to one path: no journal, no sanitizer, no band ladder, no sharding, and no
-lattice. The kernel is an argument, ``poa_kernel``: "ls" (ops/poa_cuda.py,
-the default, as in the JAX package) or "v2" (ops/poa_v2_cuda.py); both
-compute one function, and neither steps down to the other. Both keep H in
-global memory, so neither depth nor window class ever keeps a window off
+lattice. The kernel is an argument, ``poa_kernel``: "v2"
+(ops/poa_v2_cuda.py, the default since it beat ls by more than 10% on
+every depth bucket on the card) or "ls" (ops/poa_cuda.py, the JAX
+package's default); both compute one function, and neither steps down to
+the other. Both keep H in global memory and fit every window class up to
+-w 1280 (max_len <= 2047), v2 by planning its shared memory per launch
+(poa_v2_cuda.plan), so neither depth nor window class keeps a window off
 the card.
 """
 
@@ -28,6 +31,7 @@ DEPTH_CAP = 200                    # layers per window, as the reference
 DEPTH_BUCKETS = (8, 32, DEPTH_CAP)
 NODE_FACTOR = 3                    # max_nodes = 3 x window length
 POA_KERNELS = ("ls", "v2")
+DEFAULT_POA_KERNEL = "v2"
 
 
 def window_class(bb_len: int) -> int:
@@ -74,10 +78,10 @@ def kernel_for(poa_kernel: str):
 
 def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
                         trim: bool, device="cuda", batch_windows: int = 256,
-                        poa_kernel: str = "ls") -> dict:
+                        poa_kernel: str = DEFAULT_POA_KERNEL) -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
-    `poa_kernel` ("ls" or "v2") picks the kernel.
+    `poa_kernel` ("v2", the default, or "ls") picks the kernel.
 
     Returns {device, host_fallback, backbone, failed, layers_dropped,
     batches, host_seconds}: windows served by the kernel, re-polished on

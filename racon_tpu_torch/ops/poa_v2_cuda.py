@@ -4,16 +4,28 @@ Replaces the JAX package's Pallas kernel ``build_pallas_poa_kernel``
 (racon_tpu/ops/poa_pallas.py:73, pallas_call :659), the tier that
 ``RACON_TPU_POA_KERNEL=v2`` selects there. It computes the same function
 as the ls kernel (ops/poa_cuda.py) and the plain version
-``poa.poa_batch_plain``, with the v2 design: per-cell move records, so the
-traceback is one load per step; a rank order kept sorted through the
-graph update instead of rebuilt per layer; end-node selection fused into
-the DP sweep; and with ``colstep`` same-column rank pairs retired in one
-serial iteration.
+``poa.poa_batch_plain``.
 
-What bounds it on an H100: the serial chains of POA (one DP row after
-another, the traceback, the update), not bytes or integer throughput. H
-and the move bytes, (N + 1) x (max_len + 1) cells per window, live in a
-global scratch allocated here; many windows run at once.
+What bounds it on an H100: one window's serial chain, not bytes or
+integer throughput. A batch of up to 256 windows runs at once, one block
+each and two blocks an SM, so a launch lasts as long as its slowest
+window's chain of DP rows, tracebacks and graph updates, and a DP row
+costs what its instructions cost when two windows' warps share the SM.
+The design takes global round trips and instructions off that chain: the
+graph (int16 in-edge sources, keys, bases, rank order, coverage) lives in
+shared memory; a DP row reads near predecessors from a shared ring of the
+last rows of H, with its columns unrolled to its share; same-column rank
+pairs (``colstep``) run on the two halves of the block at once; the graph
+update freezes the rank order, finds each position's matched node in
+parallel and merges the layer's new nodes into the order in one pass; the
+traceback fetches two steps' move records per trip to memory. H, the move
+bytes and the edge weights live in a global scratch allocated here.
+
+The graph grows with the window, so each launch plans its shared memory
+(``plan``): a ring of 8 rows at -w 500, fewer rows for larger windows
+(2 at -w 1280, the largest that ``max_len <= 2047`` admits), and the
+in-edge sources in the global scratch where even that does not fit. The
+plan fits every geometry the ls kernel takes.
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -31,6 +43,10 @@ from .poa import PoaConfig, poa_batch_plain
 from .poa_cuda import check_inputs
 
 VSLOT = 15        # the move records' virtual-start slot: max_edges <= 15
+MAX_NODES = 32767  # node ids are int16 in the kernel
+#: The kernel's timed phases, in the order of stats["phase_cycles"].
+PHASES = ("init", "dp", "end_pick", "traceback", "update", "consensus")
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: the graph does not fit
 
 _LIB = None
 
@@ -43,9 +59,35 @@ def _lib():
         lib.rt_poa_v2_scratch_words.restype = ctypes.c_longlong
         lib.rt_poa_v2_scratch_words.argtypes = [ci, ci, ci]
         lib.rt_poa_v2_launch.restype = ci
-        lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 17 + [ci, vp]
+        lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 18 + [ci, vp]
+        lib.rt_poa_v2_plan.restype = ci
+        lib.rt_poa_v2_plan.argtypes = [ci, ci, ci, vp]
         _LIB = lib
     return _LIB
+
+
+def occupancy(cfg: PoaConfig) -> dict:
+    """The kernel's registers, spill bytes, shared bytes and blocks per
+    SM at cfg's geometry (needs the card)."""
+    return cuda_lib.occupancy(_lib().rt_poa_v2_occupancy, cfg.max_nodes,
+                              cfg.max_len, "v2 POA kernel")
+
+
+def plan(cfg: PoaConfig) -> dict:
+    """How a launch at cfg's geometry lays out a window on this card: the
+    DP rows its shared ring holds ("ring": 8, 4 or 2), whether the in-edge
+    sources are in shared memory ("src_in_shared") and the dynamic shared
+    bytes a block ("shared_bytes"). Raises ValueError where the graph does
+    not fit the card's shared memory a block (needs the card)."""
+    out = (ctypes.c_int * 3)()
+    err = _lib().rt_poa_v2_plan(cfg.max_nodes, cfg.max_len, cfg.max_edges,
+                                out)
+    if err == _INVALID_VALUE:
+        raise ValueError(f"v2 POA kernel: a window of max_nodes="
+                         f"{cfg.max_nodes}, max_len={cfg.max_len} does not "
+                         f"fit the card's shared memory a block")
+    cuda_lib.check(err, "v2 POA kernel's shared-memory plan")
+    return dict(zip(("ring", "src_in_shared", "shared_bytes"), out))
 
 
 def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
@@ -59,7 +101,10 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     on it. `stats`, when given, accumulates the DP cells ("cells") and
     the serial DP iterations ("steps") the batch needed, as the plain
     version counts them; on the card the kernel counts both, and reading
-    them waits for it."""
+    them waits for it. On the card only, it also accumulates each
+    phase's clock cycles (``PHASES``; thread 0 of each window's block
+    reads ``clock64()``): summed over the windows ("phase_cycles") and
+    the largest window's ("phase_cycles_max")."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats, colstep=colstep)
@@ -68,6 +113,10 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     if cfg.max_edges > VSLOT:
         raise ValueError(f"v2 POA kernel takes max_edges <= {VSLOT}, got "
                          f"{cfg.max_edges}")
+    if cfg.max_nodes > MAX_NODES:
+        raise ValueError(f"v2 POA kernel takes max_nodes <= {MAX_NODES} "
+                         f"(int16 node ids), got {cfg.max_nodes}")
+    plan(cfg)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -79,8 +128,8 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     lib = _lib()
     per = lib.rt_poa_v2_scratch_words(N, cfg.max_len, cfg.max_edges)
     scratch = torch.empty((B, per), dtype=torch.int32, device=dev)
-    counts = None if stats is None else torch.empty((2, B), dtype=torch.int64,
-                                                    device=dev)
+    counts = None if stats is None else torch.empty(
+        (2 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
     err = lib.rt_poa_v2_launch(
         N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
@@ -88,12 +137,18 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
         *(p(t) for t in args),
         p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
         None if counts is None else p(counts[0]),
-        None if counts is None else p(counts[1]), p(scratch), B,
+        None if counts is None else p(counts[1]),
+        None if counts is None else p(counts[2]), p(scratch), B,
         cuda_lib.stream_of(bb))
     cuda_lib.check(err, "v2 POA consensus kernel")
     cuda_lib.LAUNCHES["poa_consensus_v2"] += 1
     if counts is not None:
-        cells, steps = counts.sum(dim=1).tolist()
-        stats["cells"] = stats.get("cells", 0) + cells
-        stats["steps"] = stats.get("steps", 0) + steps
+        sums = counts.sum(dim=1).tolist()
+        peaks = counts[2:].max(dim=1).values.tolist()
+        stats["cells"] = stats.get("cells", 0) + sums[0]
+        stats["steps"] = stats.get("steps", 0) + sums[1]
+        old = stats.get("phase_cycles", [0] * len(PHASES))
+        stats["phase_cycles"] = [a + b for a, b in zip(old, sums[2:])]
+        old = stats.get("phase_cycles_max", [0] * len(PHASES))
+        stats["phase_cycles_max"] = [max(a, b) for a, b in zip(old, peaks)]
     return cons_base, cons_cov, cons_len, failed, n_nodes

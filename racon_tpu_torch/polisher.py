@@ -17,7 +17,8 @@ from typing import List, Tuple
 import torch
 
 from .ops.align_driver import run_alignment_phase
-from .ops.poa_driver import kernel_for, run_consensus_phase
+from .ops.poa_driver import (DEFAULT_POA_KERNEL, kernel_for,
+                              run_consensus_phase)
 from .pipeline import Pipeline
 
 
@@ -37,17 +38,18 @@ class TorchPolisher:
 
     ``device`` is where the kernels run ("cuda", the default, or "cpu"
     for the plain PyTorch versions); ``batch_windows`` is the POA batch
-    in windows; ``poa_kernel`` picks the POA kernel ("ls", the default,
-    or "v2"; both compute the same consensus). The other keyword arguments are racon's (window_length,
-    quality_threshold, error_threshold, trim, match, mismatch, gap,
-    fragment_correction, num_threads).
+    in windows; ``poa_kernel`` picks the POA kernel ("v2", the default,
+    or "ls"; both compute the same consensus). The other keyword
+    arguments are racon's (window_length, quality_threshold,
+    error_threshold, trim, match, mismatch, gap, fragment_correction,
+    num_threads).
 
     After polish(), ``stats`` holds each phase's wall seconds and served
     counts."""
 
     def __init__(self, sequences: str, overlaps: str, target: str, *,
                  device="cuda", batch_windows: int = 256,
-                 poa_kernel: str = "ls", **racon_kwargs):
+                 poa_kernel: str = DEFAULT_POA_KERNEL, **racon_kwargs):
         self.device = _resolve_device(device)
         kernel_for(poa_kernel)
         self.batch_windows = batch_windows
@@ -86,7 +88,7 @@ class TorchPolisher:
 
 
 def create_polisher(sequences: str, overlaps: str, target: str, *,
-                    device="cuda", poa_kernel: str = "ls",
+                    device="cuda", poa_kernel: str = DEFAULT_POA_KERNEL,
                     **kwargs) -> TorchPolisher:
     """Factory, as the JAX package's create_polisher for its device
     backend."""

@@ -3,12 +3,18 @@
 Used to hold each CUDA kernel against its plain version on the card
 (chip_smoke.py, tests/test_torch_cuda.py). Everything is drawn with
 numpy from the given seed, so a batch is the same on every machine.
+``plain_poa_parallel`` runs the plain POA version of large batches in
+several host processes for those checks.
 """
 
 from __future__ import annotations
 
+import multiprocessing
+from concurrent.futures import ProcessPoolExecutor
+
 import numpy as np
 
+from ..ops import poa
 from ..ops.poa import PoaConfig
 
 
@@ -30,11 +36,12 @@ def mutate(rng: np.random.Generator, seq: np.ndarray, rate: float):
 
 
 def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
-              rate: float = 0.1):
-    """B windows of about `window` bases with 2..cfg.depth layers each
-    (one partial-span layer where depth allows), per-base weights, and
-    backbone weights: the nine numpy arrays ``poa.batch_to_tensors``
-    takes, as a tuple with a trailing None."""
+              rate: float = 0.1, layers=None):
+    """B windows of about `window` bases with 2..cfg.depth layers each, or
+    `layers` = (lo, hi) layers, lo..hi inclusive (one partial-span layer
+    where there are three or more), per-base weights, and backbone
+    weights: the nine numpy arrays ``poa.batch_to_tensors`` takes, as a
+    tuple with a trailing None."""
     rng = np.random.default_rng(seed)
     D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
     bb = np.zeros((B, MB), np.uint8)
@@ -54,7 +61,8 @@ def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
         bb[b, :L] = backbone
         bbw[b, :L] = rng.integers(0, 60, L)
         bb_len[b] = L
-        nl = int(rng.integers(2, D + 1))
+        lo, hi = (2, D) if layers is None else layers
+        nl = int(rng.integers(lo, hi + 1))
         n_layers[b] = nl
         for li in range(nl):
             lay = mutate(rng, truth, rate)
@@ -114,6 +122,22 @@ def equal_key_batch(cfg: PoaConfig, windows=EQUAL_KEY_WINDOWS):
     return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
 
 
+#: (run length R, growing layers K, seed) of each pair_edge_batch window:
+#: the first three fold in every layer, the last three fail.
+PAIR_EDGE_WINDOWS = ((12, 12, 0), (9, 11, 2), (13, 12, 1), (12, 11, 2),
+                     (12, 12, 2), (8, 12, 1))
+
+
+def pair_edge_batch(cfg: PoaConfig, windows=PAIR_EDGE_WINDOWS):
+    """Windows where a same-column pair of the colstep loop is joined by
+    an edge. As in equal_key_batch, the keys of an insertion run crowd
+    towards column 41 until two new nodes made one after the other round
+    to the same float32 key: the edge between them then joins ranks r and
+    r + 1 of one key, which the v2 kernel must run one after the other
+    even though they share a column. Same cfg needs as equal_key_batch."""
+    return equal_key_batch(cfg, windows)
+
+
 def align_pairs(seed: int, count: int, lo: int, hi: int, rate=(0.02, 0.18)):
     """`count` (query, target) code pairs: a random query of lo..hi bases
     and a target mutated from it at a rate drawn from `rate`."""
@@ -123,3 +147,41 @@ def align_pairs(seed: int, count: int, lo: int, hi: int, rate=(0.02, 0.18)):
         q = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
         out.append((q, mutate(rng, q, float(rng.uniform(*rate)))))
     return out
+
+
+def _plain_poa_part(cfg, arrays):
+    """One process's share of the plain POA run: numpy in, numpy out."""
+    import torch
+
+    torch.set_num_threads(1)
+    stats = {"cells": 0, "steps": 0, "rows": 0}
+    outs = poa.poa_batch_plain(cfg, *(torch.from_numpy(a) for a in arrays),
+                               stats=stats, colstep=True)
+    return [o.numpy() for o in outs], stats
+
+
+def plain_poa_parallel(batches, procs: int):
+    """The plain POA version on the host for [(cfg, tensors)], each
+    batch's windows split over `procs` processes (the plain version loops
+    over windows in Python). Returns [(outputs, stats)]: the stats hold
+    the DP cells, the DP rows and the colstep steps."""
+    import torch
+
+    jobs, spans = [], []
+    for cfg, dev_in in batches:
+        host = [t.cpu().numpy() for t in dev_in]
+        cuts = np.linspace(0, host[0].shape[0], procs + 1).astype(int)
+        spans.append((len(jobs), procs))
+        jobs += [(cfg, [a[lo:hi] for a in host])
+                 for lo, hi in zip(cuts[:-1], cuts[1:])]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(procs, mp_context=ctx) as ex:
+        parts = list(ex.map(_plain_poa_part, *zip(*jobs)))
+    res = []
+    for first, n in spans:
+        mine = parts[first:first + n]
+        outs = [np.concatenate([p[0][k] for p in mine]) for k in range(5)]
+        res.append(([torch.from_numpy(o) for o in outs],
+                    {k: sum(p[1][k] for p in mine)
+                     for k in ("cells", "steps", "rows")}))
+    return res

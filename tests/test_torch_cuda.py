@@ -9,6 +9,9 @@ without JAX:
 All outputs are integers and must be equal (tolerance 0).
 """
 
+import functools
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -110,6 +113,153 @@ def test_poa_kernels_equal_plain_where_keys_collide(card, kernel, colstep):
     for k, (w, g) in enumerate(zip(want, got)):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=f"output {k}")
+
+
+@pytest.mark.parametrize("colstep", [True, False])
+def test_poa_v2_equals_plain_where_pairs_are_joined(card, colstep):
+    """Windows where a same-column colstep pair is joined by an edge
+    (batches.pair_edge_batch): the kernel must run such a pair one row
+    after the other, and counts it as one step."""
+    cfg = CFG._replace(depth=16)
+    packed = batches.pair_edge_batch(cfg)
+    want_st, got_st = {}, {}
+    want = poa_v2_cuda.poa_consensus_v2(
+        cfg, *poa.batch_to_tensors(packed, "cpu"), colstep=colstep,
+        stats=want_st)
+    got = poa_v2_cuda.poa_consensus_v2(
+        cfg, *poa.batch_to_tensors(packed, card), colstep=colstep,
+        stats=got_st)
+    torch.cuda.synchronize()
+    assert want[3].tolist() == [False] * 3 + [True] * 3
+    assert (got_st["cells"], got_st["steps"]) == (want_st["cells"],
+                                                  want_st["steps"])
+    for k, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=f"output {k}")
+
+
+def test_poa_v2_equals_plain_on_a_full_depth_200_batch(card):
+    """256 windows of 500 bases at the depth-200 bucket's geometry with
+    33..48 layers each, the shape of the main path's largest launches,
+    colstep on and off. The plain version runs in 8 host processes."""
+    cfg = poa_driver.make_config(500, 200, 5, -4, -8)
+    packed = batches.poa_batch(cfg, 256, 6, 500, layers=(33, 48))
+    dev_in = poa.batch_to_tensors(packed, card)
+    (want, pst), = batches.plain_poa_parallel([(cfg, dev_in)], 8)
+    for colstep in (True, False):
+        st = {}
+        got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, colstep=colstep,
+                                           stats=st)
+        torch.cuda.synchronize()
+        assert st["cells"] == pst["cells"]
+        assert st["steps"] == (pst["steps"] if colstep else pst["rows"])
+        for k, (w, g) in enumerate(zip(want, got)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                          err_msg=f"output {k}, colstep "
+                                          f"{colstep}")
+
+
+#: Geometries beyond -w 500 and the v2 shared-memory plan each gets on an
+#: H100 (227 KiB a block): (config, window, ring rows, sources in shared
+#: memory). -w 1280 is the largest window make_config's max_len admits;
+#: "n6144" is a graph too large to keep its in-edge sources on chip.
+LARGE = {
+    "w1000": (poa_driver.make_config(1000, 32, 5, -4, -8), 1000, 8, 1),
+    "w1200": (poa_driver.make_config(1200, 32, 5, -4, -8), 1200, 4, 1),
+    "w1280": (poa_driver.make_config(1280, 200, 5, -4, -8), 1280, 2, 1),
+    "n6144": (CFG._replace(max_nodes=6144, max_len=1024, max_backbone=512,
+                           depth=16), 500, 8, 0),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _large_case(name):
+    cfg, window = LARGE[name][:2]
+    packed = batches.poa_batch(cfg, 8, 21, window, layers=(6, 16))
+    st = {}
+    want = poa_v2_cuda.poa_consensus_v2(
+        cfg, *poa.batch_to_tensors(packed, "cpu"), stats=st)
+    return packed, want, st
+
+
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+@pytest.mark.parametrize("name", sorted(LARGE))
+def test_poa_kernels_equal_plain_at_large_geometries(card, kernel, name):
+    """Both POA kernels launch and equal the plain version at every
+    window size the driver takes; v2 with the shared-memory plan each
+    geometry should get."""
+    cfg, _, ring, src_in_shared = LARGE[name]
+    packed, want, want_st = _large_case(name)
+    dev_in = poa.batch_to_tensors(packed, card)
+    st = {}
+    if kernel == "v2":
+        assert poa_v2_cuda.plan(cfg) == {
+            "ring": ring, "src_in_shared": src_in_shared,
+            "shared_bytes": poa_v2_cuda.occupancy(cfg)["shared_bytes"]}
+        got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, stats=st)
+    else:
+        got = poa_cuda.poa_consensus(cfg, *dev_in, stats=st)
+    torch.cuda.synchronize()
+    assert st["cells"] == want_st["cells"] > 0
+    if kernel == "v2":
+        assert st["steps"] == want_st["steps"]
+    for k, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=f"output {k}")
+
+
+def test_poa_v2_raises_where_the_graph_does_not_fit(card):
+    """A graph too large for the card's shared memory a block even with
+    its in-edge sources in global memory: the wrapper raises."""
+    cfg = CFG._replace(max_nodes=12288, max_len=1024, max_backbone=512)
+    packed = batches.poa_batch(cfg, 1, 22, 100)
+    with pytest.raises(ValueError, match="does not fit"):
+        poa_v2_cuda.poa_consensus_v2(cfg,
+                                     *poa.batch_to_tensors(packed, card))
+
+
+def _max_sm_mhz():
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True)
+    return float(out.stdout.split()[0])
+
+
+def test_poa_v2_phase_cycles_fit_in_the_launch(card):
+    """Each phase's cycles are non-negative and a window's phases add up
+    to no more than the launch lasted, at the card's highest SM clock
+    (one window per launch, so the sums are that window's)."""
+    cfg = poa.PoaConfig(depth=32)
+    packed = batches.poa_batch(cfg, 3, 8, 500)
+    dev_in = poa.batch_to_tensors(packed, card)
+    mhz = _max_sm_mhz()
+    for b in range(3):
+        one = [t[b:b + 1].contiguous() for t in dev_in]
+        poa_v2_cuda.poa_consensus_v2(cfg, *one)
+        st = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        poa_v2_cuda.poa_consensus_v2(cfg, *one, stats=st)
+        ev[1].record()
+        torch.cuda.synchronize()
+        cycles = st["phase_cycles"]
+        assert len(cycles) == len(poa_v2_cuda.PHASES)
+        assert min(cycles) >= 0 and cycles[1] > 0
+        assert st["phase_cycles_max"] == cycles
+        assert sum(cycles) <= ev[0].elapsed_time(ev[1]) * mhz * 1e3
+
+
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+def test_poa_kernels_fit_two_blocks_an_sm(card, kernel):
+    """At the main path's geometry (-w 500) each POA kernel has at least
+    two blocks an SM, so a batch of 256 windows is resident at once on the
+    card's 132 SMs, within 128 registers a thread."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    mod = poa_cuda if kernel == "ls" else poa_v2_cuda
+    occ = mod.occupancy(cfg)
+    assert occ["regs"] <= 128
+    assert occ["blocks_per_sm"] >= 2
 
 
 @pytest.mark.parametrize("mode", range(probe.N_MODES))

@@ -15,6 +15,8 @@ import random
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 import racon_tpu
 import racon_tpu_torch
@@ -144,13 +146,16 @@ def test_paf_polish_byte_identical_to_jax_v2(tmp_path, monkeypatch):
 
 
 def test_cli_poa_kernel_v2_writes_the_same_fasta(tmp_path, capsys):
+    """--poa-kernel v2, --poa-kernel ls and the default write one FASTA."""
     paths = _paf_dataset(tmp_path)
     flags = ["--device", "cpu", "-w", "100", "-m", "5", "-x", "-4", "-g",
              "-8"]
-    assert cli.main(flags + list(paths)) == 0
+    assert cli.main(flags + ["--poa-kernel", "ls"] + list(paths)) == 0
     ls_out = capsys.readouterr().out
     assert cli.main(flags + ["--poa-kernel", "v2"] + list(paths)) == 0
     assert capsys.readouterr().out == ls_out != ""
+    assert cli.main(flags + list(paths)) == 0
+    assert capsys.readouterr().out == ls_out
 
 
 def test_bad_poa_kernel_raises(tmp_path):
@@ -229,3 +234,156 @@ def test_v2_two_windows_deep_batch_equals_pallas_v2():
         _set_window(a, b, mutate(truth, 0.1, rng),
                     [mutate(truth, 0.1, rng) for _ in range(CFG.depth)])
     _assert_v2_equal(CFG, a, True)
+
+
+def _pair_edges(cfg, packed):
+    """Per window over the layers the plain version folds in: the colstep
+    pairs (ops/colstep.pair_schedule over the subgraph's rank order) whose
+    first node is among the second's in-edge sources, and whether the
+    window failed."""
+    t = poa.batch_to_tensors(packed, "cpu")
+    res = []
+    for b in range(t[0].shape[0]):
+        bb, bbw, bb_len, nl, seqs, ws, lens, begins, ends = (x[b] for x in t)
+        n = int(bb_len)
+        assert int(np.float32(0.01) * n) == 0   # no layer spans the window
+        g = poa._Graph(cfg, bb, bbw, n)
+        joined = 0
+        for li in range(int(nl)):
+            if g.failed:
+                break
+            lo, hi = np.float32(begins[li]), np.float32(ends[li])
+            sub = np.zeros(cfg.max_nodes, bool)
+            sub[:g.n] = (g.key[:g.n] >= lo) & (g.key[:g.n] <= hi)
+            order = poa._rank_order(g.key, np.nonzero(sub)[0])
+            for r, take in colstep.pair_schedule(g.key[order]):
+                joined += take == 2 and order[r] in g.src[order[r + 1]]
+            poa._add_layer(cfg, g, seqs[li], ws[li].numpy(), int(lens[li]),
+                           int(begins[li]), int(ends[li]), n, None, True)
+        res.append((joined, g.failed))
+    return res
+
+
+def test_pair_edge_batch_meets_joined_pairs():
+    """The batch that holds the v2 kernel's concurrent colstep pairs to the
+    plain version (tests/test_torch_cuda.py) has, in every window, a pair
+    of one key joined by an edge, which must run one row after the other;
+    three windows fold in every layer, three fail."""
+    cfg = poa.PoaConfig(max_nodes=384, max_len=256, max_backbone=128,
+                        depth=16)
+    packed = batches.pair_edge_batch(cfg)
+    res = _pair_edges(cfg, packed)
+    assert all(j > 0 for j, _ in res)
+    assert [f for _, f in res] == [False] * 3 + [True] * 3
+    plain = poa.poa_batch_plain(cfg, *poa.batch_to_tensors(packed, "cpu"))
+    assert plain[3].tolist() == [f for _, f in res]
+
+
+def _insert_sequentially(keys, n, m):
+    """The rank order after inserting new ids n..n+m-1 one at a time,
+    each after every key <= its own (the sorted order of ids 0..n-1 by
+    (key, id) to start)."""
+    order = sorted(range(n), key=lambda i: (keys[i], i))
+    for v in range(n, n + m):
+        pos = sum(keys[o] <= keys[v] for o in order)
+        order.insert(pos, v)
+    return order
+
+
+def _merge_rule(keys, n, m):
+    """csrc/poa_v2.cu merge_new as numpy: an old node at rank i goes to
+    i + (new keys < its key); a new node to its place among the new ones
+    (its index where their keys are sorted, else the count of (key, id)
+    before it) + (old keys <= its key)."""
+    old = sorted(range(n), key=lambda i: (keys[i], i))
+    ok = np.array([keys[o] for o in old], dtype=np.float32)
+    nk = np.array(keys[n:n + m], dtype=np.float32)
+    srt = bool(np.all(nk[:-1] <= nk[1:]))
+    out = np.full(n + m, -1)
+    for i, o in enumerate(old):
+        below = (np.searchsorted(nk, keys[o], side="left") if srt
+                 else int((nk < keys[o]).sum()))
+        out[i + below] = o
+    for q in range(m):
+        before = q if srt else int(((nk < nk[q]) |
+                                    ((nk == nk[q]) &
+                                     (np.arange(m) < q))).sum())
+        out[before + np.searchsorted(ok, nk[q], side="right")] = n + q
+    return out.tolist()
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.integers(0, 6), min_size=0, max_size=12),
+       st.lists(st.integers(0, 6), min_size=0, max_size=12),
+       st.booleans())
+def test_merge_rule_equals_sequential_insertion(old, new, walk_order):
+    """Step d's merge of a layer's new nodes into the frozen rank order
+    gives the order that inserting them one by one gives, on float32 keys
+    drawn from a pool of seven (so ties are forced among old keys, among
+    new keys and between the two), new keys sorted as the walk makes
+    them or in any order."""
+    pool = np.float32([0.0, 0.5, 1.0, np.float32(1.0) + np.float32(2**-23),
+                       2.0, 2.0, 41.0])
+    new = sorted(new) if walk_order else new
+    keys = [pool[k] for k in old + new]
+    n, m = len(old), len(new)
+    assert _merge_rule(keys, n, m) == _insert_sequentially(keys, n, m)
+
+
+def test_default_polisher_and_cli_write_the_jax_fasta(tmp_path, capsys,
+                                                      monkeypatch):
+    """The default POA kernel (poa_driver.DEFAULT_POA_KERNEL), through
+    create_polisher and through the CLI without --poa-kernel, writes the
+    FASTA that racon_tpu.TpuPolisher writes."""
+    paths = _paf_dataset(tmp_path)
+    p = racon_tpu_torch.create_polisher(*paths, device="cpu", **KW)
+    assert p.poa_kernel == poa_driver.DEFAULT_POA_KERNEL
+    p.initialize()
+    got = p.polish(True)
+    assert cli.main(["--device", "cpu", "-w", "100", "-m", "5", "-x", "-4",
+                     "-g", "-8", *paths]) == 0
+    assert capsys.readouterr().out == "".join(f">{n}\n{s}\n"
+                                              for n, s in got)
+    monkeypatch.setenv("RACON_TPU_DEVICE_ALIGNER", "hirschberg")
+    q = racon_tpu.TpuPolisher(*paths, **KW)
+    q.initialize()
+    assert got == q.polish(True)
+
+
+def _parallel_pair_starts(keys):
+    """csrc/poa_v2.cu's step rule as numpy, one rank at a time with no
+    carried state: rank r starts a pair where rank r + 1 has its key and
+    r is an even distance from the first rank of that key."""
+    k = np.asarray(keys, dtype=np.float32)
+    first = np.searchsorted(k, k, side="left")
+    nxt = np.append(k[1:] == k[:-1], False)
+    return [int(r) for r in np.nonzero(nxt & ((np.arange(len(k)) - first)
+                                              % 2 == 0))[0]]
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.lists(st.integers(0, 5), min_size=0, max_size=40))
+def test_parallel_pair_rule_equals_pair_schedule(ids):
+    """The kernel finds each rank's colstep step in parallel; its pairs
+    are the greedy ones of ops/colstep.pair_schedule on sorted keys with
+    runs of ties of every length."""
+    keys = sorted(np.float32(i) / np.float32(3) for i in ids)
+    want = [r for r, take in colstep.pair_schedule(keys) if take == 2]
+    assert _parallel_pair_starts(keys) == want
+
+
+def test_default_poa_kernel_is_v2(tmp_path):
+    """v2 is the default POA kernel of TorchPolisher, create_polisher, the
+    consensus driver and the CLI (it beat ls by more than 10% on every
+    depth bucket on the card)."""
+    import inspect
+
+    assert poa_driver.DEFAULT_POA_KERNEL == "v2"
+    paths = _paf_dataset(tmp_path)
+    assert racon_tpu_torch.TorchPolisher(*paths, device="cpu",
+                                         **KW).poa_kernel == "v2"
+    assert racon_tpu_torch.create_polisher(*paths, device="cpu",
+                                           **KW).poa_kernel == "v2"
+    sig = inspect.signature(poa_driver.run_consensus_phase)
+    assert sig.parameters["poa_kernel"].default == "v2"
+    assert cli.build_arg_parser().get_default("poa_kernel") == "v2"
