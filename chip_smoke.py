@@ -9,7 +9,8 @@ then, each phase printing one JSON line:
 * main: polishes a simulated 1.0 Mbp genome (30x ONT-like reads, PAF
   overlaps, -w 500 -m 5 -x -4 -g -8) on the card with the default POA
   kernel (poa_driver.DEFAULT_POA_KERNEL), times every kernel launch with
-  CUDA events beside its bound from the DP cells it ran, and checks that
+  CUDA events around the launch call alone (cuda_lib.LAUNCH_EVENTS)
+  beside its bound from the DP cells it needed, and checks that
   polishing lowers the edit distance to the truth;
 * main_ls or main_v2: the same polish with the other POA kernel, recorded
   the same way; its FASTA must be byte-identical to the main run's;
@@ -23,7 +24,12 @@ then, each phase printing one JSON line:
   lines also give the kernel's per-phase times (init, dp, end_pick,
   traceback, update, consensus: max and mean over the launch's windows,
   from clock64() cycles over the card's highest SM clock), printed as
-  "v2 POA phases" lines;
+  "v2 POA phases" lines; each base-case band prints a "base case phases"
+  line the same way (dp and traceback, max and mean over the launch's
+  tasks) and an occupancy line (registers, spill bytes, resident warps
+  per SM); the aligner's bounds count the band cells its DP needs (the
+  lanes o of row i with 0 <= i + dmin + o <= S), and its lines also
+  give the cells its warps run (R x K, "lane_cells");
 * poa_decision: v2 over ls and colstep over flat on each depth bucket's
   largest launch, the numbers that settle the default POA kernel;
 * parity: the card (both POA kernels) and the CPU polish a small PAF set
@@ -129,6 +135,27 @@ def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def band_cells(scal, K: int, backward: bool = False) -> int:
+    """Cells of the aligner's DP that lie in band, summed over tasks: at
+    row i, the lanes o < K with 0 <= i + dmin + o <= S, for rows 1..R
+    (forward, base case) or 0..R-1 (backward). Out-of-band lanes hold INF
+    and no output reads them, so a bound counts only these."""
+    import torch
+
+    s = scal.int()
+    R, S, dmin = s[:, 0:1], s[:, 1:2], s[:, 2:3]
+    o = torch.arange(K, dtype=torch.int32, device=s.device)
+    first, last = (0, R - 1) if backward else (1, R)
+    lo = (-dmin - o).clamp(min=first)
+    hi = torch.minimum(S - dmin - o, last)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def lane_cells(scal, K: int) -> int:
+    """Cells the aligner's warps run: R rows of all K lanes a task."""
+    return int(scal[:, 0].sum()) * K
+
+
 def bound(n_bytes: int, n_ops: int):
     t_bytes = n_bytes / HBM_BYTES_S
     t_ops = n_ops / INT32_OPS_S
@@ -142,36 +169,41 @@ class MainPathRecorder:
     Inside ``with`` it replaces the kernel wrappers where the main path
     looks them up (``align_cuda.edge_rows``, ``align_cuda.base_case``,
     ``poa_driver.poa_consensus``, ``poa_driver.poa_consensus_v2``) by thin
-    wrappers that call the real ones between two CUDA events, count the
-    launch's DP cells and bytes, and keep the inputs of the largest launch
-    (by DP cells) of each kernel and geometry: POA per depth bucket, the
-    edge kernel per band and direction, the base case per band. The real
-    wrappers still count their launches. The POA launches count their
-    cells (and v2 its serial steps) on the card (``stats``), which adds
-    one reduction over the batch to their time."""
+    wrappers that call the real ones, count the launch's DP cells and
+    bytes, and keep the inputs of the largest launch (by DP cells) of each
+    kernel and geometry: POA per depth bucket, the edge kernel per band
+    and direction, the base case per band. The real wrappers still count
+    their launches, and time each one with the two CUDA events they
+    record around the launch call alone (``cuda_lib.LAUNCH_EVENTS``),
+    which leaves out their checks and allocations. The POA launches count
+    their cells (and v2 its serial steps) on the card (``stats``); the
+    aligner's cells are those in band (``band_cells``)."""
 
     def __init__(self, torch, ac, poa_driver):
         self.torch, self.ac, self.pd = torch, ac, poa_driver
-        self.launches = []     # (name, [start, end event], ops, bytes)
+        self.launches = []     # (name, (start, end event), ops, bytes)
         self.largest = {}      # (kernel, geometry) -> (cells, inputs)
         self.steps = 0         # v2 POA serial DP steps, all launches
 
     def __enter__(self):
+        from racon_tpu_torch.ops import cuda_lib
+
         self.saved = (self.ac.edge_rows, self.ac.base_case,
                       self.pd.poa_consensus, self.pd.poa_consensus_v2)
+        cuda_lib.LAUNCH_EVENTS = []
         edge, base, poa, poa_v2 = self.saved
 
         def edge_rows(scal, q, t, K, backward):
             return self._call("hirschberg_edge", (K, backward),
                               EDGE_OPS_PER_CELL,
                               lambda: edge(scal, q, t, K, backward),
-                              lambda out: int(scal[:, 0].sum()) * K,
+                              lambda out: band_cells(scal, K, backward),
                               (scal, q, t), (scal, q, t, K, backward))
 
         def base_case(scal, q, t, K):
             return self._call("hirschberg_base", (K,), BASE_OPS_PER_CELL,
                               lambda: base(scal, q, t, K),
-                              lambda out: int(scal[:, 0].sum()) * K,
+                              lambda out: band_cells(scal, K),
                               (scal, q, t), (scal, q, t, K))
 
         def poa_consensus(cfg, *args):
@@ -199,6 +231,9 @@ class MainPathRecorder:
         return self
 
     def __exit__(self, *exc):
+        from racon_tpu_torch.ops import cuda_lib
+
+        cuda_lib.LAUNCH_EVENTS = None
         (self.ac.edge_rows, self.ac.base_case, self.pd.poa_consensus,
          self.pd.poa_consensus_v2) = self.saved
         return False
@@ -206,13 +241,16 @@ class MainPathRecorder:
     def _call(self, name, geom, ops_per_cell, fn, cells_of, ins, keep):
         from racon_tpu_torch.ops import cuda_lib
 
-        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
         n0 = cuda_lib.LAUNCHES[name]
-        ev[0].record()
+        k0 = len(cuda_lib.LAUNCH_EVENTS)
         out = fn()
-        ev[1].record()
         if cuda_lib.LAUNCHES[name] == n0:       # empty batch: no launch
             return out
+        timed = cuda_lib.LAUNCH_EVENTS[k0:]
+        require(len(timed) == 1 and timed[0][0] == name,
+                f"{name}: one launch, timed by its wrapper, expected; got "
+                f"{[e[0] for e in timed]}")
+        ev = timed[0][1:]
         cells = cells_of(out)
         outs = out if isinstance(out, tuple) else (out,)
         self.launches.append((name, ev, ops_per_cell * cells,
@@ -416,12 +454,14 @@ def check_edge(torch, ac, rec):
         n_bytes = nbytes((scal, q, t, got))
         n_ops = EDGE_OPS_PER_CELL * cells
         b_ms, b_by = bound(n_bytes, n_ops)
+        lanes = lane_cells(scal, K)
         R = scal[:, 0].cpu()
         line = {"phase": "kernel_check", "kernel": "hirschberg_edge",
                 "input": "largest launch of its band and direction in the "
                 "main run", "K": K, "rcap": q.shape[1],
                 "backward": backward, "tasks": len(R),
-                "rows_mean": float(R.float().mean()), "dp_cells": cells,
+                "rows_mean": float(R.float().mean()), "band_cells": cells,
+                "lane_cells": lanes, "ps_per_lane_cell": ms * 1e9 / lanes,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "plain_on": "cuda", "bound_ms": b_ms, "bound_by": b_by}
         emit(line)
@@ -432,12 +472,17 @@ def check_edge(torch, ac, rec):
 def check_base(torch, ac, rec):
     """The main path's largest base-case launch of each band, the whole
     batch held against the plain version (DP on the card, traceback on
-    the host)."""
+    the host). Each band also prints the kernel's phases (DP rows and
+    traceback: max and mean over the launch's tasks, from its clock64()
+    cycles over the card's highest SM clock) and its occupancy line."""
     tot = Totals()
     kept = rec.inputs("hirschberg_base")
     require(kept, "no base-case launch of the main run was kept to check")
+    mhz = sm_clock_mhz()
     for cells, (scal, q, t, K) in kept:
-        got = ac.base_case(scal, q, t, K)
+        B = scal.shape[0]
+        cycles = torch.zeros((2, B), dtype=torch.int64, device=scal.device)
+        got = ac.base_case(scal, q, t, K, cycles=cycles)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = ac.base_plain(scal, q, t, K)
@@ -447,17 +492,30 @@ def check_base(torch, ac, rec):
         require(err == 0, f"base kernel (K={K}) differs from its plain "
                 f"version by {err}")
         ms = cuda_ms(torch, lambda: ac.base_case(scal, q, t, K), 10)
+        lanes = lane_cells(scal, K)
         n_bytes = nbytes((scal, q, t)) + nbytes(got)
         n_ops = BASE_OPS_PER_CELL * cells
         b_ms, b_by = bound(n_bytes, n_ops)
+        cyc = cycles.cpu().double()
+        phases = {n: {"max_ms": float(c.max()) / (mhz * 1e3),
+                      "mean_ms": float(c.mean()) / (mhz * 1e3)}
+                  for n, c in zip(("dp", "traceback"), cyc)}
+        print(f"base case phases, K={K}, {B} tasks ({ms:.3f} ms a launch; "
+              "max / mean ms over tasks): " + ", ".join(
+                  f"{n} {v['max_ms']:.3f} / {v['mean_ms']:.4f}"
+                  for n, v in phases.items()), flush=True)
         line = {"phase": "kernel_check", "kernel": "hirschberg_base",
                 "input": "largest launch of its band in the main run",
-                "K": K, "tasks": scal.shape[0], "dp_cells": cells,
-                "in_band": int(want[2].sum()), "max_abs_err": err, "ms": ms,
+                "K": K, "tasks": B, "band_cells": cells,
+                "lane_cells": lanes, "ps_per_lane_cell": ms * 1e9 / lanes,
+                "tasks_in_band": int(want[2].sum()), "max_abs_err": err,
+                "ms": ms,
                 "plain_ms": plain_ms,
                 "plain_on": "cuda + host traceback", "bound_ms": b_ms,
-                "bound_by": b_by}
+                "bound_by": b_by, "phases": phases, "sm_clock_mhz": mhz}
         emit(line)
+        emit({"phase": "occupancy", "kernel": "hirschberg_base", "K": K,
+              **ac.base_occupancy(K)})
         tot.add(line, n_bytes, n_ops)
     return tot.row()
 
@@ -704,7 +762,7 @@ def main() -> int:
              replaces="racon_tpu/ops/poa_pallas.py:73"),
         dict(name="hirschberg_edge", source=src + "align.cu",
              replaces="racon_tpu/ops/align_pallas.py:112"),
-        dict(name="hirschberg_base", source=src + "align.cu",
+        dict(name="hirschberg_base", source=src + "align_base.cu",
              replaces="racon_tpu/ops/align_pallas.py:299"),
         dict(name="dp_cost_probe", source=src + "dp_cost_probe.cu",
              replaces="racon_tpu/tools/dp_cost_probe.py:89"),

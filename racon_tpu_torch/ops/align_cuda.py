@@ -2,9 +2,9 @@
 their plain PyTorch versions, and the host orchestration.
 
 Replaces the JAX package's Pallas kernels ``_build_edge_kernel``
-(racon_tpu/ops/align_pallas.py:112, pallas_call :264) and
-``_build_base_kernel`` (:299, pallas_call :422), whose CUDA versions live
-in csrc/align.cu:
+(racon_tpu/ops/align_pallas.py:112, pallas_call :264), whose CUDA version
+is csrc/align.cu, and ``_build_base_kernel`` (:299, pallas_call :422),
+whose CUDA version is csrc/align_base.cu:
 
 * edge kernel: a banded unit-cost edit-distance DP over R rows that
   returns only the last K-lane band row, forward from ``F[0][j] = j`` or
@@ -25,9 +25,10 @@ host aligner.
 What bounds the kernels on an H100: integer operations. One warp serves a
 task and holds K/32 lanes per thread in registers, so a row costs no
 shared memory and no block barrier, only warp shuffles for the one-lane
-neighbour and the prefix/suffix min. The target row is read from global
-memory through the L1 cache; the base case's moves go to a global scratch
-of one byte per cell, read back by one thread during the traceback.
+neighbour and the prefix/suffix min. The edge kernel reads the target row
+from global memory through the L1 cache; the base case keeps the target
+and query codes in registers and writes its moves, two bits a cell, to a
+global scratch that one thread reads back during the traceback.
 
 Wrappers: a tensor on the CPU goes to the plain version, a tensor on the
 card to the kernel (or an exception). Each launch adds one to
@@ -52,6 +53,7 @@ BASE_ROWS = 256          # subproblems at or below this row count run the
 ROW_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 49152)
 BANDS = (256, 512, 1024, 2048)
 COHORT = 4096            # jobs aligned together, at most
+SCRATCH_BUDGET = 512 << 20   # bytes of base-case moves scratch a launch
 
 
 def band_for(n: int, m: int, band_hint: int = 0) -> int:
@@ -70,6 +72,17 @@ def _round_up(x, m):
 
 def base_ops_width(K: int) -> int:
     return _round_up(BASE_ROWS + K + 2, 128)
+
+
+def base_scratch_bytes(K: int) -> int:
+    """The base kernel's moves scratch a task: two bits a cell."""
+    return BASE_ROWS * K // 4
+
+
+def base_chunk(K: int) -> int:
+    """Base tasks a launch at band K, so that its scratch stays within
+    SCRATCH_BUDGET."""
+    return max(1, SCRATCH_BUDGET // base_scratch_bytes(K))
 
 
 # ---------------------------------------------------------------------------
@@ -203,6 +216,7 @@ def base_plain(scal, q, t, K: int):
 # ---------------------------------------------------------------------------
 
 _LIB = None
+_BASE_LIB = None
 
 
 def _lib():
@@ -213,11 +227,29 @@ def _lib():
         lib.rt_edge_launch.restype = ci
         lib.rt_edge_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                        vp]
-        lib.rt_base_launch.restype = ci
-        lib.rt_base_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                       ci, ci, ci, vp]
         _LIB = lib
     return _LIB
+
+
+def _base_lib():
+    global _BASE_LIB
+    if _BASE_LIB is None:
+        lib = cuda_lib.load("align_base")
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        lib.rt_base_launch.restype = ci
+        lib.rt_base_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
+        _BASE_LIB = lib
+    return _BASE_LIB
+
+
+def base_occupancy(K: int) -> dict:
+    """The base kernel's registers and local (spill) bytes a thread and
+    resident warps per SM at band K (needs the card)."""
+    if K not in BANDS:
+        raise ValueError(f"band {K} not in {BANDS}")
+    return cuda_lib.occupancy(_base_lib().rt_base_occupancy, (K,),
+                              ("regs", "local_bytes", "warps_per_sm"),
+                              "base kernel")
 
 
 def _check_tasks(scal, q, t, rows: int, K: int):
@@ -240,34 +272,52 @@ def edge_rows(scal, q, t, K: int, backward: bool) -> torch.Tensor:
     B = _check_tasks(scal, q, t, rcap, K)
     out = torch.empty((B, K), dtype=torch.int32, device=scal.device)
     if B:
-        err = _lib().rt_edge_launch(
-            cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
-            cuda_lib.ptr(out), B, rcap, K, rcap + K, int(backward),
-            cuda_lib.stream_of(scal))
+        lib = _lib()
+        with cuda_lib.launch_events("hirschberg_edge", scal):
+            err = lib.rt_edge_launch(
+                cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
+                cuda_lib.ptr(out), B, rcap, K, rcap + K, int(backward),
+                cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg edge kernel")
         cuda_lib.LAUNCHES["hirschberg_edge"] += 1
     return out
 
 
-def base_case(scal, q, t, K: int):
+def base_case(scal, q, t, K: int, cycles=None):
     """(ops, cnt, ok, dist) per base task: the kernel for tensors on the
-    card, the plain version for tensors on the CPU."""
+    card, the plain version for tensors on the CPU.
+
+    cycles: None, or an int64 tensor (2, B) on the card that the kernel
+    fills with each task's clock64() cycles in the DP rows (row 0) and in
+    the traceback with the ops zero-fill (row 1). The plain version counts
+    none."""
     if scal.device.type == "cpu":
+        if cycles is not None:
+            raise ValueError("cycles: only the kernel counts them")
         return base_plain(scal, q, t, K)
     B = _check_tasks(scal, q, t, BASE_ROWS, K)
     dev = scal.device
+    if q.data_ptr() % 4:
+        raise ValueError("q: the kernel reads it as 32-bit words; its data "
+                         "must be 4-byte aligned")
+    if cycles is not None:
+        cuda_lib.require(cycles, "cycles", torch.int64, (2, B), dev)
     OPS = base_ops_width(K)
     ops = torch.empty((B, OPS), dtype=torch.int32, device=dev)
     cnt = torch.empty(B, dtype=torch.int32, device=dev)
     ok = torch.empty(B, dtype=torch.int32, device=dev)
     dist = torch.empty(B, dtype=torch.int32, device=dev)
-    moves = torch.empty((B, BASE_ROWS, K), dtype=torch.uint8, device=dev)
+    moves = torch.empty((B, base_scratch_bytes(K)), dtype=torch.uint8,
+                        device=dev)
     if B:
-        err = _lib().rt_base_launch(
-            cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
-            cuda_lib.ptr(ops), cuda_lib.ptr(cnt), cuda_lib.ptr(ok),
-            cuda_lib.ptr(dist), cuda_lib.ptr(moves), B, K,
-            BASE_ROWS + K, OPS, cuda_lib.stream_of(scal))
+        lib = _base_lib()
+        with cuda_lib.launch_events("hirschberg_base", scal):
+            err = lib.rt_base_launch(
+                cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
+                cuda_lib.ptr(ops), cuda_lib.ptr(cnt), cuda_lib.ptr(ok),
+                cuda_lib.ptr(dist), cuda_lib.ptr(moves),
+                None if cycles is None else cuda_lib.ptr(cycles), B, K,
+                BASE_ROWS + K, OPS, cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg base kernel")
         cuda_lib.LAUNCHES["hirschberg_base"] += 1
     return ops, cnt, ok, dist
@@ -415,8 +465,7 @@ def _solve_base(pairs, tasks, bands, segments, failed, device):
         by_bucket.setdefault(bands[t.pair][0], []).append(t)
     for K, group in sorted(by_bucket.items()):
         TCAP = BASE_ROWS + K
-        # the moves scratch is BASE_ROWS x K bytes per task: bound it
-        step = max(1, (512 << 20) // (BASE_ROWS * K))
+        step = base_chunk(K)
         for off in range(0, len(group), step):
             part = group[off:off + step]
             B = len(part)

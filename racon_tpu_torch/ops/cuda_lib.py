@@ -10,23 +10,26 @@ division keep the POA kernels' float32 column keys bit-identical to the
 plain version's.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
-it launches its kernel and nowhere else.
+it launches its kernel and nowhere else. ``LAUNCH_EVENTS``, when set to a
+list, collects two CUDA events around each polish-path launch call
+(``launch_events``), so that a caller can time the kernels alone.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import os
 import shutil
 import subprocess
 import time
-from typing import Dict
+from typing import Dict, List, Optional
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD = os.path.join(_PKG, "_build")
-SOURCES = ("poa", "poa_v2", "align", "dp_cost_probe")
+SOURCES = ("poa", "poa_v2", "align", "align_base", "dp_cost_probe")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -35,6 +38,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_v2": 0,
                             "hirschberg_edge": 0, "hirschberg_base": 0,
                             "dp_cost_probe": 0}
+
+# None, or a list to which the polish path's wrappers (edge, base case,
+# both POA kernels) append (name, start, end) for each launch: CUDA events
+# on the launch's stream just before and just after the launch call, so
+# that they time the kernel and not the wrapper's checks and allocations.
+LAUNCH_EVENTS: Optional[List[tuple]] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 
@@ -121,16 +130,37 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
 
 
-def occupancy(fn, N: int, ML: int, what: str) -> Dict[str, int]:
-    """A POA kernel's resources at (max_nodes, max_len) through its
-    ``rt_*_occupancy`` export: registers and local (spill) bytes a thread,
-    dynamic shared bytes and resident blocks per SM."""
+# What the POA kernels' occupancy exports report, in order.
+POA_OCCUPANCY = ("regs", "local_bytes", "shared_bytes", "blocks_per_sm")
+
+
+def occupancy(fn, args, keys, what: str) -> Dict[str, int]:
+    """A kernel's resources through its ``rt_*_occupancy`` export, which
+    takes int ``args`` and fills one int per name in ``keys`` (registers
+    and local (spill) bytes a thread, and what else the kernel reports)."""
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    out = (ctypes.c_int * 4)()
-    check(fn(N, ML, out), f"{what} occupancy query")
-    return dict(zip(("regs", "local_bytes", "shared_bytes",
-                     "blocks_per_sm"), out))
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    out = (ctypes.c_int * len(keys))()
+    check(fn(*args, out), f"{what} occupancy query")
+    return dict(zip(keys, out))
+
+
+@contextlib.contextmanager
+def launch_events(name: str, t):
+    """Around a launch call on ``t``'s stream: records its two events into
+    ``LAUNCH_EVENTS`` when that is a list, else does nothing."""
+    events = LAUNCH_EVENTS
+    if events is None:
+        yield
+        return
+    import torch
+
+    stream = torch.cuda.current_stream(t.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record(stream)
+    yield
+    ev[1].record(stream)
+    events.append((name, ev[0], ev[1]))
 
 
 def stream_of(t) -> ctypes.c_void_p:

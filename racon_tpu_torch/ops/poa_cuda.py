@@ -47,8 +47,9 @@ def _lib():
 def occupancy(cfg: PoaConfig) -> dict:
     """The kernel's registers, spill bytes, shared bytes and blocks per
     SM at cfg's geometry (needs the card)."""
-    return cuda_lib.occupancy(_lib().rt_poa_occupancy, cfg.max_nodes,
-                              cfg.max_len, "POA kernel")
+    return cuda_lib.occupancy(_lib().rt_poa_occupancy,
+                              (cfg.max_nodes, cfg.max_len),
+                              cuda_lib.POA_OCCUPANCY, "POA kernel")
 
 
 def check_inputs(cfg: PoaConfig, args, dev) -> int:
@@ -97,13 +98,14 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     cells = None if stats is None else torch.empty(B, dtype=torch.int64,
                                                     device=dev)
     p = cuda_lib.ptr
-    err = lib.rt_poa_launch(
-        N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
-        cfg.match, cfg.mismatch, cfg.gap,
-        *(p(t) for t in args),
-        p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
-        None if cells is None else p(cells), p(scratch), B,
-        cuda_lib.stream_of(bb))
+    with cuda_lib.launch_events("poa_consensus", bb):
+        err = lib.rt_poa_launch(
+            N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
+            cfg.match, cfg.mismatch, cfg.gap,
+            *(p(t) for t in args),
+            p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
+            None if cells is None else p(cells), p(scratch), B,
+            cuda_lib.stream_of(bb))
     cuda_lib.check(err, "POA consensus kernel")
     cuda_lib.LAUNCHES["poa_consensus"] += 1
     if cells is not None:

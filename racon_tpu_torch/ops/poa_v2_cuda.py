@@ -69,8 +69,9 @@ def _lib():
 def occupancy(cfg: PoaConfig) -> dict:
     """The kernel's registers, spill bytes, shared bytes and blocks per
     SM at cfg's geometry (needs the card)."""
-    return cuda_lib.occupancy(_lib().rt_poa_v2_occupancy, cfg.max_nodes,
-                              cfg.max_len, "v2 POA kernel")
+    return cuda_lib.occupancy(_lib().rt_poa_v2_occupancy,
+                              (cfg.max_nodes, cfg.max_len),
+                              cuda_lib.POA_OCCUPANCY, "v2 POA kernel")
 
 
 def plan(cfg: PoaConfig) -> dict:
@@ -131,15 +132,16 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     counts = None if stats is None else torch.empty(
         (2 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
-    err = lib.rt_poa_v2_launch(
-        N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
-        cfg.match, cfg.mismatch, cfg.gap, int(colstep),
-        *(p(t) for t in args),
-        p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
-        None if counts is None else p(counts[0]),
-        None if counts is None else p(counts[1]),
-        None if counts is None else p(counts[2]), p(scratch), B,
-        cuda_lib.stream_of(bb))
+    with cuda_lib.launch_events("poa_consensus_v2", bb):
+        err = lib.rt_poa_v2_launch(
+            N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
+            cfg.match, cfg.mismatch, cfg.gap, int(colstep),
+            *(p(t) for t in args),
+            p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
+            None if counts is None else p(counts[0]),
+            None if counts is None else p(counts[1]),
+            None if counts is None else p(counts[2]), p(scratch), B,
+            cuda_lib.stream_of(bb))
     cuda_lib.check(err, "v2 POA consensus kernel")
     cuda_lib.LAUNCHES["poa_consensus_v2"] += 1
     if counts is not None:

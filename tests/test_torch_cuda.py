@@ -295,24 +295,119 @@ def test_edge_kernel_equals_plain(card, K, backward):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("K", [256, 2048])
-def test_base_kernel_equals_plain(card, K):
-    rng = np.random.default_rng(K)
-    B = 5
+def _base_tasks(K, B, seed):
+    """B base tasks at band K: full 256-row tasks with S up to 256 + K,
+    tasks of random size near the band's middle, tasks whose path leaves
+    the band, R = 1 / S = 0, and a padding task last (R = 1, S = 0,
+    dmin = 0). The target is the query with 10% of its codes changed."""
+    rng = np.random.default_rng(seed)
+    RB = ac.BASE_ROWS
     scal = np.zeros((B, 4), np.int32)
-    q = rng.integers(0, 4, (B, ac.BASE_ROWS)).astype(np.uint8)
-    t = np.full((B, ac.BASE_ROWS + K), 255, np.uint8)
+    q = rng.integers(0, 4, (B, RB)).astype(np.uint8)
+    t = np.full((B, RB + K), 255, np.uint8)
     for b in range(B - 1):
-        R = int(rng.integers(1, ac.BASE_ROWS + 1))
-        S = int(rng.integers(max(0, R - 20), R + 20))
-        scal[b] = (R, S, -(K // 2) + int(rng.integers(-5, 5)), 0)
-        t[b, :S] = q[b, :S] if S <= ac.BASE_ROWS else rng.integers(0, 4, S)
-    scal[-1, 0] = 1                      # padding task
+        kind = b % 4
+        if kind == 0:                        # full rows, wide drift
+            R, S = RB, int(rng.integers(RB, RB + K + 1))
+        elif kind == 1:                      # random size, near diagonal
+            R = int(rng.integers(1, RB + 1))
+            S = int(rng.integers(max(0, R - K // 4), R + K // 4))
+        elif kind == 2:                      # leaves the band
+            R = int(rng.integers(1, RB + 1))
+            S = int(rng.integers(0, RB + K + 1))
+        else:
+            R, S = 1, 0
+        drift = S - R
+        dmin = -((K - 1 - abs(drift)) // 2) + min(0, drift)
+        if kind == 2:
+            dmin += int(rng.integers(-K, K))
+        scal[b] = (R, S, dmin, 0)
+        src = np.concatenate([q[b, :R], rng.integers(0, 4, RB + K)])[:S]
+        flip = rng.random(S) < 0.1
+        src[flip] = rng.integers(0, 4, int(flip.sum()))
+        t[b, :S] = src
+    scal[-1] = (1, 0, 0, 0)
+    return scal, q, t
+
+
+def _assert_base_equal(card, scal, q, t, K):
     want = ac.base_case(*ac.tasks_to_tensors(scal, q, t, "cpu"), K)
+    n0 = cuda_lib.LAUNCHES["hirschberg_base"]
     got = ac.base_case(*ac.tasks_to_tensors(scal, q, t, card), K)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["hirschberg_base"] == n0 + 1
     for name, w, g in zip(("ops", "cnt", "ok", "dist"), want, got):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=name)
+    return want
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("K", [256, 512, 1024, 2048])
+def test_base_kernel_equals_plain(card, K, seed):
+    scal, q, t = _base_tasks(K, 41, K + seed)
+    want = _assert_base_equal(card, scal, q, t, K)
+    ok = want[2].numpy()
+    assert ok.any() and not ok.all()        # paths in and out of band
+    assert (scal[:, 0] == ac.BASE_ROWS).any()
+
+
+def test_base_kernel_equals_plain_across_waves(card):
+    """3,000 tasks at K = 256: more warps than the card holds at once, so
+    the packed moves' offsets are checked across many blocks."""
+    scal, q, t = _base_tasks(256, 3000, 5)
+    _assert_base_equal(card, scal, q, t, 256)
+
+
+@pytest.mark.parametrize("K", [256, 512, 1024, 2048])
+def test_base_kernel_has_no_spill(card, K):
+    occ = ac.base_occupancy(K)
+    assert occ["local_bytes"] == 0
+    assert occ["warps_per_sm"] >= 8
+
+
+def test_base_kernel_cycles_fit_in_the_launch(card):
+    """Each task's DP and traceback cycles are positive, and the largest
+    task's sum fits inside the launch's event time at the card's highest
+    SM clock."""
+    K = 1024
+    scal, q, t = ac.tasks_to_tensors(*_base_tasks(K, 200, 3), card)
+    ac.base_case(scal, q, t, K)
+    cycles = torch.zeros((2, 200), dtype=torch.int64, device=card)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    got = ac.base_case(scal, q, t, K, cycles=cycles)
+    ev[1].record()
+    torch.cuda.synchronize()
+    want = ac.base_case(scal, q, t, K)
+    for w, g in zip(want, got):
+        assert torch.equal(w, g)
+    c = cycles.cpu()
+    assert (c > 0).all()
+    assert int(c.sum(0).max()) <= ev[0].elapsed_time(ev[1]) * \
+        _max_sm_mhz() * 1e3
+    with pytest.raises(ValueError):
+        ac.base_case(scal, q, t, K, cycles=cycles[:, :10])
+
+
+def test_launch_events_time_each_launch_alone(card):
+    """With cuda_lib.LAUNCH_EVENTS set to a list, each aligner launch adds
+    one (name, start, end) whose events bracket the kernel; unset, none."""
+    K = 512
+    scal, q, t = ac.tasks_to_tensors(*_base_tasks(K, 40, 4), card)
+    cuda_lib.LAUNCH_EVENTS = []
+    try:
+        ac.base_case(scal, q, t, K)
+        ac.base_case(scal, q, t, K)
+        events = cuda_lib.LAUNCH_EVENTS
+    finally:
+        cuda_lib.LAUNCH_EVENTS = None
+    torch.cuda.synchronize()
+    assert [e[0] for e in events] == ["hirschberg_base"] * 2
+    assert all(a.elapsed_time(b) > 0 for _, a, b in events)
+    ac.base_case(scal, q, t, K)
+    assert cuda_lib.LAUNCH_EVENTS is None
 
 
 def test_align_pairs_on_card_equals_cpu(card):
