@@ -14,33 +14,51 @@ then, each phase printing one JSON line:
   polishing lowers the edit distance to the truth;
 * main_ls or main_v2: the same polish with the other POA kernel, recorded
   the same way; its FASTA must be byte-identical to the main run's;
+* main_band: the same polish on the banded path (band=True, slack 32:
+  v2's banded build, the aligner's K = 128 builds and the verify-and-widen
+  ladder), recorded the same way, with the ladder's counts for both
+  phases; whether its FASTA equals the main run's, and if not the first
+  window that differs, is printed (main_band_vs_flat), not required;
+* lowerr and lowerr_band: a PacBio-HiFi-like set (0.5 Mbp, 30x, 8 kb
+  reads, about 1% error) polished flat and banded, recorded the same way;
+  lowerr_band_vs_flat gives FASTA equality and the aligner's launches,
+  device ms and lane cells per band K in both runs;
 * occupancy: each POA kernel's registers, spill bytes, shared bytes and
   blocks per SM at the main path's geometry, and v2's shared-memory plan;
 * kernel_check: runs each kernel again on the inputs of its largest
-  launches in the main run (one per POA depth bucket, per edge band and
+  launches in its path's run (one per POA depth bucket, per edge band and
   direction, per base-case band; the v2 kernel, colstep on and off, on
-  the POA launches), holds each whole batch against the plain PyTorch
-  version (tolerance 0: all outputs are integers) and times it; the v2
-  lines also give the kernel's per-phase times (init, dp, end_pick,
-  traceback, update, consensus: max and mean over the launch's windows,
-  from clock64() cycles over the card's highest SM clock), printed as
-  "v2 POA phases" lines; each base-case band prints a "base case phases"
-  line the same way (dp and traceback, max and mean over the launch's
-  tasks) and an occupancy line (registers, spill bytes, resident warps
-  per SM); the aligner's bounds count the band cells its DP needs (the
-  lanes o of row i with 0 <= i + dmin + o <= S), and its lines also
-  give the cells its warps run (R x K, "lane_cells");
+  the POA launches; v2's banded build on main_band's banded launches; the
+  K = 128 builds on lowerr_band's), holds each whole batch against the
+  plain PyTorch version (tolerance 0: all outputs are integers; the
+  banded build on a sample of each launch's windows, its hit windows
+  first, and at wband = 0 on the whole launch against the flat build)
+  and times it; the v2 lines also give the kernel's per-phase times (init,
+  dp, end_pick, traceback, update, consensus: max and mean over the
+  launch's windows, from clock64() cycles over the card's highest SM
+  clock), printed as "v2 POA phases" lines; each base-case band prints a
+  "base case phases" line the same way (dp and traceback, max and mean
+  over the launch's tasks) and an occupancy line (registers, spill bytes,
+  resident warps per SM); the aligner's bounds count the band cells its
+  DP needs (the lanes o of row i with 0 <= i + dmin + o <= S), and its
+  lines also give the cells its warps run (R x K, "lane_cells"); the
+  banded POA build's bound counts the cells its band admits;
 * poa_decision: v2 over ls and colstep over flat on each depth bucket's
   largest launch, the numbers that settle the default POA kernel;
 * parity: the card (both POA kernels) and the CPU polish a small PAF set
-  to the same bytes;
+  to the same bytes; parity_band: the same set on the banded path (slack
+  8) on the card and on the CPU, the same bytes and ladder counts (the
+  two CPU polishes run in worker processes while the phases above run);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe), then every mode held
   against its plain version run on the card.
 
-Each path (main, main_<other kernel>, probe) runs with the launch counts
-set to 0 just before it and read just after; every kernel of the path
-must have launched.
+Each path (main, main_<other kernel>, main_band, lowerr, lowerr_band,
+probe) runs with the launch counts set to 0 just before it and read just
+after; every kernel of the path must have launched (the banded paths:
+v2's banded build and the K = 128 edge build, and on lowerr_band the
+K = 128 base case; on main_band the flat aligner builds as the ladder's
+floor), and no flat POA build on a banded path.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -51,11 +69,13 @@ card; fails without one.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -72,6 +92,10 @@ MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
 # The parity set: small, because its CPU polish runs the plain versions,
 # one window and one DP row at a time in Python.
 PARITY_MBP = 0.02
+PARITY_SLACK = 8          # the banded parity run's slack
+# The low-error cell: PacBio-HiFi-like reads, about 1% error.
+LOWERR = dict(mbp=0.5, coverage=30, mean_read=8000, sub=0.005, ins=0.0025,
+              dele=0.0025, seed=11)
 
 
 def emit(obj) -> None:
@@ -181,30 +205,42 @@ class MainPathRecorder:
 
     def __init__(self, torch, ac, poa_driver):
         self.torch, self.ac, self.pd = torch, ac, poa_driver
-        self.launches = []     # (name, (start, end event), ops, bytes)
+        self.launches = []     # (name, (start, end event), ops, bytes,
+                               #  geometry, lane cells)
         self.largest = {}      # (kernel, geometry) -> (cells, inputs)
         self.steps = 0         # v2 POA serial DP steps, all launches
+        self.windows = {}      # window -> consensus the kernels installed
 
     def __enter__(self):
         from racon_tpu_torch.ops import cuda_lib
+        from racon_tpu_torch.pipeline import Pipeline
 
         self.saved = (self.ac.edge_rows, self.ac.base_case,
-                      self.pd.poa_consensus, self.pd.poa_consensus_v2)
+                      self.pd.poa_consensus, self.pd.poa_consensus_v2,
+                      Pipeline.set_consensus)
         cuda_lib.LAUNCH_EVENTS = []
-        edge, base, poa, poa_v2 = self.saved
+        edge, base, poa, poa_v2, set_consensus = self.saved
+        name_of = self.ac.launch_name
 
         def edge_rows(scal, q, t, K, backward):
-            return self._call("hirschberg_edge", (K, backward),
+            return self._call(name_of("hirschberg_edge", K), (K, backward),
                               EDGE_OPS_PER_CELL,
                               lambda: edge(scal, q, t, K, backward),
                               lambda out: band_cells(scal, K, backward),
-                              (scal, q, t), (scal, q, t, K, backward))
+                              (scal, q, t), (scal, q, t, K, backward),
+                              lane_cells(scal, K))
 
         def base_case(scal, q, t, K):
-            return self._call("hirschberg_base", (K,), BASE_OPS_PER_CELL,
+            return self._call(name_of("hirschberg_base", K), (K,),
+                              BASE_OPS_PER_CELL,
                               lambda: base(scal, q, t, K),
                               lambda out: band_cells(scal, K),
-                              (scal, q, t), (scal, q, t, K))
+                              (scal, q, t), (scal, q, t, K),
+                              lane_cells(scal, K))
+
+        def record_consensus(pl, i, consensus, polished):
+            self.windows[i] = bytes(consensus)
+            return set_consensus(pl, i, consensus, polished)
 
         def poa_consensus(cfg, *args):
             st = {}
@@ -215,30 +251,41 @@ class MainPathRecorder:
 
         def poa_consensus_v2(cfg, *args, **kw):
             st = {}
+            wband = kw.get("wband")
 
             def cells_of(out):
                 self.steps += st["steps"]
                 return st["cells"]
 
-            return self._call("poa_consensus_v2", (cfg.depth,),
-                              POA_OPS_PER_CELL,
-                              lambda: poa_v2(cfg, *args, stats=st, **kw),
-                              cells_of, args, (cfg, args))
+            # the banded build: the largest launch of each depth bucket
+            # with band hits, and the largest without
+            return self._call(
+                "poa_consensus_v2" if wband is None else
+                "poa_consensus_v2_band",
+                (cfg.depth,) if wband is None else
+                (lambda out: (cfg.depth, bool(out[5].any()))),
+                POA_OPS_PER_CELL,
+                lambda: poa_v2(cfg, *args, stats=st, **kw), cells_of,
+                args + ((wband,) if wband is not None else ()),
+                (cfg, args, wband))
 
         self.ac.edge_rows, self.ac.base_case = edge_rows, base_case
         self.pd.poa_consensus = poa_consensus
         self.pd.poa_consensus_v2 = poa_consensus_v2
+        Pipeline.set_consensus = record_consensus
         return self
 
     def __exit__(self, *exc):
         from racon_tpu_torch.ops import cuda_lib
+        from racon_tpu_torch.pipeline import Pipeline
 
         cuda_lib.LAUNCH_EVENTS = None
         (self.ac.edge_rows, self.ac.base_case, self.pd.poa_consensus,
-         self.pd.poa_consensus_v2) = self.saved
+         self.pd.poa_consensus_v2, Pipeline.set_consensus) = self.saved
         return False
 
-    def _call(self, name, geom, ops_per_cell, fn, cells_of, ins, keep):
+    def _call(self, name, geom, ops_per_cell, fn, cells_of, ins, keep,
+              lanes=None):
         from racon_tpu_torch.ops import cuda_lib
 
         n0 = cuda_lib.LAUNCHES[name]
@@ -252,9 +299,11 @@ class MainPathRecorder:
                 f"{[e[0] for e in timed]}")
         ev = timed[0][1:]
         cells = cells_of(out)
+        if callable(geom):
+            geom = geom(out)
         outs = out if isinstance(out, tuple) else (out,)
         self.launches.append((name, ev, ops_per_cell * cells,
-                              nbytes(ins) + nbytes(outs)))
+                              nbytes(ins) + nbytes(outs), geom, lanes))
         if cells > self.largest.get((name, geom), (-1, None))[0]:
             self.largest[(name, geom)] = (cells, keep)
         return out
@@ -264,7 +313,7 @@ class MainPathRecorder:
         summed over the launches."""
         self.torch.cuda.synchronize()
         res = {}
-        for name, ev, ops, nb in self.launches:
+        for name, ev, ops, nb, _, _ in self.launches:
             r = res.setdefault(name, {"launches": 0, "device_ms": 0.0,
                                       "ops": 0, "bytes": 0, "bound_ms": 0.0})
             r["launches"] += 1
@@ -276,6 +325,21 @@ class MainPathRecorder:
             r["ms_per_launch"] = r["device_ms"] / r["launches"]
             r["bound_ms_per_launch"] = r["bound_ms"] / r["launches"]
             r["over_bound"] = r["device_ms"] / r["bound_ms"]
+        return res
+
+    def per_band(self):
+        """The aligner's launches by kernel and band K: launches, device
+        ms and the lane cells (R x K) its warps ran."""
+        self.torch.cuda.synchronize()
+        res = {}
+        for name, ev, _, _, geom, lanes in self.launches:
+            if lanes is None:
+                continue
+            r = res.setdefault(name, {}).setdefault(geom[0], {
+                "launches": 0, "device_ms": 0.0, "lane_cells": 0})
+            r["launches"] += 1
+            r["device_ms"] += ev[0].elapsed_time(ev[1])
+            r["lane_cells"] += lanes
         return res
 
     def inputs(self, name):
@@ -433,12 +497,85 @@ def poa_decision(default, ls_ms, v2_ms):
                 r <= 0.95 for r in colstep_over_flat.values())}
 
 
-def check_edge(torch, ac, rec):
-    """The main path's largest edge launch of each band and direction,
-    the whole batch held against the plain version on the card."""
+def check_poa_band(torch, poa_v2_cuda, rec, procs):
+    """The banded build on the banded run's largest POA launch of each
+    depth bucket, with band hits and without: at wband = 0 every output
+    equals the flat build's on the
+    card; at the ladder's wband the six outputs (band_hit included) equal
+    the plain version's on a sample of the launch's windows (its hit
+    windows first, up to 16, and up to 16 others; the plain version runs
+    on the host in `procs` processes), and the band cells the kernel
+    counts equal the plain version's on that sample. The time is the
+    whole launch's; the bound counts its band cells."""
+    from racon_tpu_torch.tools.batches import plain_poa_parallel
+
+    kept = rec.inputs("poa_consensus_v2_band")
+    require(kept, "no banded POA launch was kept to check")
+    runs, samples = [], []
+    for _, (cfg, dev_in, wband) in kept:
+        kst = {}
+        got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, wband=wband,
+                                           stats=kst)
+        zero = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in,
+                                            wband=torch.zeros_like(wband))
+        flat = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in)
+        torch.cuda.synchronize()
+        err0 = max_abs_err(flat, zero[:5])
+        require(err0 == 0 and not zero[5].any(),
+                f"v2 banded build at wband 0 (depth {cfg.depth}) differs "
+                f"from the flat build by {err0}")
+        hit = got[5].cpu()
+        idx = torch.cat([torch.nonzero(hit)[:16, 0],
+                         torch.nonzero(~hit)[:16, 0]]).sort().values
+        sub = [t[idx.to(t.device)].contiguous() for t in dev_in]
+        runs.append((cfg, dev_in, wband, got, kst, idx, err0))
+        samples.append((cfg, sub, wband[idx.to(wband.device)].contiguous()))
+    t0 = time.perf_counter()
+    plain = plain_poa_parallel(samples, procs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
-    kept = rec.inputs("hirschberg_edge")
-    require(kept, "no edge launch of the main run was kept to check")
+    for (cfg, dev_in, wband, got, kst, idx, err0), (want, pst), \
+            (_, sub, swb) in zip(runs, plain, samples):
+        err = max_abs_err(want, [g[idx.to(g.device)] for g in got])
+        require(err == 0, f"v2 banded build (depth {cfg.depth}) differs from "
+                f"its plain version by {err}")
+        sst = {}
+        poa_v2_cuda.poa_consensus_v2(cfg, *sub, wband=swb, stats=sst)
+        require(sst["cells"] == pst["cells"],
+                f"band cells: kernel {sst['cells']}, plain {pst['cells']}")
+        ms = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
+            cfg, *dev_in, wband=wband), 3)
+        ms_flat = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
+            cfg, *dev_in), 3)
+        n_bytes = nbytes(dev_in) + nbytes((wband,)) + nbytes(got)
+        n_ops = POA_OPS_PER_CELL * kst["cells"]
+        b_ms, b_by = bound(n_bytes, n_ops)
+        line = {"phase": "kernel_check", "kernel": "poa_consensus_v2_band",
+                "input": "largest banded launch of its depth bucket (with "
+                "band hits or without) in the main_band run",
+                "windows": dev_in[0].shape[0],
+                "depth": cfg.depth, "wband_mean": float(wband.float().mean()),
+                "wband_zero": int((wband == 0).sum()),
+                "band_hits": int(got[5].sum()), "failed": int(got[3].sum()),
+                "band_cells": kst["cells"], "plain_windows": len(idx),
+                "max_abs_err": err, "max_abs_err_wband0_vs_flat": err0,
+                "ms": ms, "ms_flat_build": ms_flat,
+                "plain_ms": plain_ms / len(runs),
+                "plain_on": f"host, {procs} processes, the sampled windows "
+                "(all buckets' time split evenly)", "bound_ms": b_ms,
+                "bound_by": b_by}
+        emit(line)
+        tot.add(line, n_bytes, n_ops)
+    return tot.row()
+
+
+def check_edge(torch, ac, rec, name="hirschberg_edge", run="main"):
+    """The `run`'s largest launch of kernel `name` for each band and
+    direction, the whole batch held against the plain version on the
+    card."""
+    tot = Totals()
+    kept = rec.inputs(name)
+    require(kept, f"no {name} launch of the {run} run was kept to check")
     for cells, (scal, q, t, K, backward) in kept:
         got = ac.edge_rows(scal, q, t, K, backward)
         torch.cuda.synchronize()
@@ -456,9 +593,9 @@ def check_edge(torch, ac, rec):
         b_ms, b_by = bound(n_bytes, n_ops)
         lanes = lane_cells(scal, K)
         R = scal[:, 0].cpu()
-        line = {"phase": "kernel_check", "kernel": "hirschberg_edge",
+        line = {"phase": "kernel_check", "kernel": name,
                 "input": "largest launch of its band and direction in the "
-                "main run", "K": K, "rcap": q.shape[1],
+                f"{run} run", "K": K, "rcap": q.shape[1],
                 "backward": backward, "tasks": len(R),
                 "rows_mean": float(R.float().mean()), "band_cells": cells,
                 "lane_cells": lanes, "ps_per_lane_cell": ms * 1e9 / lanes,
@@ -469,15 +606,16 @@ def check_edge(torch, ac, rec):
     return tot.row()
 
 
-def check_base(torch, ac, rec):
-    """The main path's largest base-case launch of each band, the whole
-    batch held against the plain version (DP on the card, traceback on
-    the host). Each band also prints the kernel's phases (DP rows and
-    traceback: max and mean over the launch's tasks, from its clock64()
-    cycles over the card's highest SM clock) and its occupancy line."""
+def check_base(torch, ac, rec, name="hirschberg_base", run="main"):
+    """The `run`'s largest launch of base-case kernel `name` for each band,
+    the whole batch held against the plain version (DP on the card,
+    traceback on the host). Each band also prints the kernel's phases (DP
+    rows and traceback: max and mean over the launch's tasks, from its
+    clock64() cycles over the card's highest SM clock) and its occupancy
+    line."""
     tot = Totals()
-    kept = rec.inputs("hirschberg_base")
-    require(kept, "no base-case launch of the main run was kept to check")
+    kept = rec.inputs(name)
+    require(kept, f"no {name} launch of the {run} run was kept to check")
     mhz = sm_clock_mhz()
     for cells, (scal, q, t, K) in kept:
         B = scal.shape[0]
@@ -504,8 +642,8 @@ def check_base(torch, ac, rec):
               "max / mean ms over tasks): " + ", ".join(
                   f"{n} {v['max_ms']:.3f} / {v['mean_ms']:.4f}"
                   for n, v in phases.items()), flush=True)
-        line = {"phase": "kernel_check", "kernel": "hirschberg_base",
-                "input": "largest launch of its band in the main run",
+        line = {"phase": "kernel_check", "kernel": name,
+                "input": f"largest launch of its band in the {run} run",
                 "K": K, "tasks": B, "band_cells": cells,
                 "lane_cells": lanes, "ps_per_lane_cell": ms * 1e9 / lanes,
                 "tasks_in_band": int(want[2].sum()), "max_abs_err": err,
@@ -514,7 +652,7 @@ def check_base(torch, ac, rec):
                 "plain_on": "cuda + host traceback", "bound_ms": b_ms,
                 "bound_by": b_by, "phases": phases, "sm_clock_mhz": mhz}
         emit(line)
-        emit({"phase": "occupancy", "kernel": "hirschberg_base", "K": K,
+        emit({"phase": "occupancy", "kernel": name, "K": K,
               **ac.base_occupancy(K)})
         tot.add(line, n_bytes, n_ops)
     return tot.row()
@@ -526,41 +664,80 @@ def read_fasta(path: str) -> bytes:
                        if not ln.startswith(">")).encode()
 
 
-def polish(racon_tpu_torch, d, device, poa_kernel="ls"):
+def polish(racon_tpu_torch, d, device, poa_kernel="ls", band=None):
+    """One polish of data set `d`; `band`, when given, is the banded
+    path's slack (band=True)."""
+    kw = {} if band is None else dict(band=True, band_slack=band)
     p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
                                       device=device, poa_kernel=poa_kernel,
-                                      **MAIN)
+                                      **MAIN, **kw)
     t0 = time.perf_counter()
     p.initialize()
     out = p.polish(True)
     return out, p.stats, time.perf_counter() - t0
 
 
+def cpu_polish(d, band=None):
+    """The port's CPU polish of `d` (the plain versions), in a worker
+    process of its own: (FASTA records, stats, seconds)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import racon_tpu_torch
+
+    torch.set_num_threads(1)
+    return polish(racon_tpu_torch, d, "cpu", "v2", band)
+
+
 # The POA kernel's launch-count name for each poa_kernel.
 POA_NAME = {"ls": "poa_consensus", "v2": "poa_consensus_v2"}
 
 
-def check_launches(path: str, launches: dict, poa_kernel=None) -> None:
+def check_launches(path: str, launches: dict, poa_kernel=None,
+                   band_names=()) -> None:
     """Every kernel of the path launched; a polish path (poa_kernel given)
-    launched its POA kernel and not the other."""
+    launched its POA kernel and not the other; a banded path (band_names:
+    the kernels it must launch) launched v2's banded build and neither
+    flat POA build."""
     names = (("dp_cost_probe",) if poa_kernel is None else
              (POA_NAME[poa_kernel], "hirschberg_edge", "hirschberg_base"))
+    names = band_names or names
     for name in names:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the {path} path")
     for kernel, name in POA_NAME.items():
-        if poa_kernel is not None and kernel != poa_kernel:
+        if poa_kernel is not None and (kernel != poa_kernel or band_names):
             require(launches[name] == 0, f"the {path} path launched {name}")
+    if poa_kernel is not None and not band_names:
+        require(launches["poa_consensus_v2_band"] == 0,
+                f"the {path} path launched the banded POA build")
+
+
+def band_vs_flat(path: str, band_run, flat_run) -> dict:
+    """A banded run against the flat run of the same cell: whether the
+    FASTA is the same and, where it is not, how many windows' consensus
+    differs (or was installed by the kernels in one run only) and the
+    first of them. Printed, not required: the banded path gives the flat
+    bytes by the reference's design, and a difference is a fault to log."""
+    same = band_run[0] == flat_run[0]
+    line = {"phase": f"{path}_vs_flat", "identical": same}
+    if not same:
+        wb, wf = band_run[1].windows, flat_run[1].windows
+        diff = sorted(i for i in set(wb) | set(wf) if wb.get(i) != wf.get(i))
+        line.update(windows_differing=len(diff),
+                    first_window_differing=diff[0] if diff else None)
+    return line
 
 
 def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
-             gen_s, poa_kernel, path):
-    """One recorded polish of the main cell: the launch counts are set to
-    0 just before it and read just after."""
+             gen_s, poa_kernel, path, band=None, band_names=(), mbp=1.0):
+    """One recorded polish of a cell (the main cell unless `d` is another
+    data set of `mbp` Mbp), banded where `band` (the slack) is given: the
+    launch counts are set to 0 just before it and read just after."""
     rec = MainPathRecorder(torch, ac, poa_driver)
     cuda_lib.reset_launches()
     with rec:
-        out, st, wall = polish(racon_tpu_torch, d, "cuda", poa_kernel)
+        out, st, wall = polish(racon_tpu_torch, d, "cuda", poa_kernel, band)
     launches = dict(cuda_lib.LAUNCHES)
     on_main = rec.summary()
     genome = read_fasta(d["genome"])
@@ -569,7 +746,7 @@ def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
     ed_draft = native.edit_distance(draft, genome)
     ed_polished = native.edit_distance(polished, genome)
     al, co = st["align"], st["consensus"]
-    line = {"phase": path, "poa_kernel": poa_kernel, "mbp": 1.0,
+    line = {"phase": path, "poa_kernel": poa_kernel, "mbp": mbp,
             "coverage": 30, "generate_s": gen_s, "wall_s": wall,
             "phase_s": {k[:-2]: v for k, v in st.items()
                         if k.endswith("_s")},
@@ -587,10 +764,13 @@ def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
             "edit_distance": {"draft": ed_draft, "polished": ed_polished}}
     if poa_kernel == "v2":
         line["poa_v2_steps"] = rec.steps
+    if band is not None:
+        line.update(band_slack=band, band={"align": al["band"],
+                                           "consensus": co["band"]})
     emit(line)
     require(al["device"] > 0, "no alignment job was served on the card")
     require(co["device"] > 0, "no window was served on the card")
-    check_launches(path, launches, poa_kernel)
+    check_launches(path, launches, poa_kernel, band_names)
     require(ed_polished < ed_draft, "polishing did not lower the edit "
             f"distance ({ed_draft} -> {ed_polished})")
     return out, rec, launches, on_main
@@ -673,7 +853,8 @@ def main() -> int:
     import racon_tpu_torch
     from racon_tpu_torch import native
     from racon_tpu_torch.ops import align_cuda as ac
-    from racon_tpu_torch.ops import cuda_lib, poa_cuda, poa_driver, poa_v2_cuda
+    from racon_tpu_torch.ops import (band, cuda_lib, poa_cuda, poa_driver,
+                                     poa_v2_cuda)
     from racon_tpu_torch.tools import dp_cost_probe as probe
     from racon_tpu_torch.tools import simulate
 
@@ -686,7 +867,16 @@ def main() -> int:
           "nvidia_smi": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
-    with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp:
+    with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp, \
+            ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+                "spawn")) as cpu_pool:
+        # the parity set's two CPU polishes (plain versions, flat and
+        # banded) run in their own processes through the phases below
+        d_par = simulate.generate(os.path.join(tmp, "parity"),
+                                  mbp=PARITY_MBP, seed=11)
+        cpu_runs = {"flat": cpu_pool.submit(cpu_polish, d_par),
+                    "band": cpu_pool.submit(cpu_polish, d_par, PARITY_SLACK)}
+
         # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps, with the
         # default POA kernel; then the same polish with the other POA
         # kernel (phase main_<kernel>), which must give the same bytes
@@ -703,14 +893,45 @@ def main() -> int:
         require(runs[second][0] == runs[first][0], f"the {second} POA "
                 f"kernel's FASTA differs from the {first} kernel's")
         emit({"phase": f"main_{second}_vs_main", "identical": True})
+        # main_band: the main cell on the banded path
+        band_run = run_main(*mods, "v2", "main_band",
+                            band=band.DEFAULT_SLACK,
+                            band_names=("poa_consensus_v2_band",
+                                        "hirschberg_edge_k128",
+                                        "hirschberg_edge", "hirschberg_base"))
+        emit(band_vs_flat("main_band", band_run, runs[first]))
+
+        # lowerr: a PacBio-HiFi-like set (about 1% error), flat and banded
+        t0 = time.perf_counter()
+        d_low = simulate.generate(os.path.join(tmp, "lowerr"), **LOWERR)
+        gen_low = time.perf_counter() - t0
+        mods_low = mods[:-2] + (d_low, gen_low)
+        low = run_main(*mods_low, "v2", "lowerr", mbp=LOWERR["mbp"])
+        low_band = run_main(*mods_low, "v2", "lowerr_band",
+                            band=band.DEFAULT_SLACK,
+                            band_names=("poa_consensus_v2_band",
+                                        "hirschberg_edge_k128",
+                                        "hirschberg_base_k128"),
+                            mbp=LOWERR["mbp"])
+        line = band_vs_flat("lowerr_band", low_band, low)
+        line["aligner_by_band"] = {"flat": low[1].per_band(),
+                                   "band": low_band[1].per_band()}
+        emit(line)
+
         # kept launches: the POA checks take the ls run's (one plain pass
-        # serves both POA kernels), the aligner checks the main run's;
-        # the rest are dropped
+        # serves both POA kernels) and the banded run's banded launches,
+        # the aligner checks the main run's and, at K = 128, the lowerr
+        # banded run's; the rest are dropped
         rec, rec_ls = runs[first][1], runs["ls"][1]
-        for r in (runs["ls"][1], runs["v2"][1]):
+        rec_band, rec_low = band_run[1], low_band[1]
+        keep = {id(rec_ls): ("poa_consensus",),
+                id(rec): ("hirschberg_edge", "hirschberg_base"),
+                id(rec_band): ("poa_consensus_v2_band",),
+                id(rec_low): ("hirschberg_edge_k128",
+                              "hirschberg_base_k128")}
+        for r in (runs["ls"][1], runs["v2"][1], rec_band, low[1], rec_low):
             for key in list(r.largest):
-                if (r is not rec_ls or key[0] != "poa_consensus") and \
-                        (r is not rec or key[0].startswith("poa")):
+                if key[0] not in keep.get(id(r), ()):
                     del r.largest[key]
 
         # the POA kernels' resources at the main path's geometries
@@ -718,30 +939,44 @@ def main() -> int:
                            rec_ls.inputs("poa_consensus")},
                           key=lambda c: c.depth):
             occ = {"poa_consensus": poa_cuda.occupancy(cfg),
-                   "poa_consensus_v2": poa_v2_cuda.occupancy(cfg)}
+                   "poa_consensus_v2": poa_v2_cuda.occupancy(cfg),
+                   "poa_consensus_v2_band": poa_v2_cuda.occupancy(
+                       cfg, band=True)}
             emit({"phase": "occupancy", "depth": cfg.depth,
                   "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
                   "v2_plan": poa_v2_cuda.plan(cfg), **occ})
 
-        # each kernel on the main path's largest launches, against its
-        # plain version
+        # each kernel on its path's largest launches, against its plain
+        # version
+        procs = max(1, min(8, os.cpu_count() or 1))
         (poa_row, ls_ms), poa_plain = check_poa(torch, poa_cuda, rec_ls)
         v2_row, v2_ms = check_poa_v2(torch, poa_v2_cuda, poa_plain)
         checked = {"poa_consensus": poa_row, "poa_consensus_v2": v2_row,
+                   "poa_consensus_v2_band": check_poa_band(
+                       torch, poa_v2_cuda, rec_band, procs),
                    "hirschberg_edge": check_edge(torch, ac, rec),
-                   "hirschberg_base": check_base(torch, ac, rec)}
-        rec.largest.clear()
-        rec_ls.largest.clear()
+                   "hirschberg_base": check_base(torch, ac, rec),
+                   "hirschberg_edge_k128": check_edge(
+                       torch, ac, rec_low, "hirschberg_edge_k128",
+                       "lowerr_band"),
+                   "hirschberg_base_k128": check_base(
+                       torch, ac, rec_low, "hirschberg_base_k128",
+                       "lowerr_band")}
+        for r in (rec, rec_ls, rec_band, rec_low):
+            r.largest.clear()
         del poa_plain
         emit(poa_decision(first, ls_ms, v2_ms))
 
-        # parity: the card, with each POA kernel, and the CPU give the
-        # same bytes
-        d = simulate.generate(os.path.join(tmp, "parity"), mbp=PARITY_MBP,
-                              seed=11)
-        gpu, gstats, g_s = polish(racon_tpu_torch, d, "cuda", first)
-        gpu_2, _, g2_s = polish(racon_tpu_torch, d, "cuda", second)
-        cpu, cstats, c_s = polish(racon_tpu_torch, d, "cpu", first)
+        # parity: the card, with each POA kernel and on the banded path,
+        # and the CPU give the same bytes
+        gpu, gstats, g_s = polish(racon_tpu_torch, d_par, "cuda", first)
+        gpu_2, _, g2_s = polish(racon_tpu_torch, d_par, "cuda", second)
+        gpu_b, bstats, gb_s = polish(racon_tpu_torch, d_par, "cuda", "v2",
+                                     PARITY_SLACK)
+        t0 = time.perf_counter()
+        cpu, cstats, c_s = cpu_runs["flat"].result()
+        cpu_b, cbstats, cb_s = cpu_runs["band"].result()
+        wait_s = time.perf_counter() - t0
         require(gpu == cpu, "card and CPU polish the parity set differently")
         require(gpu_2 == cpu, f"the card's {second} kernel and the CPU "
                 "polish the parity set differently")
@@ -749,6 +984,20 @@ def main() -> int:
               f"cuda_{first}_s": g_s, f"cuda_{second}_s": g2_s,
               "cpu_s": c_s, "align_device": gstats["align"]["device"],
               "windows_device": gstats["consensus"]["device"]})
+        require(gpu_b == cpu_b, "card and CPU polish the parity set "
+                "differently on the banded path")
+        require(bstats["align"]["band"] == cbstats["align"]["band"] and
+                bstats["consensus"]["band"] ==
+                cbstats["consensus"]["band"],
+                "the banded path's counts differ between card and CPU")
+        emit({"phase": "parity_band", "mbp": PARITY_MBP,
+              "band_slack": PARITY_SLACK, "identical": True,
+              "equals_flat": gpu_b == gpu, "cuda_s": gb_s, "cpu_s": cb_s,
+              "cpu_wait_s": wait_s,
+              "band": {"align": bstats["align"]["band"],
+                       "consensus": bstats["consensus"]["band"]},
+              "align_device": bstats["align"]["device"],
+              "windows_device": bstats["consensus"]["device"]})
 
     # the DP-cost probe's path
     launches_probe, checked["dp_cost_probe"] = probe_phase(torch, probe,
@@ -760,16 +1009,26 @@ def main() -> int:
              replaces="racon_tpu/ops/poa_pallas_ls.py:64"),
         dict(name="poa_consensus_v2", source=src + "poa_v2.cu",
              replaces="racon_tpu/ops/poa_pallas.py:73"),
+        dict(name="poa_consensus_v2_band", source=src + "poa_v2.cu",
+             replaces="racon_tpu/ops/poa_pallas.py:73 (band=True)"),
         dict(name="hirschberg_edge", source=src + "align.cu",
              replaces="racon_tpu/ops/align_pallas.py:112"),
+        dict(name="hirschberg_edge_k128", source=src + "align.cu",
+             replaces="racon_tpu/ops/align_pallas.py:112 (K=128)"),
         dict(name="hirschberg_base", source=src + "align_base.cu",
              replaces="racon_tpu/ops/align_pallas.py:299"),
+        dict(name="hirschberg_base_k128", source=src + "align_base.cu",
+             replaces="racon_tpu/ops/align_pallas.py:299 (K=128)"),
         dict(name="dp_cost_probe", source=src + "dp_cost_probe.cu",
              replaces="racon_tpu/tools/dp_cost_probe.py:89"),
     ]
-    # launches and main-run sums: each POA kernel from its own polish, the
-    # aligner kernels from the main one
+    # launches and path sums: each POA kernel from its own polish, the
+    # banded POA build from main_band, the K = 128 builds from
+    # lowerr_band, the other aligner kernels from the main polish
     path_of = {POA_NAME[kn]: (r[2], r[3]) for kn, r in runs.items()}
+    path_of["poa_consensus_v2_band"] = (band_run[2], band_run[3])
+    for name in ("hirschberg_edge_k128", "hirschberg_base_k128"):
+        path_of[name] = (low_band[2], low_band[3])
     path_of["dp_cost_probe"] = (launches_probe, None)
     for k in kernels:
         k.update(checked[k["name"]])

@@ -10,6 +10,7 @@ import argparse
 import sys
 
 from .native import NativeError
+from .ops import band as _band
 from .ops.poa_driver import DEFAULT_POA_KERNEL, POA_KERNELS
 from .polisher import create_polisher
 
@@ -59,6 +60,17 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help=f"POA consensus kernel (default {DEFAULT_POA_KERNEL})"
                    ": ls or v2, one window per block each; both give the "
                    "same consensus")
+    p.add_argument("--band", action="store_true",
+                   help="banded DP on the aligner and the v2 POA kernel, "
+                   "with verify-and-widen down to the flat run (same "
+                   "output)")
+    p.add_argument("--band-slack", type=int, default=_band.DEFAULT_SLACK,
+                   help="half-band slack beyond the length delta (default "
+                   f"{_band.DEFAULT_SLACK})")
+    p.add_argument("--band-max-widenings", type=int,
+                   default=_band.DEFAULT_MAX_WIDENINGS,
+                   help="band doublings before a job runs flat (default "
+                   f"{_band.DEFAULT_MAX_WIDENINGS})")
     return p
 
 
@@ -67,7 +79,9 @@ def main(argv=None) -> int:
     try:
         polisher = create_polisher(
             args.sequences, args.overlaps, args.targets, device=args.device,
-            poa_kernel=args.poa_kernel,
+            poa_kernel=args.poa_kernel, band=args.band,
+            band_slack=args.band_slack,
+            band_max_widenings=args.band_max_widenings,
             fragment_correction=args.fragment_correction,
             window_length=args.window_length,
             quality_threshold=args.quality_threshold,

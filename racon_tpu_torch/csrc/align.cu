@@ -7,7 +7,8 @@
 //
 // Layout: one warp per task. Lane o of the K-wide band row lives in
 // thread o / PER, register slot o % PER (PER = K / 32 contiguous lanes per
-// thread), so a DP row needs no shared memory and no block barrier: the
+// thread: 4 at K = 128, the banded path's narrowest bucket, up to 64 at
+// K = 2048), so a DP row needs no shared memory and no block barrier: the
 // one-lane neighbour crosses threads by one shuffle, and the in-row gap
 // pass is a per-thread serial prefix (suffix) min followed by a warp
 // shuffle scan of the thread totals.
@@ -189,6 +190,7 @@ int rt_edge_launch(const void* scal, const void* q, const void* t, void* out,
   auto tt = (const uint8_t*)t;
   auto o = (int*)out;
   switch (K) {
+    case 128: return launch_edge<128>(sc, qq, tt, o, B, rcap, tcap, backward, s);
     case 256: return launch_edge<256>(sc, qq, tt, o, B, rcap, tcap, backward, s);
     case 512: return launch_edge<512>(sc, qq, tt, o, B, rcap, tcap, backward, s);
     case 1024: return launch_edge<1024>(sc, qq, tt, o, B, rcap, tcap, backward, s);

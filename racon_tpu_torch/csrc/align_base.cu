@@ -7,8 +7,10 @@
 // ok and dist for every task.
 //
 // Layout: one warp per task. Lane o of the K-wide band row lives in thread
-// o / PER, register slot o % PER (PER = K / 32 contiguous lanes a thread),
-// so a DP row needs no shared memory and no block barrier.
+// o / PER, register slot o % PER (PER = K / 32 contiguous lanes a thread:
+// 4 at K = 128, the banded path's narrowest bucket, where a thread holds
+// one word of target codes), so a DP row needs no shared memory and no
+// block barrier.
 //
 // What bounds it on an H100: integer operations (about 20 a cell) and the
 // serial row dependency. The design keeps everything but the moves in
@@ -25,7 +27,8 @@
 //   row's code is one shuffle away.
 // * Moves packed, two bits a cell, and stored coalesced: a row is K/4
 //   bytes; thread `lane` writes its PER/4 bytes at lane * PER/4 with one
-//   store. Lane o's move sits in the byte pair 2*(o/8), 2*(o/8)+1: bit
+//   store (at K = 128 the even thread of each pair stores both threads'
+//   byte pair). Lane o's move sits in the byte pair 2*(o/8), 2*(o/8)+1: bit
 //   o%8 of the first byte is set for I, of the second for D (M: neither).
 // The traceback runs on lane 0 and keeps the last 32-bit word it loaded,
 // reloading only when the row or the word changes (a run of D moves costs
@@ -72,11 +75,19 @@ __device__ __forceinline__ uint32_t tcode(const uint8_t* t, int idx,
 }
 
 // One thread's packed moves of a row: PER/16 32-bit words (16 bits at
-// PER = 8), byte pairs (I bits, D bits) of 8 lanes each.
+// PER = 8), byte pairs (I bits, D bits) of 8 lanes each. At PER = 4 (K =
+// 128) a byte pair spans two threads: every thread takes its odd
+// neighbour's 4 + 4 bits by one shuffle, and the even thread stores the
+// pair at its own offset (2 * (lane / 2) bytes: a row is 32 bytes).
 template <int PER>
 __device__ __forceinline__ void store_moves(uint8_t* dst, const uint32_t* I,
-                                            const uint32_t* D) {
-  if constexpr (PER == 8) {
+                                            const uint32_t* D, int lane) {
+  if constexpr (PER == 4) {
+    const uint32_t mine = (I[0] & 0xfu) | ((D[0] & 0xfu) << 8);
+    const uint32_t odd = __shfl_down_sync(FULL, mine, 1);
+    if ((lane & 1) == 0)
+      *reinterpret_cast<uint16_t*>(dst) = (uint16_t)(mine | (odd << 4));
+  } else if constexpr (PER == 8) {
     *reinterpret_cast<uint16_t*>(dst) = (uint16_t)(I[0] | (D[0] << 8));
   } else {
     uint32_t w[PER / 16];
@@ -106,7 +117,7 @@ __global__ void __launch_bounds__(32 * WARPS)
   constexpr int TW = PER / 4;       // target code words a thread
   constexpr int NM = (PER + 31) / 32;
   constexpr int ROWB = K / 4;       // bytes of packed moves a row
-  static_assert(PER % 8 == 0 && PER <= 64, "K in 256..2048");
+  static_assert(PER % 4 == 0 && PER <= 64, "K in 128..2048");
   const int lane = threadIdx.x & 31;
   const int task = blockIdx.x * WARPS + (threadIdx.x >> 5);
   if (task >= B) return;  // whole warp leaves together
@@ -189,7 +200,8 @@ __global__ void __launch_bounds__(32 * WARPS)
     }
 #pragma unroll
     for (int w = 0; w < NM; ++w) im[w] &= ~dm[w];
-    store_moves<PER>(mvs + (size_t)r * ROWB + lane * (PER / 4), im, dm);
+    store_moves<PER>(mvs + (size_t)r * ROWB + lane * (PER / 4), im, dm,
+                     lane);
     // slide the target window by one code
     uint32_t in = __shfl_down_sync(FULL, tw[0], 1);
     if (lane == 31) in = enter;
@@ -299,6 +311,7 @@ int rt_base_launch(const void* scal, const void* q, const void* t, void* ops,
   auto mv = (uint8_t*)moves;
   auto cy = (long long*)cycles;
   switch (K) {
+    case 128: return launch_base<128>(sc, qq, tt, op, cn, okp, di, mv, cy, B, tcap, n_ops, s);
     case 256: return launch_base<256>(sc, qq, tt, op, cn, okp, di, mv, cy, B, tcap, n_ops, s);
     case 512: return launch_base<512>(sc, qq, tt, op, cn, okp, di, mv, cy, B, tcap, n_ops, s);
     case 1024: return launch_base<1024>(sc, qq, tt, op, cn, okp, di, mv, cy, B, tcap, n_ops, s);
@@ -311,6 +324,7 @@ int rt_base_launch(const void* scal, const void* q, const void* t, void* ops,
 // resident warps per SM at band K; out[3].
 int rt_base_occupancy(int K, int* out) {
   switch (K) {
+    case 128: return (int)occupancy<128>(out);
     case 256: return (int)occupancy<256>(out);
     case 512: return (int)occupancy<512>(out);
     case 1024: return (int)occupancy<1024>(out);

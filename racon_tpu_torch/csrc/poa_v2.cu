@@ -74,6 +74,20 @@
 // discipline: keys are float32 in the plain version's order of operations;
 // the library is built with --fmad=false and IEEE division.
 //
+// The banded build (template BAND; the wrapper's wband argument) replaces
+// the Pallas kernel's band=True build: a per-window half band wband in, a
+// band hit out. Under wband > 0 each DP row is masked to NEG outside
+// |j - cexp| <= wband after its gap pass (cexp: the node's key + 0.5,
+// truncated, less the layer's begin), column 0's diagonal is NEG +
+// mismatch, as the Pallas kernel's shifted-in NEG gives it, and the hit is
+// set where the best end score's deficit below match x L passes
+// 2 |gap| max(wband / 2, 1) or where the walk comes within one cell of the
+// band edge; an end score no better than NEG starts the walk on the virtual
+// row. The move records already follow the masked row, as the Pallas
+// kernel's do. Every column is still computed: the mask costs a compare a
+// cell, and the shared-memory plan is the flat build's. wband = 0 runs the
+// flat DP through the same build.
+//
 // Thread 0 of each block counts clock64() cycles per phase (NPHASE) for the
 // optional phases output.
 
@@ -113,7 +127,8 @@ struct Shared {
   int* red_v;        // [NWARP] reduction scratch
   int* red_i;        // [NWARP]
   int* red_w;        // [NWARP]
-  int* misc;         // [8]: n, failed, r_lo, r_hi, path count
+  int* misc;         // [8]: n, failed, r_lo, r_hi, path count, band
+                     // cells of the layer, band hit
   int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
                      // memory, or the global scratch with GSRC)
   int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
@@ -260,16 +275,23 @@ struct Win {
 // number of times (two block barriers). The row goes to the ring, and to
 // the global H where a later row reads it from there (far[r]) or where
 // all_global (the traceback may re-derive moves from H).
-template <int CHM>
+// BAND (the banded build) with a half band hw > 0: column 0's diagonal is
+// NEG + mismatch (the Pallas kernel's shifted-in NEG), and after the in-row
+// gap pass the cells with |j - cexp| > hw become NEG, where cexp is the
+// node's key rounded as the Pallas kernel rounds it, less the layer's
+// begin. The moves record the masked row.
+template <int CHM, bool BAND>
 __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
                                        const Win& w, int r, int r_lo,
                                        int r_hi, int L, int CH, int gt,
-                                       int wb, bool all_global) {
+                                       int wb, bool all_global, int hw,
+                                       int begin) {
   const int HS = c.ML + 1, gp = c.gp;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int j0 = gt * CH;
   const int u = s.order[r];
   const int ub = s.base[u];
+  const int cexp = BAND ? (int)(s.key[u] + 0.5f) - begin : 0;
   int P[CHM + 1], S[CHM + 1];
   int jc[CHM + 1];  // the predecessor columns this thread reads, clamped
 #pragma unroll
@@ -338,6 +360,9 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
       if (j >= 1) {
         const int diag = P[k] + (s.seq[j - 1] == ub ? c.ma : c.mm);
         if (diag >= v) { v = diag; m[k] = S[k] << 2; }
+      } else if (BAND && hw > 0 && NEG_ + c.mm >= v) {
+        v = NEG_ + c.mm;
+        m[k] = VSLOT << 2;
       }
       V[k] = v;
       v -= j * gp;
@@ -364,7 +389,8 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
   for (int k = 0; k < CHM; ++k) {
     const int j = j0 + k;
     if (k < CH && j <= L) {
-      const int row = max(x[k], excl) + j * gp;
+      int row = max(x[k], excl) + j * gp;
+      if (BAND && hw > 0 && abs(j - cexp) > hw) row = NEG_;
       if (global) hrow[j] = row;
       rrow[j] = row;
       // left only if better
@@ -379,16 +405,21 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
 // or above CH (a uniform branch): a DP row's instructions are what bounds
 // it once two windows share an SM, and a column beyond CH costs as much as
 // one within.
+template <bool BAND>
 __device__ __forceinline__ void dp_row_ch(const Shared& s, const Cfg& c,
                                           const Win& w, int r, int r_lo,
                                           int r_hi, int L, int CH, int gt,
-                                          int wb, bool all_global) {
+                                          int wb, bool all_global, int hw,
+                                          int begin) {
   if (CH <= 2)
-    dp_row<2>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+    dp_row<2, BAND>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global, hw,
+                    begin);
   else if (CH <= 4)
-    dp_row<4>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+    dp_row<4, BAND>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global, hw,
+                    begin);
   else
-    dp_row<CHMAX>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+    dp_row<CHMAX, BAND>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global,
+                        hw, begin);
 }
 
 // Whether node a is among node b's in-edge sources.
@@ -433,21 +464,27 @@ __device__ int rederive(const Shared& s, const Cfg& c, const Win& w, int u,
 }
 
 // Traceback state: the cell (u, j), steps taken, the insertion run and
-// next matched key being written, and whether the walk ran off column 0.
+// next matched key being written, whether the walk ran off column 0, and
+// (banded build) whether it came within one cell of the band edge.
 struct Walk {
   int u, j, tb, run;
   float nk;
-  bool off;
+  bool off, hit;
 };
 
 // One traceback step from cell (u, j) whose move byte is mv (every lane of
 // warp 0 the same; lane 0 writes the position records). Returns the lane
 // of traceback()'s fetch that holds the next cell's move byte, or -1 where
 // none does (a re-derived move, or the virtual row).
+template <bool BAND>
 __device__ __forceinline__ int tb_step(const Shared& s, const Cfg& c,
                                        const Win& w, Walk& k, int mv,
-                                       int r_lo, int r_hi, int lane) {
+                                       int r_lo, int r_hi, int lane, int hw,
+                                       int begin) {
   ++k.tb;
+  if (BAND && hw > 0 &&
+      abs(k.j - ((int)(s.key[k.u] + 0.5f) - begin)) >= hw - 1)
+    k.hit = true;
   int move = mv & 3, nxt = -1, at = -1;
   const int sl = mv >> 2;
   if (move == MV_REDERIVE) {
@@ -460,6 +497,10 @@ __device__ __forceinline__ int tb_step(const Shared& s, const Cfg& c,
     at = 30;
   }
   if (move == 0) {           // diagonal: position j-1 matches u
+    if (BAND && k.j == 0) {  // the banded DP's diagonal off column 0
+      k.off = true;
+      return -1;
+    }
     k.nk = s.key[k.u]; k.run = 0;
     --k.j;
     if (lane == 0) { s.nkey[k.j] = k.nk; s.runrem[k.j] = 0; }
@@ -483,12 +524,13 @@ __device__ __forceinline__ int tb_step(const Shared& s, const Cfg& c,
 // 31) together with those of every cell a move from it can reach (lane e:
 // the diagonal through slot e, lane 15 + e: up through slot e, lane 30:
 // left), so the step after the next needs no other load.
+template <bool BAND>
 __device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
                           int start_u, int L, int n_sub, int r_lo,
-                          int r_hi) {
+                          int r_hi, int hw, int begin) {
   const int HS = c.ML + 1, lane = threadIdx.x & 31;
   const int limit = c.N + c.ML + 2;
-  Walk k{start_u, L, 0, c.ML - L, INFINITY, false};
+  Walk k{start_u, L, 0, c.ML - L, INFINITY, false, false};
   while (n_sub > 0 && !(k.u == -1 && k.j == 0) && k.tb < limit) {
     if (k.u == -1) {             // virtual row: only left moves
       ++k.tb;
@@ -507,16 +549,18 @@ __device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
       got = k.j > 0 ? mrow[k.j - 1] : 0;
     else if (sv >= 0 && (lane >= 15 || k.j > 0))
       got = w.MV[(size_t)(sv + 1) * HS + k.j - (lane < 15)];
-    const int at = tb_step(s, c, w, k, __shfl_sync(0xffffffffu, got, 31),
-                           r_lo, r_hi, lane);
+    const int at = tb_step<BAND>(s, c, w, k,
+                                 __shfl_sync(0xffffffffu, got, 31), r_lo,
+                                 r_hi, lane, hw, begin);
     const int mv2 = __shfl_sync(0xffffffffu, got, at < 0 ? 0 : at);
     if (k.off) break;
     if (at < 0 || (k.u == -1 && k.j == 0) || k.tb >= limit) continue;
-    tb_step(s, c, w, k, mv2, r_lo, r_hi, lane);
+    tb_step<BAND>(s, c, w, k, mv2, r_lo, r_hi, lane, hw, begin);
     if (k.off) break;
   }
   if (lane == 0) {
     if (!(k.u == -1 && k.j == 0)) s.misc[1] = 1;
+    if (BAND && k.hit) s.misc[6] = 1;
     for (int jj = k.j - 1; jj >= 0; --jj) {  // positions the walk missed
       s.nkey[jj] = k.nk; s.runrem[jj] = ++k.run;
     }
@@ -571,17 +615,22 @@ __device__ void merge_new(const Shared& s, int n, int nn) {
 }
 
 // GSRC: the in-edge sources live in the window's global scratch (where the
-// graph is too large to keep them in shared memory).
-template <bool GSRC>
+// graph is too large to keep them in shared memory). BAND: the banded
+// build, which takes each window's half band (wband_a; 0 runs the flat DP)
+// and writes its band hit (band_hit_out): dp_row's mask, the deficit test
+// after the end pick, and tb_step's boundary test.
+template <bool GSRC, bool BAND>
 __global__ void __launch_bounds__(NT, 2)
 poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
               const int* __restrict__ bbw, const int* __restrict__ bb_len_a,
               const int* __restrict__ n_layers_a,
               const uint8_t* __restrict__ seqs, const int* __restrict__ ws,
               const int* __restrict__ lens, const int* __restrict__ begins,
-              const int* __restrict__ ends, int* __restrict__ cons_base,
+              const int* __restrict__ ends, const int* __restrict__ wband_a,
+              int* __restrict__ cons_base,
               int* __restrict__ cons_cov, int* __restrict__ cons_len,
               uint8_t* __restrict__ failed_out, int* __restrict__ n_nodes,
+              uint8_t* __restrict__ band_hit_out,
               long long* __restrict__ cells, long long* __restrict__ steps,
               long long* __restrict__ phases, int* __restrict__ scratch,
               size_t scratch_per) {
@@ -611,6 +660,7 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   w.MV = (uint8_t*)(wbase + so[2]);
 
   const int bb_len = bb_len_a[win];
+  const int hw = BAND ? wband_a[win] : 0;
   const uint8_t* bbp = bb + (size_t)win * c.MB;
   const int* bbwp = bbw + (size_t)win * c.MB;
 
@@ -633,6 +683,7 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   if (tid == 0) {
     s.misc[0] = bb_len;  // n
     s.misc[1] = 0;       // failed
+    s.misc[6] = 0;       // band hit
     for (int k = 0; k < NPHASE; ++k) s.ph[k] = 0;
   }
   __syncthreads();
@@ -664,11 +715,12 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     if (tid == 0) {
       s.misc[2] = count_keys(s, n, lo, false);  // r_lo
       s.misc[3] = count_keys(s, n, hi, true);   // r_hi, within [0, n)
+      s.misc[5] = 0;                            // band cells
     }
     __syncthreads();
     const int r_lo = s.misc[2], r_hi = s.misc[3];
     const int n_sub = r_hi - r_lo;
-    dp_cells += (long long)n_sub * (L + 1);
+    const bool banded = BAND && hw > 0;
     PHASE(0);
 
     // --- DP over the subgraph in rank order, a same-column pair per step
@@ -684,9 +736,13 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     // reads (from the global H), and finds whether some row has an
     // in-subgraph predecessor not computed before it (then every row goes
     // to the global H, for the traceback's re-derivation).
-    int late = 0;
+    int late = 0, band_cells = 0;
     for (int r = r_lo + tid; r < r_hi; r += NT) {
       const int u0 = s.order[r];
+      if (banded) {  // the columns of [0, L] the row's band admits
+        const int ce = (int)(s.key[u0] + 0.5f) - begin;
+        band_cells += max(0, min(L, ce + hw) - max(0, ce - hw) + 1);
+      }
       int code = 0;
       if (c.colstep && r + 1 < r_hi) {
         const int u1 = s.order[r + 1];
@@ -705,17 +761,22 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
         else if (r - rk >= c.ring) s.far[rk] = 1;
       }
     }
+    if (banded) atomicAdd(&s.misc[5], band_cells);
     const bool all_global = __syncthreads_or(late);
+    dp_cells += banded ? (long long)atomicAdd(&s.misc[5], 0)
+                       : (long long)n_sub * (L + 1);
     for (int r = r_lo; r < r_hi; ++dp_steps) {
       const int code = s.step[r];
       if (code == 2) {
         const int h = tid / HALF;
-        dp_row_ch(s, c, w, r + h, r_lo, r_hi, L, CHh, tid % HALF,
-                  h * (NWARP / 2), all_global);
+        dp_row_ch<BAND>(s, c, w, r + h, r_lo, r_hi, L, CHh, tid % HALF,
+                        h * (NWARP / 2), all_global, hw, begin);
       } else {
-        dp_row_ch(s, c, w, r, r_lo, r_hi, L, CH, tid, 0, all_global);
+        dp_row_ch<BAND>(s, c, w, r, r_lo, r_hi, L, CH, tid, 0, all_global,
+                        hw, begin);
         if (code == 1)
-          dp_row_ch(s, c, w, r + 1, r_lo, r_hi, L, CH, tid, 0, all_global);
+          dp_row_ch<BAND>(s, c, w, r + 1, r_lo, r_hi, L, CH, tid, 0,
+                          all_global, hw, begin);
       }
       r += code ? 2 : 1;
     }
@@ -729,11 +790,20 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
       if (bi < 0 || better(sc, 0, r, ba, bbv, bi)) { ba = sc; bi = r; }
     }
     block_best(red, ba, bbv, bi);
-    const int start_u = bi >= 0 ? s.order[bi] : 0;
+    int start_u = bi >= 0 ? s.order[bi] : 0;
+    if (banded) {
+      // the deficit test; an end score no better than NEG starts the walk
+      // on the virtual row, as the Pallas kernel's end pick does
+      const int best_s = bi >= 0 ? max(ba, NEG_) : NEG_;
+      if (tid == 0 && c.ma * L - best_s > 2 * (-c.gp) * max(hw / 2, 1))
+        s.misc[6] = 1;
+      if (bi >= 0 && ba <= NEG_) start_u = -1;
+    }
     PHASE(2);
 
     // --- traceback along the move records (warp 0)
-    if (wid == 0) traceback(s, c, w, start_u, L, n_sub, r_lo, r_hi);
+    if (wid == 0)
+      traceback<BAND>(s, c, w, start_u, L, n_sub, r_lo, r_hi, hw, begin);
     __syncthreads();
     PHASE(3);
 
@@ -812,6 +882,7 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   if (tid == 0) {
     cons_len[win] = cnt;
     failed_out[win] = s.misc[1] ? 1 : 0;
+    if (BAND) band_hit_out[win] = s.misc[6] ? 1 : 0;
     n_nodes[win] = n;
     if (cells) cells[win] = dp_cells;
     if (steps) steps[win] = dp_steps;
@@ -847,12 +918,14 @@ cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, size_t* sm) {
   return cudaErrorInvalidValue;
 }
 
-using Kernel = decltype(&poa_v2_kernel<false>);
+using Kernel = decltype(&poa_v2_kernel<false, false>);
 
-// The kernel instantiation a plan launches, with its shared-memory limit
-// raised to sm.
-cudaError_t planned_kernel(bool gsrc, size_t sm, Kernel* fn) {
-  *fn = gsrc ? &poa_v2_kernel<true> : &poa_v2_kernel<false>;
+// The kernel instantiation a plan launches (the banded build where band),
+// with its shared-memory limit raised to sm.
+cudaError_t planned_kernel(bool gsrc, bool band, size_t sm, Kernel* fn) {
+  *fn = gsrc ? (band ? &poa_v2_kernel<true, true> : &poa_v2_kernel<true, false>)
+             : (band ? &poa_v2_kernel<false, true>
+                     : &poa_v2_kernel<false, false>);
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)sm);
 }
@@ -883,11 +956,14 @@ int rt_poa_v2_plan(int N, int ML, int E, int* out) {
   return (int)err;
 }
 
-// One block per window. Inputs as rt_poa_launch (csrc/poa.cu); colstep
-// pairs same-column ranks per serial step. Outputs: cons_base, cons_cov
-// i32[B,N], cons_len i32[B], failed u8[B], n_nodes i32[B]; cells and steps
-// i64[B] (each may be null): each window's DP cells (sum over its layers of
-// subgraph nodes x (layer length + 1)) and serial DP iterations;
+// One block per window. Inputs as rt_poa_launch (csrc/poa.cu), and wband
+// i32[B] or null: each window's half band (the banded build; null runs the
+// flat build); colstep pairs same-column ranks per serial step. Outputs:
+// cons_base, cons_cov i32[B,N], cons_len i32[B], failed u8[B], n_nodes
+// i32[B], band_hit u8[B] (with wband); cells and steps i64[B] (each may be
+// null): each window's DP cells (sum over its layers of subgraph nodes x
+// (layer length + 1); under a half band, the columns of [0, L] each row's
+// band admits) and serial DP iterations;
 // phases i64[NPHASE, B] (may be null): each window's clock64() cycles in
 // graph init and layer set-up, DP, end-node pick, traceback, graph update
 // and consensus, as thread 0 sees them.
@@ -896,9 +972,10 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      int gp, int colstep, const void* bb, const void* bbw,
                      const void* bb_len, const void* n_layers,
                      const void* seqs, const void* ws, const void* lens,
-                     const void* begins, const void* ends, void* cons_base,
-                     void* cons_cov, void* cons_len, void* failed,
-                     void* n_nodes, void* cells, void* steps, void* phases,
+                     const void* begins, const void* ends,
+                     const void* wband, void* cons_base, void* cons_cov,
+                     void* cons_len, void* failed, void* n_nodes,
+                     void* band_hit, void* cells, void* steps, void* phases,
                      void* scratch, int B, void* stream) {
   if (E > VSLOT || ML + 1 > NT * CHMAX || N > 32767)
     return (int)cudaErrorInvalidValue;
@@ -908,7 +985,7 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
   size_t sm = 0;
   cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &sm);
   Kernel fn = nullptr;
-  if (err == cudaSuccess) err = planned_kernel(gsrc, sm, &fn);
+  if (err == cudaSuccess) err = planned_kernel(gsrc, wband != nullptr, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, colstep ? 1 : 0, ring};
   const size_t per = (size_t)rt_poa_v2_scratch_words(N, ML, E);
@@ -916,22 +993,24 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
       c, (const uint8_t*)bb, (const int*)bbw, (const int*)bb_len,
       (const int*)n_layers, (const uint8_t*)seqs, (const int*)ws,
       (const int*)lens, (const int*)begins, (const int*)ends,
-      (int*)cons_base, (int*)cons_cov, (int*)cons_len, (uint8_t*)failed,
-      (int*)n_nodes, (long long*)cells, (long long*)steps,
+      (const int*)wband, (int*)cons_base, (int*)cons_cov, (int*)cons_len,
+      (uint8_t*)failed, (int*)n_nodes, (uint8_t*)band_hit,
+      (long long*)cells, (long long*)steps,
       (long long*)phases, (int*)scratch, per);
   return (int)cudaGetLastError();
 }
 
 // The kernel's registers a thread, local (spill) bytes a thread, dynamic
 // shared bytes a block and resident blocks per SM at (N, ML) with 12 edge
-// slots, as the launch plans them; out[4].
-int rt_poa_v2_occupancy(int N, int ML, int* out) {
+// slots, as the launch plans them, for the flat build or (band) the banded
+// one; out[4].
+int rt_poa_v2_occupancy(int N, int ML, int band, int* out) {
   int ring = 0;
   bool gsrc = false;
   size_t sm = 0;
   cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &sm);
   Kernel fn = nullptr;
-  if (err == cudaSuccess) err = planned_kernel(gsrc, sm, &fn);
+  if (err == cudaSuccess) err = planned_kernel(gsrc, band != 0, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

@@ -22,6 +22,12 @@ F + B). Pairs that need no band wider than the largest bucket and whose
 path stays in band are served here; the rest are left CIGAR-less for the
 host aligner.
 
+The banded path (``run_jobs(band=True)``, the JAX package's
+``RACON_TPU_BAND``) starts a job on the narrower band of its Ukkonen plan
+(ops/band.py), K = 128 included, where the same kernels run at that K;
+the pair's exact certificate decides whether its ops stand, and a job
+whose certificate fails climbs the ladder to the flat bucket.
+
 What bounds the kernels on an H100: integer operations. One warp serves a
 task and holds K/32 lanes per thread in registers, so a row costs no
 shared memory and no block barrier, only warp shuffles for the one-lane
@@ -32,7 +38,8 @@ global scratch that one thread reads back during the traceback.
 
 Wrappers: a tensor on the CPU goes to the plain version, a tensor on the
 card to the kernel (or an exception). Each launch adds one to
-``cuda_lib.LAUNCHES``.
+``cuda_lib.LAUNCHES`` (the K = 128 builds under their own names,
+``launch_name``).
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from . import band as _band
 from . import cuda_lib
 from .align import ops_to_cigar
 from .encoding import encode
@@ -51,7 +59,9 @@ INF = 1 << 28
 BASE_ROWS = 256          # subproblems at or below this row count run the
                          # full traceback kernel
 ROW_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768, 49152)
-BANDS = (256, 512, 1024, 2048)
+BANDS = (256, 512, 1024, 2048)   # the flat buckets (band_for)
+KERNEL_BANDS = _band.BAND_BUCKETS  # what the kernels take: the flat
+                                   # buckets and 128, a band override only
 COHORT = 4096            # jobs aligned together, at most
 SCRATCH_BUDGET = 512 << 20   # bytes of base-case moves scratch a launch
 
@@ -245,16 +255,22 @@ def _base_lib():
 def base_occupancy(K: int) -> dict:
     """The base kernel's registers and local (spill) bytes a thread and
     resident warps per SM at band K (needs the card)."""
-    if K not in BANDS:
-        raise ValueError(f"band {K} not in {BANDS}")
+    if K not in KERNEL_BANDS:
+        raise ValueError(f"band {K} not in {KERNEL_BANDS}")
     return cuda_lib.occupancy(_base_lib().rt_base_occupancy, (K,),
                               ("regs", "local_bytes", "warps_per_sm"),
                               "base kernel")
 
 
+def launch_name(kernel: str, K: int) -> str:
+    """The launch count a kernel adds to at band K: the K = 128 builds,
+    which only the banded path runs, count apart."""
+    return f"{kernel}_k128" if K == 128 else kernel
+
+
 def _check_tasks(scal, q, t, rows: int, K: int):
-    if K not in BANDS:
-        raise ValueError(f"band {K} not in {BANDS}")
+    if K not in KERNEL_BANDS:
+        raise ValueError(f"band {K} not in {KERNEL_BANDS}")
     B = scal.shape[0]
     dev = scal.device
     cuda_lib.require(scal, "scal", torch.int32, (B, 4), dev)
@@ -273,13 +289,14 @@ def edge_rows(scal, q, t, K: int, backward: bool) -> torch.Tensor:
     out = torch.empty((B, K), dtype=torch.int32, device=scal.device)
     if B:
         lib = _lib()
-        with cuda_lib.launch_events("hirschberg_edge", scal):
+        name = launch_name("hirschberg_edge", K)
+        with cuda_lib.launch_events(name, scal):
             err = lib.rt_edge_launch(
                 cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
                 cuda_lib.ptr(out), B, rcap, K, rcap + K, int(backward),
                 cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg edge kernel")
-        cuda_lib.LAUNCHES["hirschberg_edge"] += 1
+        cuda_lib.LAUNCHES[name] += 1
     return out
 
 
@@ -311,7 +328,8 @@ def base_case(scal, q, t, K: int, cycles=None):
                         device=dev)
     if B:
         lib = _base_lib()
-        with cuda_lib.launch_events("hirschberg_base", scal):
+        name = launch_name("hirschberg_base", K)
+        with cuda_lib.launch_events(name, scal):
             err = lib.rt_base_launch(
                 cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
                 cuda_lib.ptr(ops), cuda_lib.ptr(cnt), cuda_lib.ptr(ok),
@@ -319,7 +337,7 @@ def base_case(scal, q, t, K: int, cycles=None):
                 None if cycles is None else cuda_lib.ptr(cycles), B, K,
                 BASE_ROWS + K, OPS, cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg base kernel")
-        cuda_lib.LAUNCHES["hirschberg_base"] += 1
+        cuda_lib.LAUNCHES[name] += 1
     return ops, cnt, ok, dist
 
 
@@ -344,23 +362,38 @@ class _Task:
         self.pair, self.ia, self.ib, self.ja, self.jb = pair, ia, ib, ja, jb
 
 
-def align_pairs(pairs, *, device="cuda"):
+def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None):
     """pairs: [(q_codes, t_codes)] int numpy arrays -> [ops | None].
 
     ops are forward-ordered codes (0=M, 1=I, 2=D); None leaves the pair to
-    the host aligner (band escape or oversize)."""
+    the host aligner (band escape or oversize).
+
+    band_overrides: {pair index: K} runs those pairs under band K where K
+    is narrower than their flat bucket (``band_for``), with the exact
+    Ukkonen verify (ops/band.py): the pair's global distance must certify
+    that every optimal and co-optimal path lies strictly inside the band,
+    so that its ops equal the flat run's. A pair whose certificate fails
+    is aborted at its first round, gets None, and its index is added to
+    `hits` for the caller's verify-and-widen ladder."""
     device = torch.device(device)
     results: List[Optional[np.ndarray]] = [None] * len(pairs)
     segments: Dict[int, list] = {}
     bands = {}
+    verify = {}     # pair index -> (n, m, K, gdmin) of a banded pair
     active = []
     for idx, (q, t) in enumerate(pairs):
         n, m = len(q), len(t)
         K = band_for(n, m)
         if K == 0 or n == 0 or m == 0 or (n + 1) // 2 > ROW_BUCKETS[-1]:
             continue
+        kb = band_overrides.get(idx) if band_overrides else None
+        banded = kb is not None and kb < K
+        if banded:
+            K = int(kb)
         gdmin = int(min(0, m - n) - (K - 1 - abs(m - n)) // 2)
         bands[idx] = (K, gdmin)
+        if banded:
+            verify[idx] = (n, m, K, gdmin)
         segments[idx] = []
         active.append(_Task(idx, 0, n, 0, m))
 
@@ -371,10 +404,11 @@ def align_pairs(pairs, *, device="cuda"):
         if not big:
             break
         active = [t for t in active if (t.ib - t.ia) <= BASE_ROWS]
-        active.extend(_split_round(pairs, big, bands, failed, device))
+        active.extend(_split_round(pairs, big, bands, failed, device,
+                                   verify))
 
     base = [t for t in active if t.pair not in failed]
-    _solve_base(pairs, base, bands, segments, failed, device)
+    _solve_base(pairs, base, bands, segments, failed, device, verify)
 
     for idx, segs in segments.items():
         if idx in failed:
@@ -382,7 +416,21 @@ def align_pairs(pairs, *, device="cuda"):
         segs.sort(key=lambda s: s[0])
         results[idx] = np.concatenate([s[1] for s in segs]) if segs else \
             np.zeros(0, np.int32)
+    if hits is not None:
+        # a banded pair that fails is a hit: one whose certificate held
+        # cannot fail later, since it covers every co-optimal path
+        hits.update(idx for idx in failed if idx in verify)
     return results
+
+
+def _root_certified(t, verify, dist) -> bool:
+    """False where `t` is a banded pair's whole problem and its global
+    distance does not certify the band (ops/band.ukkonen_ok)."""
+    v = verify.get(t.pair)
+    if v is None or not (t.ia == 0 and t.ib == v[0] and t.ja == 0
+                         and t.jb == v[1]):
+        return True
+    return _band.ukkonen_ok(v[0], v[1], v[2], v[3], dist)
 
 
 def _task_arrays(pairs, tasks, bands, rcap, K, backward):
@@ -412,8 +460,10 @@ def _task_arrays(pairs, tasks, bands, rcap, K, backward):
     return scal, qs, ts
 
 
-def _split_round(pairs, tasks, bands, failed, device):
-    """One Hirschberg round: split every oversized task at its midpoint."""
+def _split_round(pairs, tasks, bands, failed, device, verify):
+    """One Hirschberg round: split every oversized task at its midpoint.
+    A banded pair's root task checks its certificate here: every path
+    crosses the midpoint row, so the least F + B is the global distance."""
     out = []
     by_bucket = {}
     for t in tasks:
@@ -450,7 +500,8 @@ def _split_round(pairs, tasks, bands, failed, device):
             bv[jmid[m]] = Bv[gi][m]
             tot = fv + bv
             jstar = int(np.argmin(tot))      # first optimal crossing
-            if tot[jstar] >= INF:
+            if tot[jstar] >= INF or not _root_certified(t, verify,
+                                                        int(tot[jstar])):
                 failed.add(t.pair)
                 continue
             jabs = t.ja + jstar
@@ -459,7 +510,9 @@ def _split_round(pairs, tasks, bands, failed, device):
     return out
 
 
-def _solve_base(pairs, tasks, bands, segments, failed, device):
+def _solve_base(pairs, tasks, bands, segments, failed, device, verify):
+    """The base case of every task; a banded pair that is one base task
+    checks its certificate on the kernel's terminal distance."""
     by_bucket = {}
     for t in tasks:
         by_bucket.setdefault(bands[t.pair][0], []).append(t)
@@ -479,41 +532,76 @@ def _solve_base(pairs, tasks, bands, segments, failed, device):
                 scal[bi] = (R, S, gdmin + t.ia - t.ja, 0)
                 qs[bi, :R] = q[t.ia:t.ib]
                 ts[bi, :S] = tt[t.ja:t.jb]
-            ops, cnt, ok, _ = (x.cpu().numpy() for x in base_case(
+            ops, cnt, ok, dist = (x.cpu().numpy() for x in base_case(
                 *tasks_to_tensors(scal, qs, ts, device), K))
             for bi, t in enumerate(part):
-                if not ok[bi]:
+                if not ok[bi] or not _root_certified(t, verify,
+                                                     int(dist[bi])):
                     failed.add(t.pair)
                     continue
                 seg = ops[bi, :cnt[bi]][::-1].astype(np.int32)
                 segments[t.pair].append((t.ia, seg))
 
 
-def run_jobs(pipeline, jobs, lengths, *, device="cuda") -> int:
+def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
+             band_slack: int = _band.DEFAULT_SLACK,
+             band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
+             stats: Optional[dict] = None) -> int:
     """Align pipeline jobs with the Hirschberg engine and install their
     CIGARs. Jobs are grouped by (band, first-round row bucket) into
     cohorts of at most COHORT jobs, so each cohort launches
     geometry-homogeneous kernel batches. Returns how many jobs the engine
-    served; band escapes stay CIGAR-less for the host aligner."""
+    served; band escapes stay CIGAR-less for the host aligner.
+
+    With `band`, a job whose Ukkonen plan (ops/band.py, `band_slack`)
+    beats its flat bucket starts on the narrower band, and its bucket key
+    is that band. Each cohort then runs until its ladder drains: a job
+    whose certificate fails widens (at most `band_max_widenings` times)
+    and is re-run with the cohort's other hits; a job past its last rung
+    is re-run flat, through the same kernels. `stats`, when given, gets
+    the ladder's counts (``band.COUNTS``)."""
+    if stats is None:
+        stats = _band.new_stats()
+    states = {}          # job -> band.BandState of a banded job
     buckets = {}
     for job in jobs:
         n, m = int(lengths[job, 0]), int(lengths[job, 1])
         K = band_for(n, m)
+        kb = (_band.plan_align_band(n, m, K, slack=band_slack)
+              if band and K else None)
+        if kb is not None:
+            states[job] = _band.BandState(kb)
         half = (max(n, 1) + 1) // 2
         rcap = next((rb for rb in ROW_BUCKETS if half <= rb), 0)
-        buckets.setdefault((K, rcap), []).append(job)
+        buckets.setdefault((kb or K, rcap), []).append(job)
+    stats["jobs"] += len(states)
 
     served = 0
     for _, items in sorted(buckets.items()):
         for off in range(0, len(items), COHORT):
             group = items[off:off + COHORT]
-            pairs = []
+            pairs = {}
             for job in group:
                 qa, ta = pipeline.align_job(job)
-                pairs.append((encode(qa), encode(ta)))
-            for job, ops in zip(group, align_pairs(pairs, device=device)):
-                if ops is None:
-                    continue
-                pipeline.set_job_cigar(job, ops_to_cigar(ops))
-                served += 1
+                pairs[job] = (encode(qa), encode(ta))
+            todo = group
+            while todo:
+                overrides = {bi: states[job].k for bi, job in enumerate(todo)
+                             if job in states and states[job].k is not None}
+                hits = set()
+                res = align_pairs([pairs[job] for job in todo], device=device,
+                                  band_overrides=overrides, hits=hits)
+                retry = []
+                for bi, (job, ops) in enumerate(zip(todo, res)):
+                    if bi in hits:
+                        n, m = int(lengths[job, 0]), int(lengths[job, 1])
+                        states[job].widen(n, m, band_for(n, m), stats,
+                                          band_max_widenings, band_slack)
+                        retry.append(job)
+                        continue
+                    if ops is None:
+                        continue
+                    pipeline.set_job_cigar(job, ops_to_cigar(ops))
+                    served += 1
+                todo = retry
     return served

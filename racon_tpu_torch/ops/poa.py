@@ -36,6 +36,7 @@ import torch
 from .colstep import n_column_steps
 
 NEG = -(1 << 28)
+VSLOT = 15        # move records: the pred slot of the virtual start row
 _F = np.float32
 
 
@@ -86,7 +87,9 @@ def _rank_order(key: np.ndarray, nodes: np.ndarray) -> np.ndarray:
 
 def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
                wts: np.ndarray, L: int, begin: int, end: int, bb_len: int,
-               stats: Optional[dict], colstep: bool) -> None:
+               stats: Optional[dict], colstep: bool, wband: int = 0) -> bool:
+    """Fold one layer into the graph; returns the layer's band hit (always
+    False at wband = 0, the flat DP)."""
     N, E, ML = cfg.max_nodes, cfg.max_edges, cfg.max_len
     gp, ma, mm = cfg.gap, cfg.match, cfg.mismatch
     offset = int(_F(0.01) * _F(bb_len))
@@ -108,25 +111,30 @@ def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
     H = torch.full((N + 1, L + 1), NEG, dtype=torch.int32)
     H[0] = jg
     seq_l = seq[:L].to(torch.int32)
+    band = _Band(cfg, g, order, sub, L, begin, wband) if wband > 0 \
+        else None
+    Hn, sq = H.numpy(), seq.numpy()
     for u in order:
+        if band is not None:
+            band.row(Hn, u, sq[:L])
+            continue
         srcs = g.src[u]
+        sc = torch.where(seq_l == int(g.base[u]), ma, mm).to(torch.int32)
         vs = srcs[(srcs >= 0)]
         vs = vs[sub[vs]]
         if len(vs):
             P = H[torch.from_numpy(vs + 1).long()].amax(dim=0)
         else:
             P = H[0]
-        sc = torch.where(seq_l == int(g.base[u]), ma, mm).to(torch.int32)
         V = P + gp
         V[1:] = torch.maximum(V[1:], P[:-1] + sc)
         H[u + 1] = torch.cummax(V - jg, dim=0).values + jg
     if stats is not None:
-        stats["cells"] = stats.get("cells", 0) + n_sub * (L + 1)
+        cells = band.cells if band is not None else n_sub * (L + 1)
+        stats["cells"] = stats.get("cells", 0) + cells
         steps = n_column_steps(g.key[order]) if colstep else n_sub
         stats["steps"] = stats.get("steps", 0) + steps
         stats["rows"] = stats.get("rows", 0) + n_sub
-    Hn = H.numpy()
-    sq = seq.numpy()
 
     # --- traceback from the first best end node in rank order
     has_out = np.zeros(N, dtype=bool)
@@ -139,34 +147,30 @@ def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
         if best is None or s > best:
             best, start_u = s, u
     pos_node = np.full(L, -1, dtype=np.int64)
+    hit = False
+    if band is not None:
+        start_u, hit = band.end_pick(start_u, best, L)
     u, j, steps = int(start_u), L, 0
     limit = N + ML + 2
-    while not (u == -1 and j == 0) and steps < limit:
+    walk = band is None or n_sub > 0     # an empty banded subgraph fails
+    while walk and not (u == -1 and j == 0) and steps < limit:
         steps += 1
         if u == -1:                  # virtual row: only left moves
             j -= 1
             continue
-        cur = Hn[u + 1, j]
-        jm1 = max(j - 1, 0)
-        sc = ma if int(sq[jm1]) == int(g.base[u]) else mm
-        diag_pred = up_pred = -1
-        any_valid = any_diag = any_up = False
-        for s in g.src[u]:
-            if s < 0 or not sub[s]:
-                continue
-            any_valid = True
-            if not any_diag and j > 0 and Hn[s + 1, jm1] + sc == cur:
-                any_diag, diag_pred = True, int(s)
-            if not any_up and Hn[s + 1, j] + gp == cur:
-                any_up, up_pred = True, int(s)
-        if not any_valid:
-            any_diag = j > 0 and jm1 * gp + sc == cur
-            any_up = j * gp + gp == cur
-        if any_diag:                 # priority diag > up > left
+        if band is not None:
+            hit |= band.near(u, j)
+        if band is None or u in band.stale:
+            move, prd = _rederive(cfg, g, Hn, sub, sq, u, j)
+        else:
+            move, prd = band.move(u, j)
+        if move == 0:                # position j-1 matches u
+            if j == 0:               # the banded DP's diagonal off column 0
+                break
             pos_node[j - 1] = u
-            u, j = diag_pred, j - 1
-        elif any_up:
-            u = up_pred
+            u, j = prd, j - 1
+        elif move == 1:
+            u = prd
         else:
             j -= 1
         if j < 0:                    # unreachable for an exact H
@@ -175,6 +179,133 @@ def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
         g.failed = True
 
     _update_graph(cfg, g, pos_node, sq, wts, L)
+    return hit
+
+
+def _rederive(cfg: PoaConfig, g: _Graph, Hn: np.ndarray, sub: np.ndarray,
+              sq: np.ndarray, u: int, j: int):
+    """The move at (u, j), re-derived from the finished rows of H: the
+    diagonal before up, each through the first slot whose row attains the
+    cell, else left. Returns (move, predecessor)."""
+    gp, ma, mm = cfg.gap, cfg.match, cfg.mismatch
+    cur = Hn[u + 1, j]
+    jm1 = max(j - 1, 0)
+    sc = ma if int(sq[jm1]) == int(g.base[u]) else mm
+    diag_pred = up_pred = -1
+    any_valid = any_diag = any_up = False
+    for s in g.src[u]:
+        if s < 0 or not sub[s]:
+            continue
+        any_valid = True
+        if not any_diag and j > 0 and Hn[s + 1, jm1] + sc == cur:
+            any_diag, diag_pred = True, int(s)
+        if not any_up and Hn[s + 1, j] + gp == cur:
+            any_up, up_pred = True, int(s)
+    if not any_valid:
+        any_diag = j > 0 and jm1 * gp + sc == cur
+        any_up = j * gp + gp == cur
+    if any_diag:                     # priority diag > up > left
+        return 0, diag_pred
+    if any_up:
+        return 1, up_pred
+    return 2, -1
+
+
+class _Band:
+    """One layer's banded DP (wband > 0), as the v2 Pallas kernel's banded
+    build runs it (racon_tpu/ops/poa_pallas.py, band=True):
+
+    * node u's row is masked to NEG at the columns j with
+      ``|j - cexp| > wband``, where ``cexp = int(float32(key[u]) + 0.5) -
+      begin`` (truncated, as int32 casts do), after its in-row gap pass;
+    * every cell records its move as the kernel does (diagonal before up
+      on ties, left only where strictly better, the first slot whose row
+      exceeds NEG, else the virtual row), and the traceback follows the
+      records, since near the band edge they differ from what H re-derives;
+      column 0's diagonal is NEG + mismatch, so a row whose predecessors
+      are masked there records it and the walk fails off column 0;
+    * a row that reads a predecessor not yet computed (float32 keys equal
+      along an edge) re-derives its moves from H, as the CUDA kernel does;
+    * band_hit: the best end score's deficit below match x L exceeds
+      ``2 |gap| max(wband // 2, 1)``, or the walk comes within one cell of
+      the band edge (``|j - cexp| >= wband - 1``) off the virtual row; an
+      end score no better than NEG starts the walk on the virtual row.
+
+    ``cells`` counts the cells the band admits (the DP's work)."""
+
+    def __init__(self, cfg, g, order, sub, L, begin, wband):
+        self.cfg, self.g, self.sub = cfg, g, sub
+        self.jj = np.arange(L + 1, dtype=np.int32)
+        self.jg = self.jj * np.int32(cfg.gap)
+        self.begin, self.w = begin, wband
+        self.MV = np.zeros((cfg.max_nodes + 1, L + 1), dtype=np.int32)
+        self.rank = np.full(cfg.max_nodes, cfg.max_nodes, dtype=np.int64)
+        self.rank[order] = np.arange(len(order))
+        self.stale = set()
+        self.cells = 0
+
+    def center(self, u) -> int:
+        return int(self.g.key[u] + _F(0.5)) - self.begin
+
+    def row(self, Hn, u, seq):
+        """Node u's banded row into Hn[u + 1] (numpy, in place) and its
+        move records; `seq` is the layer's L codes."""
+        cfg, g = self.cfg, self.g
+        L1 = len(self.jj)
+        srcs = g.src[u]
+        e = np.nonzero(srcs >= 0)[0]
+        e = e[self.sub[srcs[e]]]
+        done = e[self.rank[srcs[e]] < self.rank[u]]
+        if len(done) < len(e):
+            self.stale.add(int(u))           # a predecessor not computed yet
+        if not len(e):
+            P = Hn[0].copy()
+            S = np.full(L1, VSLOT, dtype=np.int32)
+        elif not len(done):
+            P = np.full(L1, NEG, dtype=np.int32)
+            S = np.full(L1, VSLOT, dtype=np.int32)
+        else:
+            # each column: the first slot attaining the max, where the
+            # max exceeds NEG (the kernels' strict update from NEG)
+            rows = Hn[srcs[done] + 1]
+            first = rows.argmax(axis=0)
+            mx = rows[first, self.jj]
+            S = np.where(mx > NEG, done[first], VSLOT).astype(np.int32)
+            P = np.maximum(mx, NEG)
+        sc = np.where(seq == g.base[u], cfg.match, cfg.mismatch)
+        diag = np.empty(L1, dtype=np.int32)
+        diag[0] = NEG + cfg.mismatch
+        diag[1:] = P[:-1] + sc
+        Ssh = np.empty(L1, dtype=np.int32)
+        Ssh[0] = VSLOT
+        Ssh[1:] = S[:-1]
+        up = P + np.int32(cfg.gap)
+        choose_diag = diag >= up
+        V = np.where(choose_diag, diag, up)
+        vmove = np.where(choose_diag, 4 * Ssh, 1 + 4 * S)
+        row = np.maximum.accumulate(V - self.jg) + self.jg
+        off = np.abs(self.jj - self.center(u)) > self.w
+        row[off] = NEG
+        self.MV[u + 1] = np.where(row > V, 2, vmove)
+        self.cells += L1 - int(off.sum())
+        Hn[u + 1] = row
+
+    def end_pick(self, start_u, best, L):
+        cfg = self.cfg
+        best_s = NEG if best is None else max(int(best), NEG)
+        hit = cfg.match * L - best_s > 2 * (-cfg.gap) * max(self.w // 2, 1)
+        if best is not None and best_s <= NEG:
+            start_u = -1
+        return start_u, bool(hit)
+
+    def near(self, u, j) -> bool:
+        return abs(j - self.center(u)) >= self.w - 1
+
+    def move(self, u, j):
+        mv = int(self.MV[u + 1, j])
+        slot = mv >> 2
+        prd = -1 if slot == VSLOT else int(self.g.src[u, slot])
+        return mv & 3, prd
 
 
 def _update_graph(cfg: PoaConfig, g: _Graph, pos_node: np.ndarray,
@@ -291,52 +422,61 @@ def _consensus(cfg: PoaConfig, g: _Graph):
 
 def polish_window(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
                   begins, ends, stats: Optional[dict] = None,
-                  colstep: bool = True):
+                  colstep: bool = True, wband: int = 0):
     """One window: init graph, fold in layers, consensus. CPU tensors in;
-    (cons_base, cons_cov, cons_len, failed, n_nodes) out."""
+    (cons_base, cons_cov, cons_len, failed, n_nodes, band_hit) out, where
+    band_hit ORs the layers' hits under half-band `wband` (0: flat)."""
     bl = int(bb_len)
     g = _Graph(cfg, bb, bbw, bl)
     ln, bg, en = lens.tolist(), begins.tolist(), ends.tolist()
+    hit = False
     for li in range(int(n_layers)):
         L = ln[li]
         if L <= 0 or g.failed:
             continue
-        _add_layer(cfg, g, seqs[li], ws[li].numpy(), L, bg[li], en[li], bl,
-                   stats, colstep)
+        hit |= _add_layer(cfg, g, seqs[li], ws[li].numpy(), L, bg[li],
+                          en[li], bl, stats, colstep, wband)
     cb, cc, cl = _consensus(cfg, g)
-    return cb, cc, cl, g.failed, g.n
+    return cb, cc, cl, g.failed, g.n, hit
 
 
 def poa_batch_plain(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
                     lens, begins, ends, stats: Optional[dict] = None,
-                    colstep: bool = True):
+                    colstep: bool = True, wband=None):
     """Batched POA on the CPU: the same nine arrays, in the same order, as
     the kernels take; returns (cons_base i32[B,N], cons_cov i32[B,N],
     cons_len i32[B], failed bool[B], n_nodes i32[B]) on the CPU.
 
-    `stats`, when given, accumulates the DP cells ("cells") and DP rows
-    ("rows": subgraph nodes summed over the layers) that the run needed,
-    and the serial DP iterations ("steps") of the v2 kernel's loop over
-    each layer's subgraph: ``n_column_steps`` of its rank-ordered keys
-    with `colstep`, its node count without. The outputs do not depend on
-    `colstep`."""
+    `wband`, when given (i32[B], the banded build's input), runs each
+    window's DP under its half band (0: flat, exactly the flat outputs)
+    and appends band_hit bool[B] to the outputs.
+
+    `stats`, when given, accumulates the DP cells ("cells": those the band
+    admits, every cell where wband is 0) and DP rows ("rows": subgraph
+    nodes summed over the layers) that the run needed, and the serial DP
+    iterations ("steps") of the v2 kernel's loop over each layer's
+    subgraph: ``n_column_steps`` of its rank-ordered keys with `colstep`,
+    its node count without. The outputs do not depend on `colstep`."""
     args = [t.cpu().contiguous() for t in (bb, bbw, bb_len, n_layers, seqs,
                                             ws, lens, begins, ends)]
     bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends = args
     B, N = bb.shape[0], cfg.max_nodes
+    wb = [0] * B if wband is None else wband.cpu().tolist()
     cons_base = torch.empty((B, N), dtype=torch.int32)
     cons_cov = torch.empty((B, N), dtype=torch.int32)
     cons_len = torch.empty(B, dtype=torch.int32)
     failed = torch.empty(B, dtype=torch.bool)
     n_nodes = torch.empty(B, dtype=torch.int32)
+    band_hit = torch.empty(B, dtype=torch.bool)
     for b in range(B):
-        cb, cc, cl, fl, nn = polish_window(
+        cb, cc, cl, fl, nn, hit = polish_window(
             cfg, bb[b], bbw[b], bb_len[b], n_layers[b], seqs[b], ws[b],
-            lens[b], begins[b], ends[b], stats, colstep)
+            lens[b], begins[b], ends[b], stats, colstep, wb[b])
         cons_base[b] = torch.from_numpy(cb)
         cons_cov[b] = torch.from_numpy(cc)
-        cons_len[b], failed[b], n_nodes[b] = cl, fl, nn
-    return cons_base, cons_cov, cons_len, failed, n_nodes
+        cons_len[b], failed[b], n_nodes[b], band_hit[b] = cl, fl, nn, hit
+    outs = (cons_base, cons_cov, cons_len, failed, n_nodes)
+    return outs if wband is None else outs + (band_hit,)
 
 
 def batch_to_tensors(packed, device) -> tuple:

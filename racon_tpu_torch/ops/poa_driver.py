@@ -3,8 +3,8 @@ a POA kernel, trims and installs the results, and re-polishes on the
 host every window the kernel flags ``failed``.
 
 A copy of the JAX package's driver (racon_tpu/ops/poa_driver.py) reduced
-to one path: no journal, no sanitizer, no band ladder, no sharding, and no
-lattice. The kernel is an argument, ``poa_kernel``: "v2"
+to one path: no journal, no sanitizer, no sharding, and no lattice. The
+kernel is an argument, ``poa_kernel``: "v2"
 (ops/poa_v2_cuda.py, the default since it beat ls by more than 10% on
 every depth bucket on the card) or "ls" (ops/poa_cuda.py, the JAX
 package's default); both compute one function, and neither steps down to
@@ -12,6 +12,15 @@ the other. Both keep H in global memory and fit every window class up to
 -w 1280 (max_len <= 2047), v2 by planning its shared memory per launch
 (poa_v2_cuda.plan), so neither depth nor window class keeps a window off
 the card.
+
+With ``band`` (the JAX package's ``RACON_TPU_BAND``; v2 only, since the ls
+kernel has no banded build yet) every batch runs v2's banded build: each
+window gets the half band of its worst layer's length delta plus
+``band_slack`` (ops/band.py), or 0 (flat) where that band would not be
+much narrower than the DP row. A window whose kernel run sets band_hit,
+or fails, under a band is re-run at twice the band, at most
+``band_max_widenings`` times and below ``max_len // 2``, then at 0,
+through the same build; only a failure at 0 goes to the host.
 """
 
 from __future__ import annotations
@@ -22,6 +31,7 @@ from typing import List
 import numpy as np
 import torch
 
+from . import band as _band
 from . import poa
 from .encoding import decode, encode
 from .poa_cuda import poa_consensus
@@ -67,32 +77,55 @@ def tgs_trim(codes: np.ndarray, cov: np.ndarray, n_seqs: int):
     return codes[begin:end + 1]
 
 
-def kernel_for(poa_kernel: str):
+def kernel_for(poa_kernel: str, band: bool = False):
     """The POA wrapper for a kernel name, looked up in this module when
-    called (so a caller may wrap it here)."""
+    called (so a caller may wrap it here). `band` needs v2: the ls
+    kernel's banded build is not ported yet."""
     if poa_kernel not in POA_KERNELS:
         raise ValueError(f"poa_kernel must be 'ls' or 'v2', got "
                          f"{poa_kernel!r}")
+    if band and poa_kernel != "v2":
+        raise NotImplementedError(
+            "band=True runs the v2 POA kernel's banded build; the ls "
+            "kernel's banded build is not ported yet (ROADMAP queue 1)")
     return poa_consensus if poa_kernel == "ls" else poa_consensus_v2
+
+
+def initial_poa_band(wx, keep, cfg: poa.PoaConfig, slack: int):
+    """w0 (half band) for a window: the worst admitted layer's length less
+    its span, plus the slack; None (flat) where the band would not be
+    much narrower than the DP row."""
+    if not keep:
+        return None
+    delta = max(abs(int(wx.lens[j]) - (int(wx.ends[j]) - int(wx.begins[j])))
+                for j in keep)
+    w0 = delta + max(0, slack)
+    return w0 if 2 * w0 + 1 < cfg.max_len // 2 else None
 
 
 def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
                         trim: bool, device="cuda", batch_windows: int = 256,
-                        poa_kernel: str = DEFAULT_POA_KERNEL) -> dict:
+                        poa_kernel: str = DEFAULT_POA_KERNEL,
+                        band: bool = False,
+                        band_slack: int = _band.DEFAULT_SLACK,
+                        band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS
+                        ) -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
-    `poa_kernel` ("v2", the default, or "ls") picks the kernel.
+    `poa_kernel` ("v2", the default, or "ls") picks the kernel; `band`
+    runs v2's banded build with its widening ladder (module note).
 
     Returns {device, host_fallback, backbone, failed, layers_dropped,
-    batches, host_seconds}: windows served by the kernel, re-polished on
-    the host, passed through as backbone, flagged failed by the kernel,
-    layers dropped at admission, kernel batches run, and the wall time of
-    the host re-polish."""
+    batches, host_seconds, band}: windows served by the kernel,
+    re-polished on the host, passed through as backbone, flagged failed by
+    the kernel (at wband 0), layers dropped at admission, kernel batches
+    run (re-runs included), the wall time of the host re-polish, and the
+    ladder's counts (ops/band.py; all 0 without `band`)."""
     device = torch.device(device)
-    kernel_for(poa_kernel)
+    kernel_for(poa_kernel, band)
     n = pipeline.num_windows()
     stats = {"device": 0, "host_fallback": 0, "backbone": 0, "failed": 0,
-             "layers_dropped": 0, "batches": 0}
+             "layers_dropped": 0, "batches": 0, "band": _band.new_stats()}
     fallback: List[int] = []
 
     # Metadata pass: depth buckets, no layer bytes touched.
@@ -124,11 +157,28 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
             chunk = _export_chunk(pipeline, idxs, cfg, fallback, stats)
             if not chunk:
                 continue
-            packed = _pack(chunk, cfg)
-            outs = kernel_for(poa_kernel)(
-                cfg, *poa.batch_to_tensors(packed, device))
-            stats["batches"] += 1
-            _install(pipeline, chunk, _unpack(outs), trim, stats, fallback)
+            if not band:
+                outs = kernel_for(poa_kernel)(
+                    cfg, *poa.batch_to_tensors(_pack(chunk, cfg), device))
+                stats["batches"] += 1
+                _install(pipeline, chunk, _unpack(outs), trim, stats,
+                         fallback)
+                continue
+            states = {}
+            for i, wx, keep in chunk:
+                states[i] = _band.BandState(
+                    initial_poa_band(wx, keep, cfg, band_slack))
+                stats["band"]["jobs"] += bool(states[i].k)
+            while chunk:   # the ladder: re-run the hits until none is left
+                packed = _pack(chunk, cfg,
+                               [states[i].k or 0 for i, _, _ in chunk])
+                outs = poa_consensus_v2(
+                    cfg, *poa.batch_to_tensors(packed, device),
+                    wband=torch.from_numpy(packed[9]).to(device))
+                stats["batches"] += 1
+                chunk = _install(pipeline, chunk, _unpack(outs), trim, stats,
+                                 fallback, states, cfg.max_len // 2,
+                                 band_max_widenings)
 
     t0 = time.perf_counter()
     for i in fallback:
@@ -157,9 +207,10 @@ def _export_chunk(pipeline, idxs, cfg, fallback, stats):
     return chunk
 
 
-def _pack(chunk, cfg):
+def _pack(chunk, cfg, widths=None):
     """Numpy batch of the chunk's windows in the kernel's layout: the
-    JAX package's 10-tuple, the trailing per-window band row all zero."""
+    JAX package's 10-tuple, the trailing row each window's half band
+    (`widths`, else 0)."""
     B = len(chunk)
     bb = np.zeros((B, cfg.max_backbone), dtype=np.uint8)
     bbw = np.zeros((B, cfg.max_backbone), dtype=np.int32)
@@ -171,6 +222,8 @@ def _pack(chunk, cfg):
     begins = np.zeros((B, cfg.depth), dtype=np.int32)
     ends = np.zeros((B, cfg.depth), dtype=np.int32)
     wband = np.zeros(B, dtype=np.int32)
+    if widths is not None:
+        wband[:] = widths
 
     for bi, (i, wx, keep) in enumerate(chunk):
         L = len(wx.backbone)
@@ -201,13 +254,24 @@ def _pack(chunk, cfg):
 
 def _unpack(outs):
     """Kernel outputs -> host numpy (cons_base, cons_cov, cons_len,
-    failed)."""
-    return tuple(t.cpu().numpy() for t in outs[:4])
+    failed, and band_hit from the banded build)."""
+    return tuple(t.cpu().numpy() for t in outs[:4] + outs[5:])
 
 
-def _install(pipeline, chunk, results, trim, stats, fallback):
-    cons_base, cons_cov, cons_len, failed = results
+def _install(pipeline, chunk, results, trim, stats, fallback, states=None,
+             band_cap=0, max_widenings=_band.DEFAULT_MAX_WIDENINGS):
+    """Installs the chunk's consensus; a failed window goes to the host.
+    With band `states`, a window run under a band that hit or failed
+    widens instead; returns those windows, to be re-run."""
+    cons_base, cons_cov, cons_len, failed = results[:4]
+    retry = []
     for bi, (i, wx, keep) in enumerate(chunk):
+        st = states.get(i) if states else None
+        if st is not None and st.k:
+            if results[4][bi] or failed[bi]:
+                st.widen_width(band_cap, stats["band"], max_widenings)
+                retry.append((i, wx, keep))
+                continue
         if failed[bi]:
             fallback.append(i)
             stats["failed"] += 1
@@ -221,3 +285,4 @@ def _install(pipeline, chunk, results, trim, stats, fallback):
             codes = tgs_trim(codes, cons_cov[bi, :cl], len(keep) + 1)
         pipeline.set_consensus(i, decode(codes), True)
         stats["device"] += 1
+    return retry

@@ -21,6 +21,12 @@ parallel and merges the layer's new nodes into the order in one pass; the
 traceback fetches two steps' move records per trip to memory. H, the move
 bytes and the edge weights live in a global scratch allocated here.
 
+The banded build (``wband=``) replaces the Pallas kernel's ``band=True``
+build (racon_tpu/ops/poa_pallas.py:73): each window's
+DP runs under its half band ``wband`` (0: the flat DP, bit for bit), and
+the window's ``band_hit`` comes out beside the five outputs. It computes
+every column, as the Pallas build does, and masks the rest.
+
 The graph grows with the window, so each launch plans its shared memory
 (``plan``): a ring of 8 rows at -w 500, fewer rows for larger windows
 (2 at -w 1280, the largest that ``max_len <= 2047`` admits), and the
@@ -59,18 +65,18 @@ def _lib():
         lib.rt_poa_v2_scratch_words.restype = ctypes.c_longlong
         lib.rt_poa_v2_scratch_words.argtypes = [ci, ci, ci]
         lib.rt_poa_v2_launch.restype = ci
-        lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 18 + [ci, vp]
+        lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 20 + [ci, vp]
         lib.rt_poa_v2_plan.restype = ci
         lib.rt_poa_v2_plan.argtypes = [ci, ci, ci, vp]
         _LIB = lib
     return _LIB
 
 
-def occupancy(cfg: PoaConfig) -> dict:
+def occupancy(cfg: PoaConfig, band: bool = False) -> dict:
     """The kernel's registers, spill bytes, shared bytes and blocks per
-    SM at cfg's geometry (needs the card)."""
+    SM at cfg's geometry, flat or banded build (needs the card)."""
     return cuda_lib.occupancy(_lib().rt_poa_v2_occupancy,
-                              (cfg.max_nodes, cfg.max_len),
+                              (cfg.max_nodes, cfg.max_len, int(band)),
                               cuda_lib.POA_OCCUPANCY, "v2 POA kernel")
 
 
@@ -93,11 +99,13 @@ def plan(cfg: PoaConfig) -> dict:
 
 def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
                      lens, begins, ends, *, colstep: bool = True,
-                     stats: Optional[dict] = None):
+                     stats: Optional[dict] = None, wband=None):
     """Batched POA: (cons_base i32[B,N], cons_cov i32[B,N], cons_len
     i32[B], failed bool[B], n_nodes i32[B]) on the inputs' device.
 
-    Inputs as ``poa.batch_to_tensors`` makes them. `colstep` pairs
+    Inputs as ``poa.batch_to_tensors`` makes them. `wband`, an i32[B]
+    tensor of half bands (0: flat), runs the banded build and appends
+    band_hit bool[B] to the outputs. `colstep` pairs
     same-column ranks per serial DP iteration; the outputs do not depend
     on it. `stats`, when given, accumulates the DP cells ("cells") and
     the serial DP iterations ("steps") the batch needed, as the plain
@@ -108,9 +116,12 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     the largest window's ("phase_cycles_max")."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
-        return poa_batch_plain(cfg, *args, stats=stats, colstep=colstep)
+        return poa_batch_plain(cfg, *args, stats=stats, colstep=colstep,
+                               wband=wband)
     dev = bb.device
     B = check_inputs(cfg, args, dev)
+    if wband is not None:
+        cuda_lib.require(wband, "wband", torch.int32, (B,), dev)
     if cfg.max_edges > VSLOT:
         raise ValueError(f"v2 POA kernel takes max_edges <= {VSLOT}, got "
                          f"{cfg.max_edges}")
@@ -124,26 +135,31 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     cons_len = torch.empty(B, dtype=torch.int32, device=dev)
     failed = torch.empty(B, dtype=torch.bool, device=dev)
     n_nodes = torch.empty(B, dtype=torch.int32, device=dev)
+    outs = (cons_base, cons_cov, cons_len, failed, n_nodes)
+    if wband is not None:
+        outs += (torch.empty(B, dtype=torch.bool, device=dev),)
     if B == 0:
-        return cons_base, cons_cov, cons_len, failed, n_nodes
+        return outs
     lib = _lib()
     per = lib.rt_poa_v2_scratch_words(N, cfg.max_len, cfg.max_edges)
     scratch = torch.empty((B, per), dtype=torch.int32, device=dev)
     counts = None if stats is None else torch.empty(
         (2 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
-    with cuda_lib.launch_events("poa_consensus_v2", bb):
+    name = "poa_consensus_v2" if wband is None else "poa_consensus_v2_band"
+    with cuda_lib.launch_events(name, bb):
         err = lib.rt_poa_v2_launch(
             N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
             cfg.match, cfg.mismatch, cfg.gap, int(colstep),
-            *(p(t) for t in args),
+            *(p(t) for t in args), None if wband is None else p(wband),
             p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
+            None if wband is None else p(outs[5]),
             None if counts is None else p(counts[0]),
             None if counts is None else p(counts[1]),
             None if counts is None else p(counts[2]), p(scratch), B,
             cuda_lib.stream_of(bb))
     cuda_lib.check(err, "v2 POA consensus kernel")
-    cuda_lib.LAUNCHES["poa_consensus_v2"] += 1
+    cuda_lib.LAUNCHES[name] += 1
     if counts is not None:
         sums = counts.sum(dim=1).tolist()
         peaks = counts[2:].max(dim=1).values.tolist()
@@ -153,4 +169,4 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
         stats["phase_cycles"] = [a + b for a, b in zip(old, sums[2:])]
         old = stats.get("phase_cycles_max", [0] * len(PHASES))
         stats["phase_cycles_max"] = [max(a, b) for a, b in zip(old, peaks)]
-    return cons_base, cons_cov, cons_len, failed, n_nodes
+    return outs

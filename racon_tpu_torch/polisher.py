@@ -16,6 +16,7 @@ from typing import List, Tuple
 
 import torch
 
+from .ops import band as _band
 from .ops.align_driver import run_alignment_phase
 from .ops.poa_driver import (DEFAULT_POA_KERNEL, kernel_for,
                               run_consensus_phase)
@@ -39,21 +40,31 @@ class TorchPolisher:
     ``device`` is where the kernels run ("cuda", the default, or "cpu"
     for the plain PyTorch versions); ``batch_windows`` is the POA batch
     in windows; ``poa_kernel`` picks the POA kernel ("v2", the default,
-    or "ls"; both compute the same consensus). The other keyword
-    arguments are racon's (window_length, quality_threshold,
-    error_threshold, trim, match, mismatch, gap, fragment_correction,
-    num_threads).
+    or "ls"; both compute the same consensus). ``band`` runs the banded
+    DP on both phases (the JAX package's ``RACON_TPU_BAND``; ops/band.py):
+    each job and window starts on the band of its length delta plus
+    ``band_slack`` and widens at most ``band_max_widenings`` times before
+    it runs flat; the output is the flat run's. It needs the v2 POA
+    kernel. The other keyword arguments are racon's (window_length,
+    quality_threshold, error_threshold, trim, match, mismatch, gap,
+    fragment_correction, num_threads).
 
     After polish(), ``stats`` holds each phase's wall seconds and served
-    counts."""
+    counts, with the ladder's counts in ``stats["align"]["band"]`` and
+    ``stats["consensus"]["band"]``."""
 
     def __init__(self, sequences: str, overlaps: str, target: str, *,
                  device="cuda", batch_windows: int = 256,
-                 poa_kernel: str = DEFAULT_POA_KERNEL, **racon_kwargs):
+                 poa_kernel: str = DEFAULT_POA_KERNEL, band: bool = False,
+                 band_slack: int = _band.DEFAULT_SLACK,
+                 band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
+                 **racon_kwargs):
         self.device = _resolve_device(device)
-        kernel_for(poa_kernel)
+        kernel_for(poa_kernel, band)
         self.batch_windows = batch_windows
         self.poa_kernel = poa_kernel
+        self.band = dict(band=band, band_slack=band_slack,
+                         band_max_widenings=band_max_widenings)
         self._kwargs = dict(racon_kwargs)
         self._pipeline = Pipeline(sequences, overlaps, target,
                                   **racon_kwargs)
@@ -72,7 +83,8 @@ class TorchPolisher:
         pl = self._pipeline
         self._timed("parse", pl.prepare)
         self.stats["align"] = self._timed(
-            "align", run_alignment_phase, pl, device=self.device)
+            "align", run_alignment_phase, pl, device=self.device,
+            **self.band)
         self._timed("windows", pl.build_windows)
 
     def polish(self, drop_unpolished: bool = True) -> List[Tuple[str, str]]:
@@ -83,7 +95,7 @@ class TorchPolisher:
             match=kw.get("match", 3), mismatch=kw.get("mismatch", -5),
             gap=kw.get("gap", -4), trim=kw.get("trim", True),
             device=self.device, batch_windows=self.batch_windows,
-            poa_kernel=self.poa_kernel)
+            poa_kernel=self.poa_kernel, **self.band)
         return self._timed("stitch", self._pipeline.stitch, drop_unpolished)
 
 

@@ -149,30 +149,66 @@ def align_pairs(seed: int, count: int, lo: int, hi: int, rate=(0.02, 0.18)):
     return out
 
 
-def _plain_poa_part(cfg, arrays):
+def band_batch(cfg: PoaConfig, B: int, seed: int, roll: int = 0):
+    """B windows of a random backbone of max_backbone / 2 bases and depth
+    full-span layers, each the backbone with 3 substitutions; `roll`
+    rotates each layer's bases after its 10th by that many places, so the
+    layers drift off the backbone's diagonal (a narrow band hits there).
+    The JAX package's banded POA fixture (tests/test_band.py _poa_batch),
+    as ``poa_batch`` returns it (nine arrays and a trailing None)."""
+    rng = np.random.default_rng(seed)
+    L = cfg.max_backbone // 2
+    bb = np.zeros((B, cfg.max_backbone), np.uint8)
+    bbw = np.zeros((B, cfg.max_backbone), np.int32)
+    bl = np.full(B, L, np.int32)
+    nl = np.full(B, cfg.depth, np.int32)
+    seqs = np.zeros((B, cfg.depth, cfg.max_len), np.uint8)
+    ws = np.zeros((B, cfg.depth, cfg.max_len), np.int32)
+    lens = np.full((B, cfg.depth), L, np.int32)
+    bg = np.zeros((B, cfg.depth), np.int32)
+    en = np.full((B, cfg.depth), L - 1, np.int32)
+    for b in range(B):
+        truth = rng.integers(0, 4, L).astype(np.uint8)
+        bb[b, :L] = truth
+        for li in range(cfg.depth):
+            layer = truth.copy()
+            pos = rng.integers(0, L, 3)
+            layer[pos] = (layer[pos] + 1) % 4
+            if roll:
+                layer[10:] = np.roll(layer[10:], roll)
+            seqs[b, li, :L] = layer
+            ws[b, li, :L] = 1
+    return bb, bbw, bl, nl, seqs, ws, lens, bg, en, None
+
+
+def _plain_poa_part(cfg, arrays, wband=None):
     """One process's share of the plain POA run: numpy in, numpy out."""
     import torch
 
     torch.set_num_threads(1)
     stats = {"cells": 0, "steps": 0, "rows": 0}
-    outs = poa.poa_batch_plain(cfg, *(torch.from_numpy(a) for a in arrays),
-                               stats=stats, colstep=True)
+    outs = poa.poa_batch_plain(
+        cfg, *(torch.from_numpy(a) for a in arrays), stats=stats,
+        colstep=True, wband=None if wband is None else torch.from_numpy(wband))
     return [o.numpy() for o in outs], stats
 
 
 def plain_poa_parallel(batches, procs: int):
-    """The plain POA version on the host for [(cfg, tensors)], each
-    batch's windows split over `procs` processes (the plain version loops
-    over windows in Python). Returns [(outputs, stats)]: the stats hold
-    the DP cells, the DP rows and the colstep steps."""
+    """The plain POA version on the host for [(cfg, tensors)] or [(cfg,
+    tensors, wband)] (the banded build's half bands, i32[B]), each batch's
+    windows split over `procs` processes (the plain version loops over
+    windows in Python). Returns [(outputs, stats)]: the stats hold the DP
+    cells, the DP rows and the colstep steps."""
     import torch
 
     jobs, spans = [], []
-    for cfg, dev_in in batches:
+    for cfg, dev_in, *wband in batches:
         host = [t.cpu().numpy() for t in dev_in]
+        wb = wband[0].cpu().numpy() if wband else None
         cuts = np.linspace(0, host[0].shape[0], procs + 1).astype(int)
         spans.append((len(jobs), procs))
-        jobs += [(cfg, [a[lo:hi] for a in host])
+        jobs += [(cfg, [a[lo:hi] for a in host],
+                  None if wb is None else wb[lo:hi])
                  for lo, hi in zip(cuts[:-1], cuts[1:])]
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(procs, mp_context=ctx) as ex:
@@ -180,7 +216,8 @@ def plain_poa_parallel(batches, procs: int):
     res = []
     for first, n in spans:
         mine = parts[first:first + n]
-        outs = [np.concatenate([p[0][k] for p in mine]) for k in range(5)]
+        outs = [np.concatenate([p[0][k] for p in mine])
+                for k in range(len(mine[0][0]))]
         res.append(([torch.from_numpy(o) for o in outs],
                     {k: sum(p[1][k] for p in mine)
                      for k in ("cells", "steps", "rows")}))

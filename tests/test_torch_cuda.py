@@ -262,6 +262,67 @@ def test_poa_kernels_fit_two_blocks_an_sm(card, kernel):
     assert occ["blocks_per_sm"] >= 2
 
 
+def test_poa_v2_band_build_fits_two_blocks_an_sm(card):
+    """The banded build at -w 500: the flat build's shared-memory plan and,
+    as the flat build, two blocks an SM within 128 registers a thread (its
+    local bytes, a few more than the flat build's, are reported by
+    chip_smoke.py's occupancy lines)."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    occ = poa_v2_cuda.occupancy(cfg, band=True)
+    assert occ["shared_bytes"] == poa_v2_cuda.occupancy(cfg)["shared_bytes"]
+    assert occ["regs"] <= 128
+    assert occ["blocks_per_sm"] >= 2
+
+
+def _assert_band_build_equal(card, cfg, packed, wband):
+    """The banded build against the plain version (all six outputs and
+    the band cells); at wband 0 against the flat build as well."""
+    wb = torch.as_tensor(wband, dtype=torch.int32)
+    want_st, got_st = {}, {}
+    want = poa_v2_cuda.poa_consensus_v2(
+        cfg, *poa.batch_to_tensors(packed, "cpu"), wband=wb, stats=want_st)
+    dev_in = poa.batch_to_tensors(packed, card)
+    n0 = cuda_lib.LAUNCHES["poa_consensus_v2_band"]
+    got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, wband=wb.to(card),
+                                       stats=got_st)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES["poa_consensus_v2_band"] == n0 + 1
+    assert len(got) == 6
+    assert got_st["cells"] == want_st["cells"] > 0
+    assert got_st["steps"] == want_st["steps"]
+    for k, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=f"output {k}")
+    if not wb.any():
+        flat = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in)
+        for f, g in zip(flat, got):
+            assert torch.equal(f, g)
+    return want
+
+
+@pytest.mark.parametrize("window", [500, 1280])
+@pytest.mark.parametrize("wband,roll", [(0, 0), (8, 0), (1, 5)])
+def test_poa_v2_band_build_equals_plain(card, window, wband, roll):
+    """The banded fixture of the JAX package's tests (tools.batches
+    band_batch) at -w 500 and -w 1280: wband 0 (flat), 8, and 1 on layers
+    that drift off the diagonal (every window hits)."""
+    cfg = poa_driver.make_config(window, 4, 5, -4, -8)
+    packed = batches.band_batch(cfg, 4, window + roll, roll)
+    want = _assert_band_build_equal(card, cfg, packed, [wband] * 4)
+    if roll:
+        assert want[5].all()
+
+
+def test_poa_v2_band_build_equals_plain_on_mixed_bands(card):
+    """Mutated windows of 2..32 layers at -w 500, each under its own half
+    band (0, narrow ones that hit, wide ones that do not)."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    packed = batches.poa_batch(cfg, 8, 31, 500)
+    want = _assert_band_build_equal(card, cfg, packed,
+                                    [0, 1, 3, 6, 12, 24, 48, 100])
+    assert want[5].any() and not want[5].all()
+
+
 @pytest.mark.parametrize("mode", range(probe.N_MODES))
 def test_probe_kernel_equals_plain(card, mode):
     """out, steps and the whole last DP row (or ring row) of every
@@ -277,7 +338,7 @@ def test_probe_kernel_equals_plain(card, mode):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
-@pytest.mark.parametrize("K", [256, 1024])
+@pytest.mark.parametrize("K", [128, 256, 1024])
 @pytest.mark.parametrize("backward", [False, True])
 def test_edge_kernel_equals_plain(card, K, backward):
     rng = np.random.default_rng(K + backward)
@@ -291,7 +352,11 @@ def test_edge_kernel_equals_plain(card, K, backward):
         scal[b] = (R, S, -int(rng.integers(0, K // 2)), 0)
         t[b, :S] = rng.integers(0, 4, S)
     want = ac.edge_rows(*ac.tasks_to_tensors(scal, q, t, "cpu"), K, backward)
+    name = ac.launch_name("hirschberg_edge", K)
+    n0 = cuda_lib.LAUNCHES[name]
     got = ac.edge_rows(*ac.tasks_to_tensors(scal, q, t, card), K, backward)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[name] == n0 + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
@@ -332,10 +397,11 @@ def _base_tasks(K, B, seed):
 
 def _assert_base_equal(card, scal, q, t, K):
     want = ac.base_case(*ac.tasks_to_tensors(scal, q, t, "cpu"), K)
-    n0 = cuda_lib.LAUNCHES["hirschberg_base"]
+    name = ac.launch_name("hirschberg_base", K)
+    n0 = cuda_lib.LAUNCHES[name]
     got = ac.base_case(*ac.tasks_to_tensors(scal, q, t, card), K)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["hirschberg_base"] == n0 + 1
+    assert cuda_lib.LAUNCHES[name] == n0 + 1
     for name, w, g in zip(("ops", "cnt", "ok", "dist"), want, got):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=name)
@@ -343,7 +409,7 @@ def _assert_base_equal(card, scal, q, t, K):
 
 
 @pytest.mark.parametrize("seed", [0, 1])
-@pytest.mark.parametrize("K", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("K", [128, 256, 512, 1024, 2048])
 def test_base_kernel_equals_plain(card, K, seed):
     scal, q, t = _base_tasks(K, 41, K + seed)
     want = _assert_base_equal(card, scal, q, t, K)
@@ -359,7 +425,7 @@ def test_base_kernel_equals_plain_across_waves(card):
     _assert_base_equal(card, scal, q, t, 256)
 
 
-@pytest.mark.parametrize("K", [256, 512, 1024, 2048])
+@pytest.mark.parametrize("K", [128, 256, 512, 1024, 2048])
 def test_base_kernel_has_no_spill(card, K):
     occ = ac.base_occupancy(K)
     assert occ["local_bytes"] == 0
@@ -408,6 +474,33 @@ def test_launch_events_time_each_launch_alone(card):
     assert all(a.elapsed_time(b) > 0 for _, a, b in events)
     ac.base_case(scal, q, t, K)
     assert cuda_lib.LAUNCH_EVENTS is None
+
+
+def test_base_kernel_at_k128_equals_plain_across_waves(card):
+    """3,000 tasks at K = 128, where two threads share each byte pair of
+    moves: the packed offsets across many blocks."""
+    scal, q, t = _base_tasks(128, 3000, 6)
+    _assert_base_equal(card, scal, q, t, 128)
+
+
+def test_align_pairs_with_band_overrides_on_card_equals_cpu(card):
+    """Band overrides at K = 128 (the banded path's first rung), on pairs
+    of which some certify and some hit: ops and hits equal the CPU run's,
+    and the K = 128 builds launch."""
+    pairs = batches.align_pairs(9, 8, 600, 3000, rate=(0.01, 0.2))
+    over = {i: 128 for i in range(len(pairs))}
+    want_hits, got_hits = set(), set()
+    want = ac.align_pairs(pairs, device="cpu", band_overrides=over,
+                          hits=want_hits)
+    n0 = cuda_lib.LAUNCHES["hirschberg_edge_k128"]
+    got = ac.align_pairs(pairs, device=card, band_overrides=over,
+                         hits=got_hits)
+    assert cuda_lib.LAUNCHES["hirschberg_edge_k128"] > n0
+    assert got_hits == want_hits and 0 < len(want_hits) < len(pairs)
+    for w, g in zip(want, got):
+        assert (w is None) == (g is None)
+        if g is not None:
+            np.testing.assert_array_equal(g, w)
 
 
 def test_align_pairs_on_card_equals_cpu(card):

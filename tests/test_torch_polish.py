@@ -84,7 +84,10 @@ def test_sam_polish_byte_identical_to_jax(tmp_path, monkeypatch):
     got, stats = _torch_polish(paths)
     assert got == _jax_polish(paths, monkeypatch)
     assert stats["align"] == {"device": 0, "host": 0,
-                              "host_seconds": stats["align"]["host_seconds"]}
+                              "host_seconds": stats["align"]["host_seconds"],
+                              "band": dict.fromkeys(
+                                  ("jobs", "hits", "widenings", "fallbacks"),
+                                  0)}
     assert stats["consensus"]["device"] > 0
 
 
