@@ -19,6 +19,8 @@ then, each phase printing one JSON line:
   ladder), recorded the same way, with the ladder's counts for both
   phases; whether its FASTA equals the main run's, and if not the first
   window that differs, is printed (main_band_vs_flat), not required;
+* main_ls_band: the same banded polish with the ls POA kernel (its banded
+  build), recorded and compared the same way (main_ls_band_vs_flat);
 * lowerr and lowerr_band: a PacBio-HiFi-like set (0.5 Mbp, 30x, 8 kb
   reads, about 1% error) polished flat and banded, recorded the same way;
   lowerr_band_vs_flat gives FASTA equality and the aligner's launches,
@@ -28,7 +30,8 @@ then, each phase printing one JSON line:
 * kernel_check: runs each kernel again on the inputs of its largest
   launches in its path's run (one per POA depth bucket, per edge band and
   direction, per base-case band; the v2 kernel, colstep on and off, on
-  the POA launches; v2's banded build on main_band's banded launches; the
+  the POA launches; v2's banded build on main_band's banded launches, the
+  ls banded build on main_ls_band's; the
   K = 128 builds on lowerr_band's), holds each whole batch against the
   plain PyTorch version (tolerance 0: all outputs are integers; the
   banded build on a sample of each launch's windows, its hit windows
@@ -46,19 +49,20 @@ then, each phase printing one JSON line:
 * poa_decision: v2 over ls and colstep over flat on each depth bucket's
   largest launch, the numbers that settle the default POA kernel;
 * parity: the card (both POA kernels) and the CPU polish a small PAF set
-  to the same bytes; parity_band: the same set on the banded path (slack
-  8) on the card and on the CPU, the same bytes and ladder counts (the
-  two CPU polishes run in worker processes while the phases above run);
+  to the same bytes; parity_band and parity_ls_band: the same set on the
+  banded path (slack 8) with each POA kernel, on the card and on the CPU,
+  the same bytes and ladder counts (the three CPU polishes run in worker
+  processes while the phases above run);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe), then every mode held
   against its plain version run on the card.
 
-Each path (main, main_<other kernel>, main_band, lowerr, lowerr_band,
-probe) runs with the launch counts set to 0 just before it and read just
-after; every kernel of the path must have launched (the banded paths:
-v2's banded build and the K = 128 edge build, and on lowerr_band the
-K = 128 base case; on main_band the flat aligner builds as the ladder's
-floor), and no flat POA build on a banded path.
+Each path (main, main_<other kernel>, main_band, main_ls_band, lowerr,
+lowerr_band, probe) runs with the launch counts set to 0 just before it
+and read just after; every kernel of the path must have launched (the
+banded paths: their POA kernel's banded build and the K = 128 edge build,
+and on lowerr_band the K = 128 base case; on main_band and main_ls_band
+the flat aligner builds as the ladder's floor), and no other POA build.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -195,7 +199,8 @@ class MainPathRecorder:
     ``poa_driver.poa_consensus``, ``poa_driver.poa_consensus_v2``) by thin
     wrappers that call the real ones, count the launch's DP cells and
     bytes, and keep the inputs of the largest launch (by DP cells) of each
-    kernel and geometry: POA per depth bucket, the edge kernel per band
+    kernel and geometry: POA per depth bucket (a banded build's per depth
+    bucket with band hits and without), the edge kernel per band
     and direction, the base case per band. The real wrappers still count
     their launches, and time each one with the two CUDA events they
     record around the launch call alone (``cuda_lib.LAUNCH_EVENTS``),
@@ -242,32 +247,30 @@ class MainPathRecorder:
             self.windows[i] = bytes(consensus)
             return set_consensus(pl, i, consensus, polished)
 
-        def poa_consensus(cfg, *args):
-            st = {}
-            return self._call("poa_consensus", (cfg.depth,),
-                              POA_OPS_PER_CELL,
-                              lambda: poa(cfg, *args, stats=st),
-                              lambda out: st["cells"], args, (cfg, args))
-
-        def poa_consensus_v2(cfg, *args, **kw):
+        def poa_call(name, fn, cfg, args, kw):
             st = {}
             wband = kw.get("wband")
 
             def cells_of(out):
-                self.steps += st["steps"]
+                self.steps += st.get("steps", 0)
                 return st["cells"]
 
-            # the banded build: the largest launch of each depth bucket
-            # with band hits, and the largest without
+            # a banded build: the largest launch of each depth bucket with
+            # band hits, and the largest without
             return self._call(
-                "poa_consensus_v2" if wband is None else
-                "poa_consensus_v2_band",
+                name if wband is None else name + "_band",
                 (cfg.depth,) if wband is None else
                 (lambda out: (cfg.depth, bool(out[5].any()))),
                 POA_OPS_PER_CELL,
-                lambda: poa_v2(cfg, *args, stats=st, **kw), cells_of,
+                lambda: fn(cfg, *args, stats=st, **kw), cells_of,
                 args + ((wband,) if wband is not None else ()),
-                (cfg, args, wband))
+                (cfg, args) if wband is None else (cfg, args, wband))
+
+        def poa_consensus(cfg, *args, **kw):
+            return poa_call("poa_consensus", poa, cfg, args, kw)
+
+        def poa_consensus_v2(cfg, *args, **kw):
+            return poa_call("poa_consensus_v2", poa_v2, cfg, args, kw)
 
         self.ac.edge_rows, self.ac.base_case = edge_rows, base_case
         self.pd.poa_consensus = poa_consensus
@@ -497,10 +500,11 @@ def poa_decision(default, ls_ms, v2_ms):
                 r <= 0.95 for r in colstep_over_flat.values())}
 
 
-def check_poa_band(torch, poa_v2_cuda, rec, procs):
-    """The banded build on the banded run's largest POA launch of each
-    depth bucket, with band hits and without: at wband = 0 every output
-    equals the flat build's on the
+def check_poa_band(torch, fn, kernel, rec, procs, run):
+    """A POA kernel's banded build (`fn` is its wrapper; `kernel` "v2" or
+    "ls", whose banded semantics the plain version runs) on the `run`'s
+    largest banded launch of each depth bucket, with band hits and
+    without: at wband = 0 every output equals the flat build's on the
     card; at the ladder's wband the six outputs (band_hit included) equal
     the plain version's on a sample of the launch's windows (its hit
     windows first, up to 16, and up to 16 others; the plain version runs
@@ -509,21 +513,20 @@ def check_poa_band(torch, poa_v2_cuda, rec, procs):
     whole launch's; the bound counts its band cells."""
     from racon_tpu_torch.tools.batches import plain_poa_parallel
 
-    kept = rec.inputs("poa_consensus_v2_band")
-    require(kept, "no banded POA launch was kept to check")
+    name = BAND_NAME[kernel]
+    kept = rec.inputs(name)
+    require(kept, f"no {name} launch was kept to check")
     runs, samples = [], []
     for _, (cfg, dev_in, wband) in kept:
         kst = {}
-        got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, wband=wband,
-                                           stats=kst)
-        zero = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in,
-                                            wband=torch.zeros_like(wband))
-        flat = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in)
+        got = fn(cfg, *dev_in, wband=wband, stats=kst)
+        zero = fn(cfg, *dev_in, wband=torch.zeros_like(wband))
+        flat = fn(cfg, *dev_in)
         torch.cuda.synchronize()
         err0 = max_abs_err(flat, zero[:5])
         require(err0 == 0 and not zero[5].any(),
-                f"v2 banded build at wband 0 (depth {cfg.depth}) differs "
-                f"from the flat build by {err0}")
+                f"{kernel} banded build at wband 0 (depth {cfg.depth}) "
+                f"differs from the flat build by {err0}")
         hit = got[5].cpu()
         idx = torch.cat([torch.nonzero(hit)[:16, 0],
                          torch.nonzero(~hit)[:16, 0]]).sort().values
@@ -531,33 +534,32 @@ def check_poa_band(torch, poa_v2_cuda, rec, procs):
         runs.append((cfg, dev_in, wband, got, kst, idx, err0))
         samples.append((cfg, sub, wband[idx.to(wband.device)].contiguous()))
     t0 = time.perf_counter()
-    plain = plain_poa_parallel(samples, procs)
+    plain = plain_poa_parallel(samples, procs, kernel)
     plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
     for (cfg, dev_in, wband, got, kst, idx, err0), (want, pst), \
             (_, sub, swb) in zip(runs, plain, samples):
         err = max_abs_err(want, [g[idx.to(g.device)] for g in got])
-        require(err == 0, f"v2 banded build (depth {cfg.depth}) differs from "
-                f"its plain version by {err}")
+        require(err == 0, f"{kernel} banded build (depth {cfg.depth}) "
+                f"differs from its plain version by {err}")
         sst = {}
-        poa_v2_cuda.poa_consensus_v2(cfg, *sub, wband=swb, stats=sst)
+        fn(cfg, *sub, wband=swb, stats=sst)
         require(sst["cells"] == pst["cells"],
                 f"band cells: kernel {sst['cells']}, plain {pst['cells']}")
-        ms = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
-            cfg, *dev_in, wband=wband), 3)
-        ms_flat = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
-            cfg, *dev_in), 3)
+        ms = cuda_ms(torch, lambda: fn(cfg, *dev_in, wband=wband), 3)
+        ms_flat = cuda_ms(torch, lambda: fn(cfg, *dev_in), 3)
         n_bytes = nbytes(dev_in) + nbytes((wband,)) + nbytes(got)
         n_ops = POA_OPS_PER_CELL * kst["cells"]
         b_ms, b_by = bound(n_bytes, n_ops)
-        line = {"phase": "kernel_check", "kernel": "poa_consensus_v2_band",
+        line = {"phase": "kernel_check", "kernel": name,
                 "input": "largest banded launch of its depth bucket (with "
-                "band hits or without) in the main_band run",
+                f"band hits or without) in the {run} run",
                 "windows": dev_in[0].shape[0],
                 "depth": cfg.depth, "wband_mean": float(wband.float().mean()),
                 "wband_zero": int((wband == 0).sum()),
                 "band_hits": int(got[5].sum()), "failed": int(got[3].sum()),
                 "band_cells": kst["cells"], "plain_windows": len(idx),
+                "plain_band_cells": pst["cells"],
                 "max_abs_err": err, "max_abs_err_wband0_vs_flat": err0,
                 "ms": ms, "ms_flat_build": ms_flat,
                 "plain_ms": plain_ms / len(runs),
@@ -677,7 +679,7 @@ def polish(racon_tpu_torch, d, device, poa_kernel="ls", band=None):
     return out, p.stats, time.perf_counter() - t0
 
 
-def cpu_polish(d, band=None):
+def cpu_polish(d, band=None, poa_kernel="v2"):
     """The port's CPU polish of `d` (the plain versions), in a worker
     process of its own: (FASTA records, stats, seconds)."""
     import torch
@@ -686,31 +688,32 @@ def cpu_polish(d, band=None):
     import racon_tpu_torch
 
     torch.set_num_threads(1)
-    return polish(racon_tpu_torch, d, "cpu", "v2", band)
+    return polish(racon_tpu_torch, d, "cpu", poa_kernel, band)
 
 
-# The POA kernel's launch-count name for each poa_kernel.
+# The launch-count names of each poa_kernel's flat and banded builds.
 POA_NAME = {"ls": "poa_consensus", "v2": "poa_consensus_v2"}
+BAND_NAME = {"ls": "poa_consensus_band", "v2": "poa_consensus_v2_band"}
 
 
 def check_launches(path: str, launches: dict, poa_kernel=None,
                    band_names=()) -> None:
     """Every kernel of the path launched; a polish path (poa_kernel given)
-    launched its POA kernel and not the other; a banded path (band_names:
-    the kernels it must launch) launched v2's banded build and neither
-    flat POA build."""
+    launched its POA kernel's build (on a banded path, whose band_names are
+    the kernels it must launch, the banded build) and no other POA
+    build."""
     names = (("dp_cost_probe",) if poa_kernel is None else
              (POA_NAME[poa_kernel], "hirschberg_edge", "hirschberg_base"))
     names = band_names or names
     for name in names:
         require(launches[name] > 0,
                 f"kernel {name} was not launched on the {path} path")
-    for kernel, name in POA_NAME.items():
-        if poa_kernel is not None and (kernel != poa_kernel or band_names):
+    if poa_kernel is None:
+        return
+    own = (BAND_NAME if band_names else POA_NAME)[poa_kernel]
+    for name in (*POA_NAME.values(), *BAND_NAME.values()):
+        if name != own:
             require(launches[name] == 0, f"the {path} path launched {name}")
-    if poa_kernel is not None and not band_names:
-        require(launches["poa_consensus_v2_band"] == 0,
-                f"the {path} path launched the banded POA build")
 
 
 def band_vs_flat(path: str, band_run, flat_run) -> dict:
@@ -868,14 +871,17 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp, \
-            ProcessPoolExecutor(2, mp_context=multiprocessing.get_context(
+            ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
                 "spawn")) as cpu_pool:
-        # the parity set's two CPU polishes (plain versions, flat and
-        # banded) run in their own processes through the phases below
+        # the parity set's three CPU polishes (plain versions: flat, and
+        # banded with each POA kernel) run in their own processes through
+        # the phases below
         d_par = simulate.generate(os.path.join(tmp, "parity"),
                                   mbp=PARITY_MBP, seed=11)
         cpu_runs = {"flat": cpu_pool.submit(cpu_polish, d_par),
-                    "band": cpu_pool.submit(cpu_polish, d_par, PARITY_SLACK)}
+                    "band": cpu_pool.submit(cpu_polish, d_par, PARITY_SLACK),
+                    "ls_band": cpu_pool.submit(cpu_polish, d_par,
+                                               PARITY_SLACK, "ls")}
 
         # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps, with the
         # default POA kernel; then the same polish with the other POA
@@ -900,6 +906,14 @@ def main() -> int:
                                         "hirschberg_edge_k128",
                                         "hirschberg_edge", "hirschberg_base"))
         emit(band_vs_flat("main_band", band_run, runs[first]))
+        # main_ls_band: the same with the ls POA kernel's banded build
+        ls_band_run = run_main(*mods, "ls", "main_ls_band",
+                               band=band.DEFAULT_SLACK,
+                               band_names=("poa_consensus_band",
+                                           "hirschberg_edge_k128",
+                                           "hirschberg_edge",
+                                           "hirschberg_base"))
+        emit(band_vs_flat("main_ls_band", ls_band_run, runs[first]))
 
         # lowerr: a PacBio-HiFi-like set (about 1% error), flat and banded
         t0 = time.perf_counter()
@@ -919,17 +933,20 @@ def main() -> int:
         emit(line)
 
         # kept launches: the POA checks take the ls run's (one plain pass
-        # serves both POA kernels) and the banded run's banded launches,
+        # serves both POA kernels) and the banded runs' banded launches,
         # the aligner checks the main run's and, at K = 128, the lowerr
         # banded run's; the rest are dropped
         rec, rec_ls = runs[first][1], runs["ls"][1]
         rec_band, rec_low = band_run[1], low_band[1]
+        rec_ls_band = ls_band_run[1]
         keep = {id(rec_ls): ("poa_consensus",),
                 id(rec): ("hirschberg_edge", "hirschberg_base"),
                 id(rec_band): ("poa_consensus_v2_band",),
+                id(rec_ls_band): ("poa_consensus_band",),
                 id(rec_low): ("hirschberg_edge_k128",
                               "hirschberg_base_k128")}
-        for r in (runs["ls"][1], runs["v2"][1], rec_band, low[1], rec_low):
+        for r in (runs["ls"][1], runs["v2"][1], rec_band, rec_ls_band, low[1],
+                  rec_low):
             for key in list(r.largest):
                 if key[0] not in keep.get(id(r), ()):
                     del r.largest[key]
@@ -939,6 +956,7 @@ def main() -> int:
                            rec_ls.inputs("poa_consensus")},
                           key=lambda c: c.depth):
             occ = {"poa_consensus": poa_cuda.occupancy(cfg),
+                   "poa_consensus_band": poa_cuda.occupancy(cfg, band=True),
                    "poa_consensus_v2": poa_v2_cuda.occupancy(cfg),
                    "poa_consensus_v2_band": poa_v2_cuda.occupancy(
                        cfg, band=True)}
@@ -953,7 +971,11 @@ def main() -> int:
         v2_row, v2_ms = check_poa_v2(torch, poa_v2_cuda, poa_plain)
         checked = {"poa_consensus": poa_row, "poa_consensus_v2": v2_row,
                    "poa_consensus_v2_band": check_poa_band(
-                       torch, poa_v2_cuda, rec_band, procs),
+                       torch, poa_v2_cuda.poa_consensus_v2, "v2", rec_band,
+                       procs, "main_band"),
+                   "poa_consensus_band": check_poa_band(
+                       torch, poa_cuda.poa_consensus, "ls", rec_ls_band,
+                       procs, "main_ls_band"),
                    "hirschberg_edge": check_edge(torch, ac, rec),
                    "hirschberg_base": check_base(torch, ac, rec),
                    "hirschberg_edge_k128": check_edge(
@@ -962,7 +984,7 @@ def main() -> int:
                    "hirschberg_base_k128": check_base(
                        torch, ac, rec_low, "hirschberg_base_k128",
                        "lowerr_band")}
-        for r in (rec, rec_ls, rec_band, rec_low):
+        for r in (rec, rec_ls, rec_band, rec_ls_band, rec_low):
             r.largest.clear()
         del poa_plain
         emit(poa_decision(first, ls_ms, v2_ms))
@@ -973,9 +995,12 @@ def main() -> int:
         gpu_2, _, g2_s = polish(racon_tpu_torch, d_par, "cuda", second)
         gpu_b, bstats, gb_s = polish(racon_tpu_torch, d_par, "cuda", "v2",
                                      PARITY_SLACK)
+        gpu_lb, lbstats, glb_s = polish(racon_tpu_torch, d_par, "cuda", "ls",
+                                        PARITY_SLACK)
         t0 = time.perf_counter()
         cpu, cstats, c_s = cpu_runs["flat"].result()
         cpu_b, cbstats, cb_s = cpu_runs["band"].result()
+        cpu_lb, clbstats, clb_s = cpu_runs["ls_band"].result()
         wait_s = time.perf_counter() - t0
         require(gpu == cpu, "card and CPU polish the parity set differently")
         require(gpu_2 == cpu, f"the card's {second} kernel and the CPU "
@@ -998,6 +1023,19 @@ def main() -> int:
                        "consensus": bstats["consensus"]["band"]},
               "align_device": bstats["align"]["device"],
               "windows_device": bstats["consensus"]["device"]})
+        require(gpu_lb == cpu_lb, "card and CPU polish the parity set "
+                "differently on the ls banded path")
+        require(lbstats["align"]["band"] == clbstats["align"]["band"] and
+                lbstats["consensus"]["band"] ==
+                clbstats["consensus"]["band"],
+                "the ls banded path's counts differ between card and CPU")
+        emit({"phase": "parity_ls_band", "mbp": PARITY_MBP,
+              "band_slack": PARITY_SLACK, "identical": True,
+              "equals_flat": gpu_lb == gpu, "cuda_s": glb_s, "cpu_s": clb_s,
+              "band": {"align": lbstats["align"]["band"],
+                       "consensus": lbstats["consensus"]["band"]},
+              "align_device": lbstats["align"]["device"],
+              "windows_device": lbstats["consensus"]["device"]})
 
     # the DP-cost probe's path
     launches_probe, checked["dp_cost_probe"] = probe_phase(torch, probe,
@@ -1011,6 +1049,8 @@ def main() -> int:
              replaces="racon_tpu/ops/poa_pallas.py:73"),
         dict(name="poa_consensus_v2_band", source=src + "poa_v2.cu",
              replaces="racon_tpu/ops/poa_pallas.py:73 (band=True)"),
+        dict(name="poa_consensus_band", source=src + "poa.cu",
+             replaces="racon_tpu/ops/poa_pallas_ls.py:64 (band=True)"),
         dict(name="hirschberg_edge", source=src + "align.cu",
              replaces="racon_tpu/ops/align_pallas.py:112"),
         dict(name="hirschberg_edge_k128", source=src + "align.cu",
@@ -1023,10 +1063,12 @@ def main() -> int:
              replaces="racon_tpu/tools/dp_cost_probe.py:89"),
     ]
     # launches and path sums: each POA kernel from its own polish, the
-    # banded POA build from main_band, the K = 128 builds from
-    # lowerr_band, the other aligner kernels from the main polish
+    # banded POA builds from main_band and main_ls_band, the K = 128
+    # builds from lowerr_band, the other aligner kernels from the main
+    # polish
     path_of = {POA_NAME[kn]: (r[2], r[3]) for kn, r in runs.items()}
     path_of["poa_consensus_v2_band"] = (band_run[2], band_run[3])
+    path_of["poa_consensus_band"] = (ls_band_run[2], ls_band_run[3])
     for name in ("hirschberg_edge_k128", "hirschberg_base_k128"):
         path_of[name] = (low_band[2], low_band[3])
     path_of["dp_cost_probe"] = (launches_probe, None)

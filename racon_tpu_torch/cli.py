@@ -61,7 +61,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    ": ls or v2, one window per block each; both give the "
                    "same consensus")
     p.add_argument("--band", action="store_true",
-                   help="banded DP on the aligner and the v2 POA kernel, "
+                   help="banded DP on the aligner and the POA kernel, "
                    "with verify-and-widen down to the flat run (same "
                    "output)")
     p.add_argument("--band-slack", type=int, default=_band.DEFAULT_SLACK,

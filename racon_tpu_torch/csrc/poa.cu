@@ -31,6 +31,21 @@
 // Float discipline: keys are float32 and computed in the plain version's
 // order of operations; the library is built with --fmad=false and IEEE
 // division, so no key drifts by an ulp.
+//
+// The banded build (template BAND; the wrapper's wband argument) replaces
+// the Pallas kernel's band=True build: a per-window half band wband in, a
+// band hit out, and the ls build's banded semantics, which the plain
+// version runs with kernel="ls". Under wband > 0: column 0's diagonal is
+// NEG + mismatch (the Pallas kernel's shifted-in NEG); after its gap pass
+// each DP row is masked to NEG outside |j - cexp| <= wband (cexp: the
+// node's key + 0.5, truncated, less the layer's begin); the hit is set
+// where the best end score's deficit below match x L passes
+// 2 |gap| max(wband / 2, 1), and where warp 0's walk (walk_band) leaves a
+// node whose visited cells came within one cell of the band edge. Rule 1:
+// an end score no better than NEG fails the layer. Rule 2: a layer that
+// fails, there or in the walk, adds nothing to the graph. Every column is
+// still computed: the mask costs a compare a cell. wband = 0 runs the flat
+// code through the same build.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -111,6 +126,82 @@ __device__ void rebuild_order(const Shared& s, int n) {
   __syncthreads();
 }
 
+// The banded build's traceback (warp 0, every lane the same result) from
+// end node u at column L, re-deriving each move from the masked H as the
+// ls Pallas build does: at each node it walks left from the entry column
+// to the first cell that a diagonal (column 0's included, where the cell
+// is NEG + mismatch) or an up move explains, through the first such slot,
+// and takes that move. A node with no such cell at or left of its entry
+// is stuck: the walk fails, and that node's cells count for no boundary
+// touch. A diagonal off column 0 into a node fails the walk too. Writes
+// the matched positions to pos_node and the touch (a visited cell of a
+// node the walk left within one cell of the band edge) to *touch; returns
+// whether the walk reached the virtual row.
+__device__ bool walk_band(const Shared& s, const Cfg& c, const int* H,
+                          const int* src, int u, int L, int hw, int begin,
+                          int lane, bool* touch) {
+  const int HS = c.ML + 1, gp = c.gp;
+  const int limit = c.N + c.ML + 2;
+  int j = L, steps = 0;
+  bool hit = false;
+  while (u != -1) {
+    const int cexp = (int)(s.key[u] + 0.5f) - begin;
+    int sv = -1;
+    bool valid = false;
+    if (lane < c.E) {
+      sv = src[(size_t)u * c.E + lane];
+      valid = sv >= 0 && s.sub[sv];
+    }
+    const unsigned mval = __ballot_sync(0xffffffffu, valid);
+    const int* hu = H + (size_t)(u + 1) * HS;
+    const int* hs = H + (size_t)(valid ? sv + 1 : 0) * HS;
+    bool near = false;
+    int move = 2, prd = -1;
+    for (;;) {  // the node's insertion run
+      if (j < 0 || ++steps > limit) {  // stuck
+        *touch = hit;
+        return false;
+      }
+      near |= abs(j - cexp) >= hw - 1;
+      const int cur = hu[j];
+      const int jm1 = max(j - 1, 0);
+      const int sc = s.seq[jm1] == s.base[u] ? c.ma : c.mm;
+      const bool d0 = j == 0 && cur == NEG_ + c.mm;
+      const bool dg = valid && (d0 || (j > 0 && hs[jm1] + sc == cur));
+      const bool upk = valid && hs[j] + gp == cur;
+      const unsigned mdg = __ballot_sync(0xffffffffu, dg);
+      const unsigned mup = __ballot_sync(0xffffffffu, upk);
+      if (mval) {
+        if (mdg) {
+          move = 0;
+          prd = __shfl_sync(0xffffffffu, sv, __ffs(mdg) - 1);
+        } else if (mup) {
+          move = 1;
+          prd = __shfl_sync(0xffffffffu, sv, __ffs(mup) - 1);
+        }
+      } else if (d0 || (j > 0 && jm1 * gp + sc == cur)) {
+        move = 0;
+      } else if (j * gp + gp == cur) {
+        move = 1;
+      }
+      if (move != 2) break;
+      --j;
+    }
+    hit |= near;
+    if (move == 0) {
+      if (j == 0) {  // a diagonal off column 0
+        *touch = hit;
+        return prd == -1;
+      }
+      if (lane == 0) s.pos_node[j - 1] = u;
+      --j;
+    }
+    u = prd;
+  }
+  *touch = hit;
+  return true;
+}
+
 // First node id v in [0, n) with key == k0 and base == b, or -1 (warp 0).
 __device__ int find_node(const Shared& s, int n, float k0, int b, int lane) {
   for (int v0 = 0; v0 < n; v0 += 32) {
@@ -122,14 +213,19 @@ __device__ int find_node(const Shared& s, int n, float k0, int b, int lane) {
   return -1;
 }
 
+// BAND: the banded build, which takes each window's half band (wband_a; 0
+// runs the flat code) and writes its band hit (band_hit_out).
+template <bool BAND>
 __global__ void __launch_bounds__(NT)
 poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
            const int* __restrict__ bb_len_a, const int* __restrict__ n_layers_a,
            const uint8_t* __restrict__ seqs, const int* __restrict__ ws,
            const int* __restrict__ lens, const int* __restrict__ begins,
-           const int* __restrict__ ends, int* __restrict__ cons_base,
+           const int* __restrict__ ends, const int* __restrict__ wband_a,
+           int* __restrict__ cons_base,
            int* __restrict__ cons_cov, int* __restrict__ cons_len,
            uint8_t* __restrict__ failed_out, int* __restrict__ n_nodes,
+           uint8_t* __restrict__ band_hit_out,
            long long* __restrict__ cells, int* __restrict__ scratch,
            size_t scratch_per) {
   extern __shared__ __align__(16) char smem[];
@@ -146,6 +242,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   int* cov = ew + (size_t)N * E;
 
   const int bb_len = bb_len_a[win];
+  const int hw = BAND ? wband_a[win] : 0;
   const uint8_t* bbp = bb + (size_t)win * c.MB;
   const int* bbwp = bbw + (size_t)win * c.MB;
 
@@ -168,6 +265,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   if (tid == 0) {
     s.misc[0] = bb_len;  // n
     s.misc[1] = 0;       // failed
+    if (BAND) s.misc[6] = 0;  // band hit
   }
   __syncthreads();
   rebuild_order(s, bb_len);
@@ -192,7 +290,11 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
       s.wts[j] = j < L ? wq[j] : 0;
       s.pos_node[j] = -1;
     }
-    if (tid == 0) { s.misc[2] = 0; s.misc[3] = 0; }  // r0, n_sub
+    if (tid == 0) {  // r0, n_sub, band cells
+      s.misc[2] = 0;
+      s.misc[3] = 0;
+      if (BAND) s.misc[5] = 0;
+    }
     __syncthreads();
     for (int u = tid; u < n; u += NT) {
       const float k = s.key[u];
@@ -204,7 +306,19 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     }
     __syncthreads();
     const int r0 = s.misc[2], n_sub = s.misc[3];
-    dp_cells += (long long)n_sub * (L + 1);
+    const bool banded = BAND && hw > 0;
+    if (banded) {  // the columns of [0, L] each row's band admits
+      int band_cells = 0;
+      for (int r = r0 + tid; r < r0 + n_sub; r += NT) {
+        const int ce = (int)(s.key[s.order[r]] + 0.5f) - begin;
+        band_cells += max(0, min(L, ce + hw) - max(0, ce - hw) + 1);
+      }
+      atomicAdd(&s.misc[5], band_cells);
+      __syncthreads();
+      dp_cells += (long long)atomicAdd(&s.misc[5], 0);
+    } else {
+      dp_cells += (long long)n_sub * (L + 1);
+    }
 
     // --- DP over the subgraph in rank order. sub[u] becomes 2 once u's row
     // is computed; a predecessor ranked later (equal keys along an edge)
@@ -214,6 +328,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     for (int r = r0; r < r0 + n_sub; ++r) {
       const int u = s.order[r];
       const int ub = s.base[u];
+      const int cexp = BAND ? (int)(s.key[u] + 0.5f) - begin : 0;
       int P[CHMAX + 1];
 #pragma unroll
       for (int k = 0; k <= CHMAX; ++k) P[k] = NEG_;
@@ -245,6 +360,8 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
           if (j >= 1) {
             const int sc = s.seq[j - 1] == ub ? c.ma : c.mm;
             v = max(v, P[k] + sc);
+          } else if (BAND && hw > 0) {
+            v = max(v, NEG_ + c.mm);
           }
           v -= j * gp;
         }
@@ -266,7 +383,11 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
 #pragma unroll
       for (int k = 0; k < CHMAX; ++k) {
         const int j = j0 + k;
-        if (k < CH && j <= L) hrow[j] = max(x[k], excl) + j * gp;
+        if (k < CH && j <= L) {
+          int row = max(x[k], excl) + j * gp;
+          if (BAND && hw > 0 && abs(j - cexp) > hw) row = NEG_;
+          hrow[j] = row;
+        }
       }
       if (tid == 0) s.sub[u] = 2;
       __syncthreads();
@@ -294,9 +415,28 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     }
     block_best(red, ba, bbv, bi);
     const int start_u = bi >= 0 ? s.order[bi] : 0;
+    // the banded walk's outcome: 1 reached the virtual row, 0 failed
+    // (rule 1 where no end score passes NEG)
+    int walked = 1;
+    if (banded) {
+      const int best_s = bi >= 0 ? max(ba, NEG_) : NEG_;
+      if (tid == 0 && c.ma * L - best_s > 2 * (-c.gp) * max(hw / 2, 1))
+        s.misc[6] = 1;
+      walked = best_s > NEG_;
+    }
 
     // --- traceback (warp 0)
-    if (wid == 0) {
+    if (wid == 0 && banded) {
+      bool touch = false;
+      if (walked)
+        walked = walk_band(s, c, H, src, start_u, L, hw, begin, lane, &touch);
+      if (lane == 0) {
+        if (touch) s.misc[6] = 1;
+        if (!walked) s.misc[1] = 1;
+      }
+      __syncwarp();
+    }
+    if (wid == 0 && !banded) {
       int u = start_u, j = L, steps = 0;
       const int limit = N + ML + 2;
       while (!(u == -1 && j == 0) && steps < limit) {
@@ -344,8 +484,11 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
       }
       if (lane == 0 && !(u == -1 && j == 0)) s.misc[1] = 1;
       __syncwarp();
+    }
 
-      // --- graph update (warp 0)
+    // --- graph update (warp 0); under a band, rule 2: only after a walk
+    // that reached the virtual row
+    if (wid == 0 && walked) {
       if (lane == 0) {
         float nk = INFINITY;
         int runl = ML - L;
@@ -419,9 +562,20 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   if (tid == 0) {
     cons_len[win] = cnt;
     failed_out[win] = s.misc[1] ? 1 : 0;
+    if (BAND) band_hit_out[win] = s.misc[6] ? 1 : 0;
     n_nodes[win] = n;
     if (cells) cells[win] = dp_cells;
   }
+}
+
+using Kernel = decltype(&poa_kernel<false>);
+
+// The kernel instantiation (the banded build where band), with its
+// dynamic shared-memory limit raised to sm.
+cudaError_t instance_for(bool band, size_t sm, Kernel* fn) {
+  *fn = band ? &poa_kernel<true> : &poa_kernel<false>;
+  return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sm);
 }
 
 }  // namespace
@@ -435,47 +589,50 @@ long long rt_poa_scratch_words(int N, int ML, int E) {
 
 // One block per window. Inputs: bb u8[B,MB], bbw i32[B,MB], bb_len i32[B],
 // n_layers i32[B], seqs u8[B,D,ML], ws i32[B,D,ML], lens/begins/ends
-// i32[B,D]. Outputs: cons_base, cons_cov i32[B,N], cons_len i32[B],
-// failed u8[B], n_nodes i32[B]; cells i64[B] (may be null): each window's DP
-// cells, sum over its layers of subgraph nodes x (layer length + 1).
+// i32[B,D], and wband i32[B] or null: each window's half band (the banded
+// build; null runs the flat build). Outputs: cons_base, cons_cov i32[B,N],
+// cons_len i32[B], failed u8[B], n_nodes i32[B], band_hit u8[B] (with
+// wband); cells i64[B] (may be null): each window's DP cells, sum over its
+// layers of subgraph nodes x (layer length + 1), or under a half band the
+// columns of [0, L] each row's band admits.
 // scratch i32[B, rt_poa_scratch_words].
 int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                   int gp, const void* bb, const void* bbw, const void* bb_len,
                   const void* n_layers, const void* seqs, const void* ws,
                   const void* lens, const void* begins, const void* ends,
-                  void* cons_base, void* cons_cov, void* cons_len,
-                  void* failed, void* n_nodes, void* cells, void* scratch,
-                  int B,
-                  void* stream) {
+                  const void* wband, void* cons_base, void* cons_cov,
+                  void* cons_len, void* failed, void* n_nodes, void* band_hit,
+                  void* cells, void* scratch, int B, void* stream) {
   if (E > 32 || ML + 1 > NT * CHMAX) return (int)cudaErrorInvalidValue;
   Cfg c{N, ML, MB, E, D, ma, mm, gp};
   const size_t sm = shared_bytes(N, ML);
-  cudaError_t err = cudaFuncSetAttribute(
-      poa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  Kernel fn = nullptr;
+  cudaError_t err = instance_for(wband != nullptr, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   const size_t per = (size_t)rt_poa_scratch_words(N, ML, E);
-  poa_kernel<<<B, NT, sm, (cudaStream_t)stream>>>(
+  fn<<<B, NT, sm, (cudaStream_t)stream>>>(
       c, (const uint8_t*)bb, (const int*)bbw, (const int*)bb_len,
       (const int*)n_layers, (const uint8_t*)seqs, (const int*)ws,
       (const int*)lens, (const int*)begins, (const int*)ends,
-      (int*)cons_base, (int*)cons_cov, (int*)cons_len, (uint8_t*)failed,
-      (int*)n_nodes, (long long*)cells, (int*)scratch, per);
+      (const int*)wband, (int*)cons_base, (int*)cons_cov, (int*)cons_len,
+      (uint8_t*)failed, (int*)n_nodes, (uint8_t*)band_hit, (long long*)cells,
+      (int*)scratch, per);
   return (int)cudaGetLastError();
 }
 
 // The kernel's registers a thread, local (spill) bytes a thread, dynamic
-// shared bytes a block and resident blocks per SM at (N, ML); out[4].
-int rt_poa_occupancy(int N, int ML, int* out) {
+// shared bytes a block and resident blocks per SM at (N, ML), for the flat
+// build or (band) the banded one; out[4].
+int rt_poa_occupancy(int N, int ML, int band, int* out) {
   const size_t sm = shared_bytes(N, ML);
-  cudaError_t err = cudaFuncSetAttribute(
-      poa_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sm);
+  Kernel fn = nullptr;
+  cudaError_t err = instance_for(band != 0, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, poa_kernel);
+  err = cudaFuncGetAttributes(&a, (const void*)fn);
   if (err != cudaSuccess) return (int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, poa_kernel, NT,
-                                                      sm);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, NT, sm);
   out[0] = a.numRegs;
   out[1] = (int)a.localSizeBytes;
   out[2] = (int)sm;

@@ -18,6 +18,11 @@ JAX package's batched POA, one window at a time:
   backward walk to a source and a forward walk to a sink, and the node
   coverage of each consensus node.
 
+Under a per-window half band (``wband``, the banded builds) the DP rows
+are masked to the band, with the semantics of one of the two Pallas
+banded builds: v2's (``_Band``) or ls's (``_walk_ls``), which differ
+where a band cuts the path off.
+
 A limit hit (node slots, in-edge slots, traceback budget) sets the
 window's ``failed`` flag; the driver re-polishes such a window on the
 host. The subgraph is clamped to the n used node slots, as the Pallas
@@ -87,9 +92,11 @@ def _rank_order(key: np.ndarray, nodes: np.ndarray) -> np.ndarray:
 
 def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
                wts: np.ndarray, L: int, begin: int, end: int, bb_len: int,
-               stats: Optional[dict], colstep: bool, wband: int = 0) -> bool:
+               stats: Optional[dict], colstep: bool, wband: int = 0,
+               kernel: str = "v2") -> bool:
     """Fold one layer into the graph; returns the layer's band hit (always
-    False at wband = 0, the flat DP)."""
+    False at wband = 0, the flat DP). Under a band, `kernel` picks the
+    banded semantics: v2's (``_Band``) or ls's (``_walk_ls``)."""
     N, E, ML = cfg.max_nodes, cfg.max_edges, cfg.max_len
     gp, ma, mm = cfg.gap, cfg.match, cfg.mismatch
     offset = int(_F(0.01) * _F(bb_len))
@@ -150,6 +157,19 @@ def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
     hit = False
     if band is not None:
         start_u, hit = band.end_pick(start_u, best, L)
+        if kernel == "ls":
+            # rule 1: no end score above NEG fails the layer; rule 2: a
+            # layer that fails adds nothing to the graph
+            walked = best is not None and best > NEG
+            if walked:
+                pos_node, touch, walked = _walk_ls(cfg, g, Hn, sub, sq, band,
+                                                   int(start_u), L)
+                hit |= touch
+            if walked:
+                _update_graph(cfg, g, pos_node, sq, wts, L)
+            else:
+                g.failed = True
+            return hit
     u, j, steps = int(start_u), L, 0
     limit = N + ML + 2
     walk = band is None or n_sub > 0     # an empty banded subgraph fails
@@ -183,26 +203,30 @@ def _add_layer(cfg: PoaConfig, g: _Graph, seq: torch.Tensor,
 
 
 def _rederive(cfg: PoaConfig, g: _Graph, Hn: np.ndarray, sub: np.ndarray,
-              sq: np.ndarray, u: int, j: int):
+              sq: np.ndarray, u: int, j: int, col0: bool = False):
     """The move at (u, j), re-derived from the finished rows of H: the
     diagonal before up, each through the first slot whose row attains the
-    cell, else left. Returns (move, predecessor)."""
+    cell, else left. Returns (move, predecessor). With `col0` (the ls
+    banded build) column 0 has a diagonal too, where the cell is NEG +
+    mismatch: the value of a shifted-in NEG plus the mismatch that the
+    column's missing base scores."""
     gp, ma, mm = cfg.gap, cfg.match, cfg.mismatch
     cur = Hn[u + 1, j]
     jm1 = max(j - 1, 0)
     sc = ma if int(sq[jm1]) == int(g.base[u]) else mm
+    diag0 = col0 and j == 0 and cur == NEG + mm
     diag_pred = up_pred = -1
     any_valid = any_diag = any_up = False
     for s in g.src[u]:
         if s < 0 or not sub[s]:
             continue
         any_valid = True
-        if not any_diag and j > 0 and Hn[s + 1, jm1] + sc == cur:
+        if not any_diag and (diag0 or j > 0 and Hn[s + 1, jm1] + sc == cur):
             any_diag, diag_pred = True, int(s)
         if not any_up and Hn[s + 1, j] + gp == cur:
             any_up, up_pred = True, int(s)
     if not any_valid:
-        any_diag = j > 0 and jm1 * gp + sc == cur
+        any_diag = diag0 or j > 0 and jm1 * gp + sc == cur
         any_up = j * gp + gp == cur
     if any_diag:                     # priority diag > up > left
         return 0, diag_pred
@@ -231,7 +255,9 @@ class _Band:
       the band edge (``|j - cexp| >= wband - 1``) off the virtual row; an
       end score no better than NEG starts the walk on the virtual row.
 
-    ``cells`` counts the cells the band admits (the DP's work)."""
+    ``cells`` counts the cells the band admits (the DP's work). The ls
+    banded semantics take its rows, cell count, deficit test and boundary
+    test, and walk with ``_walk_ls`` instead of the move records."""
 
     def __init__(self, cfg, g, order, sub, L, begin, wband):
         self.cfg, self.g, self.sub = cfg, g, sub
@@ -306,6 +332,42 @@ class _Band:
         slot = mv >> 2
         prd = -1 if slot == VSLOT else int(self.g.src[u, slot])
         return mv & 3, prd
+
+
+def _walk_ls(cfg: PoaConfig, g: _Graph, Hn: np.ndarray, sub: np.ndarray,
+             sq: np.ndarray, band: _Band, u: int, L: int):
+    """The ls banded build's traceback (racon_tpu/ops/poa_pallas_ls.py,
+    band=True) from end node u at column L, over the masked H: at each
+    node it walks left to the first cell that a diagonal or an up move
+    explains (re-derived, column 0's diagonal included) and takes that
+    move. A node where no cell at or left of the entry is explained is
+    stuck: the layer fails, and that node's cells are not tested for a
+    boundary touch. A diagonal off column 0 into a node fails the layer
+    too (the walk enters it left of column 0). Returns (pos_node,
+    touch, ok), where touch says that a visited cell came within one cell
+    of the band edge."""
+    pos_node = np.full(L, -1, dtype=np.int64)
+    touch, j, steps = False, L, 0
+    limit = cfg.max_nodes + cfg.max_len + 2
+    while u != -1:
+        near = False
+        while True:                  # the node's insertion run
+            steps += 1
+            if j < 0 or steps > limit:       # stuck
+                return pos_node, touch, False
+            near |= band.near(u, j)
+            move, prd = _rederive(cfg, g, Hn, sub, sq, u, j, col0=True)
+            if move != 2:
+                break
+            j -= 1
+        touch |= near
+        if move == 0:
+            if j == 0:
+                return pos_node, touch, prd == -1
+            pos_node[j - 1] = u
+            j -= 1
+        u = prd
+    return pos_node, touch, True     # the virtual row: the rest are inserted
 
 
 def _update_graph(cfg: PoaConfig, g: _Graph, pos_node: np.ndarray,
@@ -422,10 +484,11 @@ def _consensus(cfg: PoaConfig, g: _Graph):
 
 def polish_window(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
                   begins, ends, stats: Optional[dict] = None,
-                  colstep: bool = True, wband: int = 0):
+                  colstep: bool = True, wband: int = 0, kernel: str = "v2"):
     """One window: init graph, fold in layers, consensus. CPU tensors in;
     (cons_base, cons_cov, cons_len, failed, n_nodes, band_hit) out, where
-    band_hit ORs the layers' hits under half-band `wband` (0: flat)."""
+    band_hit ORs the layers' hits under half-band `wband` (0: flat) with
+    `kernel`'s banded semantics."""
     bl = int(bb_len)
     g = _Graph(cfg, bb, bbw, bl)
     ln, bg, en = lens.tolist(), begins.tolist(), ends.tolist()
@@ -435,21 +498,27 @@ def polish_window(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
         if L <= 0 or g.failed:
             continue
         hit |= _add_layer(cfg, g, seqs[li], ws[li].numpy(), L, bg[li],
-                          en[li], bl, stats, colstep, wband)
+                          en[li], bl, stats, colstep, wband, kernel)
     cb, cc, cl = _consensus(cfg, g)
     return cb, cc, cl, g.failed, g.n, hit
 
 
 def poa_batch_plain(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
                     lens, begins, ends, stats: Optional[dict] = None,
-                    colstep: bool = True, wband=None):
+                    colstep: bool = True, wband=None, kernel: str = "v2"):
     """Batched POA on the CPU: the same nine arrays, in the same order, as
     the kernels take; returns (cons_base i32[B,N], cons_cov i32[B,N],
     cons_len i32[B], failed bool[B], n_nodes i32[B]) on the CPU.
 
     `wband`, when given (i32[B], the banded build's input), runs each
     window's DP under its half band (0: flat, exactly the flat outputs)
-    and appends band_hit bool[B] to the outputs.
+    and appends band_hit bool[B] to the outputs. `kernel` says whose
+    banded build to follow where they differ: "v2"'s (``_Band``: moves
+    recorded, an end score no better than NEG starts the walk on the
+    virtual row) or "ls"'s (racon_tpu/ops/poa_pallas_ls.py band=True:
+    moves re-derived from the masked H by ``_walk_ls``; rule 1, an end
+    score no better than NEG fails the layer; rule 2, a layer that fails
+    adds nothing to the graph). Without `wband` it changes nothing.
 
     `stats`, when given, accumulates the DP cells ("cells": those the band
     admits, every cell where wband is 0) and DP rows ("rows": subgraph
@@ -471,7 +540,7 @@ def poa_batch_plain(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     for b in range(B):
         cb, cc, cl, fl, nn, hit = polish_window(
             cfg, bb[b], bbw[b], bb_len[b], n_layers[b], seqs[b], ws[b],
-            lens[b], begins[b], ends[b], stats, colstep, wb[b])
+            lens[b], begins[b], ends[b], stats, colstep, wb[b], kernel)
         cons_base[b] = torch.from_numpy(cb)
         cons_cov[b] = torch.from_numpy(cc)
         cons_len[b], failed[b], n_nodes[b], band_hit[b] = cl, fl, nn, hit

@@ -13,14 +13,17 @@ the other. Both keep H in global memory and fit every window class up to
 (poa_v2_cuda.plan), so neither depth nor window class keeps a window off
 the card.
 
-With ``band`` (the JAX package's ``RACON_TPU_BAND``; v2 only, since the ls
-kernel has no banded build yet) every batch runs v2's banded build: each
-window gets the half band of its worst layer's length delta plus
-``band_slack`` (ops/band.py), or 0 (flat) where that band would not be
-much narrower than the DP row. A window whose kernel run sets band_hit,
-or fails, under a band is re-run at twice the band, at most
-``band_max_widenings`` times and below ``max_len // 2``, then at 0,
-through the same build; only a failure at 0 goes to the host.
+With ``band`` (the JAX package's ``RACON_TPU_BAND``) every batch runs the
+chosen kernel's banded build: each window gets the half band of its worst
+layer's length delta plus ``band_slack`` (ops/band.py), or 0 (flat) where
+that band would not be much narrower than the DP row. A window whose
+kernel run sets band_hit, or fails, under a band is re-run at twice the
+band, at most ``band_max_widenings`` times and below ``max_len // 2``,
+then at 0, through the same build; only a failure at 0 goes to the host.
+The two banded builds differ where a band cuts the path off (an ls layer
+with no end score above NEG fails, and adds nothing to the graph), but the
+ladder re-runs every window that fails or hits, so both end in the flat
+bytes.
 """
 
 from __future__ import annotations
@@ -77,17 +80,13 @@ def tgs_trim(codes: np.ndarray, cov: np.ndarray, n_seqs: int):
     return codes[begin:end + 1]
 
 
-def kernel_for(poa_kernel: str, band: bool = False):
+def kernel_for(poa_kernel: str):
     """The POA wrapper for a kernel name, looked up in this module when
-    called (so a caller may wrap it here). `band` needs v2: the ls
-    kernel's banded build is not ported yet."""
+    called (so a caller may wrap it here). Each wrapper runs its banded
+    build when given ``wband=``."""
     if poa_kernel not in POA_KERNELS:
         raise ValueError(f"poa_kernel must be 'ls' or 'v2', got "
                          f"{poa_kernel!r}")
-    if band and poa_kernel != "v2":
-        raise NotImplementedError(
-            "band=True runs the v2 POA kernel's banded build; the ls "
-            "kernel's banded build is not ported yet (ROADMAP queue 1)")
     return poa_consensus if poa_kernel == "ls" else poa_consensus_v2
 
 
@@ -113,7 +112,7 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
     `poa_kernel` ("v2", the default, or "ls") picks the kernel; `band`
-    runs v2's banded build with its widening ladder (module note).
+    runs its banded build with the widening ladder (module note).
 
     Returns {device, host_fallback, backbone, failed, layers_dropped,
     batches, host_seconds, band}: windows served by the kernel,
@@ -122,7 +121,7 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     run (re-runs included), the wall time of the host re-polish, and the
     ladder's counts (ops/band.py; all 0 without `band`)."""
     device = torch.device(device)
-    kernel_for(poa_kernel, band)
+    kernel_for(poa_kernel)
     n = pipeline.num_windows()
     stats = {"device": 0, "host_fallback": 0, "backbone": 0, "failed": 0,
              "layers_dropped": 0, "batches": 0, "band": _band.new_stats()}
@@ -172,7 +171,7 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
             while chunk:   # the ladder: re-run the hits until none is left
                 packed = _pack(chunk, cfg,
                                [states[i].k or 0 for i, _, _ in chunk])
-                outs = poa_consensus_v2(
+                outs = kernel_for(poa_kernel)(
                     cfg, *poa.batch_to_tensors(packed, device),
                     wband=torch.from_numpy(packed[9]).to(device))
                 stats["batches"] += 1

@@ -44,8 +44,8 @@ class TorchPolisher:
     DP on both phases (the JAX package's ``RACON_TPU_BAND``; ops/band.py):
     each job and window starts on the band of its length delta plus
     ``band_slack`` and widens at most ``band_max_widenings`` times before
-    it runs flat; the output is the flat run's. It needs the v2 POA
-    kernel. The other keyword arguments are racon's (window_length,
+    it runs flat, through the chosen POA kernel's banded build; the output
+    is the flat run's. The other keyword arguments are racon's (window_length,
     quality_threshold, error_threshold, trim, match, mismatch, gap,
     fragment_correction, num_threads).
 
@@ -60,7 +60,7 @@ class TorchPolisher:
                  band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
                  **racon_kwargs):
         self.device = _resolve_device(device)
-        kernel_for(poa_kernel, band)
+        kernel_for(poa_kernel)
         self.batch_windows = batch_windows
         self.poa_kernel = poa_kernel
         self.band = dict(band=band, band_slack=band_slack,

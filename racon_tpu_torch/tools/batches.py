@@ -181,7 +181,7 @@ def band_batch(cfg: PoaConfig, B: int, seed: int, roll: int = 0):
     return bb, bbw, bl, nl, seqs, ws, lens, bg, en, None
 
 
-def _plain_poa_part(cfg, arrays, wband=None):
+def _plain_poa_part(cfg, arrays, wband=None, kernel="v2"):
     """One process's share of the plain POA run: numpy in, numpy out."""
     import torch
 
@@ -189,16 +189,18 @@ def _plain_poa_part(cfg, arrays, wband=None):
     stats = {"cells": 0, "steps": 0, "rows": 0}
     outs = poa.poa_batch_plain(
         cfg, *(torch.from_numpy(a) for a in arrays), stats=stats,
-        colstep=True, wband=None if wband is None else torch.from_numpy(wband))
+        colstep=True, wband=None if wband is None else torch.from_numpy(wband),
+        kernel=kernel)
     return [o.numpy() for o in outs], stats
 
 
-def plain_poa_parallel(batches, procs: int):
+def plain_poa_parallel(batches, procs: int, kernel: str = "v2"):
     """The plain POA version on the host for [(cfg, tensors)] or [(cfg,
-    tensors, wband)] (the banded build's half bands, i32[B]), each batch's
-    windows split over `procs` processes (the plain version loops over
-    windows in Python). Returns [(outputs, stats)]: the stats hold the DP
-    cells, the DP rows and the colstep steps."""
+    tensors, wband)] (the banded build's half bands, i32[B], run with
+    `kernel`'s banded semantics), each batch's windows split over `procs`
+    processes (the plain version loops over windows in Python). Returns
+    [(outputs, stats)]: the stats hold the DP cells, the DP rows and the
+    colstep steps."""
     import torch
 
     jobs, spans = [], []
@@ -208,7 +210,7 @@ def plain_poa_parallel(batches, procs: int):
         cuts = np.linspace(0, host[0].shape[0], procs + 1).astype(int)
         spans.append((len(jobs), procs))
         jobs += [(cfg, [a[lo:hi] for a in host],
-                  None if wb is None else wb[lo:hi])
+                  None if wb is None else wb[lo:hi], kernel)
                  for lo, hi in zip(cuts[:-1], cuts[1:])]
     ctx = multiprocessing.get_context("spawn")
     with ProcessPoolExecutor(procs, mp_context=ctx) as ex:

@@ -433,6 +433,9 @@ def test_banded_polish_with_no_widening_equals_flat(sam_set):
 
 
 def test_band_cli_flags_and_ls_refusal(sam_set, capsys):
+    """The CLI's band flags; ``--poa-kernel ls --band``, which was refused
+    until the ls kernel's banded build was ported, writes the same bytes
+    as ``--band``."""
     paths, _, want = sam_set
     args = ["--device", "cpu", "-w", "80", "-m", "5", "-x", "-4", "-g", "-8",
             *paths]
@@ -440,6 +443,6 @@ def test_band_cli_flags_and_ls_refusal(sam_set, capsys):
                      "1", *args]) == 0
     out = capsys.readouterr().out
     assert out == "".join(f">{n}\n{s}\n" for n, s in want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        racon_tpu_torch.TorchPolisher(*paths, device="cpu", band=True,
-                                      poa_kernel="ls", **POLISH_KW)
+    assert cli.main(["--poa-kernel", "ls", "--band", "--band-slack", "8",
+                     "--band-max-widenings", "1", *args]) == 0
+    assert capsys.readouterr().out == out

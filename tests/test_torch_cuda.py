@@ -274,27 +274,34 @@ def test_poa_v2_band_build_fits_two_blocks_an_sm(card):
     assert occ["blocks_per_sm"] >= 2
 
 
-def _assert_band_build_equal(card, cfg, packed, wband):
-    """The banded build against the plain version (all six outputs and
-    the band cells); at wband 0 against the flat build as well."""
-    wb = torch.as_tensor(wband, dtype=torch.int32)
+#: Each POA kernel's wrapper and its banded build's launch-count name.
+BAND_BUILDS = {"v2": (poa_v2_cuda.poa_consensus_v2, "poa_consensus_v2_band"),
+               "ls": (poa_cuda.poa_consensus, "poa_consensus_band")}
+
+
+def _assert_band_build_equal(card, cfg, packed, wband, kernel="v2"):
+    """A kernel's banded build against the plain version with its banded
+    semantics (all six outputs and the band cells; v2 also its serial
+    steps); at wband 0 against the flat build as well."""
+    fn, name = BAND_BUILDS[kernel]
+    wb = torch.as_tensor(np.asarray(wband), dtype=torch.int32)
     want_st, got_st = {}, {}
-    want = poa_v2_cuda.poa_consensus_v2(
-        cfg, *poa.batch_to_tensors(packed, "cpu"), wband=wb, stats=want_st)
+    want = fn(cfg, *poa.batch_to_tensors(packed, "cpu"), wband=wb,
+              stats=want_st)
     dev_in = poa.batch_to_tensors(packed, card)
-    n0 = cuda_lib.LAUNCHES["poa_consensus_v2_band"]
-    got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, wband=wb.to(card),
-                                       stats=got_st)
+    n0 = cuda_lib.LAUNCHES[name]
+    got = fn(cfg, *dev_in, wband=wb.to(card), stats=got_st)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES["poa_consensus_v2_band"] == n0 + 1
+    assert cuda_lib.LAUNCHES[name] == n0 + 1
     assert len(got) == 6
     assert got_st["cells"] == want_st["cells"] > 0
-    assert got_st["steps"] == want_st["steps"]
+    if kernel == "v2":
+        assert got_st["steps"] == want_st["steps"]
     for k, (w, g) in enumerate(zip(want, got)):
         np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
                                       err_msg=f"output {k}")
     if not wb.any():
-        flat = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in)
+        flat = fn(cfg, *dev_in)
         for f, g in zip(flat, got):
             assert torch.equal(f, g)
     return want
@@ -320,6 +327,64 @@ def test_poa_v2_band_build_equals_plain_on_mixed_bands(card):
     packed = batches.poa_batch(cfg, 8, 31, 500)
     want = _assert_band_build_equal(card, cfg, packed,
                                     [0, 1, 3, 6, 12, 24, 48, 100])
+    assert want[5].any() and not want[5].all()
+
+
+def test_poa_ls_band_build_fits_two_blocks_an_sm(card):
+    """The ls kernel's banded build at -w 500: the flat build's shared
+    memory and, as the flat build, two blocks an SM."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    occ = poa_cuda.occupancy(cfg, band=True)
+    assert occ["shared_bytes"] == poa_cuda.occupancy(cfg)["shared_bytes"]
+    assert occ["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("window", [500, 1280])
+@pytest.mark.parametrize("wband,roll", [(0, 0), (8, 0), (1, 5)])
+def test_poa_ls_band_build_equals_plain(card, window, wband, roll):
+    """The ls kernel's banded build on band_batch at -w 500 and -w 1280:
+    wband 0 (the flat build's outputs), 8, and 1 on drifting layers."""
+    cfg = poa_driver.make_config(window, 4, 5, -4, -8)
+    packed = batches.band_batch(cfg, 4, window + roll, roll)
+    want = _assert_band_build_equal(card, cfg, packed, [wband] * 4, "ls")
+    if roll:
+        assert want[5].all()
+
+
+#: Random windows of about 100 bases (tools.batches.poa_batch) as the CPU
+#: tests hold the plain ls banded semantics to the Pallas build on them:
+#: (seed, rate, half bands); "stuck" has a walk that gets stuck.
+LS_BAND_CFG = poa.PoaConfig(512, 128, 128, 8, 8, 5, -4, -8)
+LS_BAND_CASES = {
+    "s0_r10": (0, 0.1, None), "s4_r10": (4, 0.1, None),
+    "s4_r20": (4, 0.2, None), "stuck": (5, 0.15, [3] * 8)}
+
+
+@pytest.mark.parametrize("case", sorted(LS_BAND_CASES))
+def test_poa_ls_band_build_equals_plain_where_rule_1_fails(card, case):
+    """Half bands drawn from 1..23: the ls build fails windows whose best
+    end score is no better than NEG (rule 1), which v2's banded semantics
+    serve; every output equals the plain ls semantics."""
+    seed, rate, wband = LS_BAND_CASES[case]
+    packed = batches.poa_batch(LS_BAND_CFG, 8, seed, 100, rate)
+    if wband is None:
+        wband = np.random.default_rng(1000 + seed).integers(1, 24, 8)
+    want = _assert_band_build_equal(card, LS_BAND_CFG, packed, wband, "ls")
+    assert want[3].any()
+    if case != "stuck":
+        v2 = poa_v2_cuda.poa_consensus_v2(
+            LS_BAND_CFG, *poa.batch_to_tensors(packed, "cpu"),
+            wband=torch.as_tensor(wband, dtype=torch.int32))
+        assert (want[3] & ~v2[3]).any()
+
+
+def test_poa_ls_band_build_equals_plain_on_mixed_bands(card):
+    """Mutated windows of 2..32 layers at -w 500 under eight half bands in
+    one launch of the ls kernel's banded build."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    packed = batches.poa_batch(cfg, 8, 31, 500)
+    want = _assert_band_build_equal(card, cfg, packed,
+                                    [0, 1, 3, 6, 12, 24, 48, 100], "ls")
     assert want[5].any() and not want[5].all()
 
 
