@@ -12,6 +12,8 @@ then, each phase printing one JSON line:
   CUDA events around the launch call alone (cuda_lib.LAUNCH_EVENTS)
   beside its bound from the DP cells it needed, and checks that
   polishing lowers the edit distance to the truth;
+  main_aligner_by_band gives the main run's aligner launches, device ms
+  and lane cells per band K;
 * main_ls or main_v2: the same polish with the other POA kernel, recorded
   the same way; its FASTA must be byte-identical to the main run's;
 * main_band: the same polish on the banded path (band=True, slack 32:
@@ -42,7 +44,13 @@ then, each phase printing one JSON line:
   clock), printed as "v2 POA phases" lines; each base-case band prints a
   "base case phases" line the same way (dp and traceback, max and mean
   over the launch's tasks) and an occupancy line (registers, spill bytes,
-  resident warps per SM); the aligner's bounds count the band cells its
+  resident warps per SM); each edge launch prints an "edge phases" line
+  (tasks, rows mean, ns a row, max and mean over the launch's tasks, from
+  the kernel's clock64() cycles over the card's highest SM clock, and the
+  launch's waves: tasks over SMs x resident warps an SM), is timed in
+  three rounds of ten calls (min, median, max of the rounds' means: the
+  spread between calls), and each edge band and direction prints an
+  occupancy line; the aligner's bounds count the band cells its
   DP needs (the lanes o of row i with 0 <= i + dmin + o <= S), and its
   lines also give the cells its warps run (R x K, "lane_cells"); the
   banded POA build's bound counts the cells its band admits;
@@ -89,8 +97,9 @@ HBM_BYTES_S = 3.35e12
 INT32_OPS_S = 132 * 64 * 1.98e9
 # Integer ops per DP cell that any implementation of the recurrence does.
 POA_OPS_PER_CELL = 6    # diag add, gap add, max, -j*g, running max, +j*g
-EDGE_OPS_PER_CELL = 6   # mismatch add, gap add, min, -lane, running min, +lane
-BASE_OPS_PER_CELL = 7   # the edge cell plus the move decision
+# The edit DP kept in a frame shifted by lane and row (csrc/align.cu):
+EDGE_OPS_PER_CELL = 4   # mismatch flag, add, neighbour min, running min
+BASE_OPS_PER_CELL = 7   # the edge cell, a compare for each move bit, their pack
 
 MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
 # The parity set: small, because its CPU polish runs the plain versions,
@@ -574,12 +583,21 @@ def check_poa_band(torch, fn, kernel, rec, procs, run):
 def check_edge(torch, ac, rec, name="hirschberg_edge", run="main"):
     """The `run`'s largest launch of kernel `name` for each band and
     direction, the whole batch held against the plain version on the
-    card."""
+    card, and timed in three rounds of ten calls (min, median and max of
+    the rounds' means: the spread between calls). Each launch also prints
+    an "edge phases" line (ns a row, max and mean over the launch's tasks,
+    from the kernel's clock64() cycles over the card's highest SM clock,
+    and the launch's waves), and each band and direction of the kernel an
+    occupancy line."""
     tot = Totals()
     kept = rec.inputs(name)
     require(kept, f"no {name} launch of the {run} run was kept to check")
+    mhz = sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for cells, (scal, q, t, K, backward) in kept:
-        got = ac.edge_rows(scal, q, t, K, backward)
+        B = scal.shape[0]
+        cycles = torch.zeros(B, dtype=torch.int64, device=scal.device)
+        got = ac.edge_rows(scal, q, t, K, backward, cycles=cycles)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want = ac.edge_rows_plain(scal, q, t, K, backward)
@@ -588,23 +606,43 @@ def check_edge(torch, ac, rec, name="hirschberg_edge", run="main"):
         err = max_abs_err([want], [got])
         require(err == 0, f"edge kernel (K={K}, backward={backward}) "
                 f"differs from its plain version by {err}")
-        ms = cuda_ms(torch, lambda: ac.edge_rows(scal, q, t, K, backward),
-                     10)
+        rounds = sorted(cuda_ms(torch, lambda: ac.edge_rows(
+            scal, q, t, K, backward), 10) for _ in range(3))
+        ms = rounds[1]
         n_bytes = nbytes((scal, q, t, got))
         n_ops = EDGE_OPS_PER_CELL * cells
         b_ms, b_by = bound(n_bytes, n_ops)
         lanes = lane_cells(scal, K)
         R = scal[:, 0].cpu()
+        occ = ac.edge_occupancy(K, backward)
+        run_rows = R > 0
+        ns_row = (cycles.cpu()[run_rows].double() / R[run_rows].double()
+                  / mhz * 1e3)
+        phases = {"tasks": B, "rows_mean": float(R.float().mean()),
+                  "ns_per_row_max": float(ns_row.max()),
+                  "ns_per_row_mean": float(ns_row.mean()),
+                  "waves": B / (sms * occ["warps_per_sm"]),
+                  "sm_clock_mhz": mhz}
+        print(f"edge phases, K={K}, backward={backward}: "
+              + json.dumps(phases), flush=True)
         line = {"phase": "kernel_check", "kernel": name,
                 "input": "largest launch of its band and direction in the "
                 f"{run} run", "K": K, "rcap": q.shape[1],
                 "backward": backward, "tasks": len(R),
                 "rows_mean": float(R.float().mean()), "band_cells": cells,
                 "lane_cells": lanes, "ps_per_lane_cell": ms * 1e9 / lanes,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "plain_on": "cuda", "bound_ms": b_ms, "bound_by": b_by}
+                "max_abs_err": err, "ms": ms,
+                "ms_rounds": {"min": rounds[0], "median": rounds[1],
+                              "max": rounds[2]},
+                "plain_ms": plain_ms,
+                "plain_on": "cuda", "bound_ms": b_ms, "bound_by": b_by,
+                "phases": phases}
         emit(line)
         tot.add(line, n_bytes, n_ops)
+    for K in ((128,) if name.endswith("_k128") else ac.BANDS):
+        for backward in (False, True):
+            emit({"phase": "occupancy", "kernel": name, "K": K,
+                  "backward": backward, **ac.edge_occupancy(K, backward)})
     return tot.row()
 
 
@@ -896,6 +934,8 @@ def main() -> int:
         second = "ls" if first == "v2" else "v2"
         runs = {first: run_main(*mods, first, "main"),
                 second: run_main(*mods, second, f"main_{second}")}
+        emit({"phase": "main_aligner_by_band",
+              "aligner_by_band": runs[first][1].per_band()})
         require(runs[second][0] == runs[first][0], f"the {second} POA "
                 f"kernel's FASTA differs from the {first} kernel's")
         emit({"phase": f"main_{second}_vs_main", "identical": True})

@@ -31,10 +31,15 @@ whose certificate fails climbs the ladder to the flat bucket.
 What bounds the kernels on an H100: integer operations. One warp serves a
 task and holds K/32 lanes per thread in registers, so a row costs no
 shared memory and no block barrier, only warp shuffles for the one-lane
-neighbour and the prefix/suffix min. The edge kernel reads the target row
-from global memory through the L1 cache; the base case keeps the target
-and query codes in registers and writes its moves, two bits a cell, to a
-global scratch that one thread reads back during the traceback.
+neighbour and the prefix/suffix min. Both keep the target and query codes
+in registers (a window of target codes four to a word, slid one code a
+row; the query's words one a lane), so a row loads nothing from global
+memory. The edge kernel tests no bounds inside a row: it keeps each row
+in a frame shifted by its lane and row index, where a cell is an add and
+two mins, and sets the lanes out of band to INF once, at its output
+(csrc/align.cu says why that leaves every output bit unchanged). The
+base case writes its moves, two bits a cell, to a global scratch that one
+thread reads back during the traceback.
 
 Wrappers: a tensor on the CPU goes to the plain version, a tensor on the
 card to the kernel (or an exception). Each launch adds one to
@@ -235,8 +240,7 @@ def _lib():
         lib = cuda_lib.load("align")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rt_edge_launch.restype = ci
-        lib.rt_edge_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                       vp]
+        lib.rt_edge_launch.argtypes = [vp] * 5 + [ci] * 5 + [vp]
         _LIB = lib
     return _LIB
 
@@ -250,6 +254,16 @@ def _base_lib():
         lib.rt_base_launch.argtypes = [vp] * 9 + [ci] * 4 + [vp]
         _BASE_LIB = lib
     return _BASE_LIB
+
+
+def edge_occupancy(K: int, backward: bool) -> dict:
+    """The edge kernel's registers and local (spill) bytes a thread and
+    resident warps per SM at band K in one direction (needs the card)."""
+    if K not in KERNEL_BANDS:
+        raise ValueError(f"band {K} not in {KERNEL_BANDS}")
+    return cuda_lib.occupancy(_lib().rt_edge_occupancy, (K, int(backward)),
+                              ("regs", "local_bytes", "warps_per_sm"),
+                              "edge kernel")
 
 
 def base_occupancy(K: int) -> dict:
@@ -279,13 +293,26 @@ def _check_tasks(scal, q, t, rows: int, K: int):
     return B
 
 
-def edge_rows(scal, q, t, K: int, backward: bool) -> torch.Tensor:
+def edge_rows(scal, q, t, K: int, backward: bool,
+              cycles=None) -> torch.Tensor:
     """Last band row per task: the kernel for tensors on the card, the
-    plain version for tensors on the CPU."""
+    plain version for tensors on the CPU.
+
+    cycles: None, or an int64 tensor (B,) on the card that the kernel
+    fills with each task's clock64() cycles in its row loop. The plain
+    version counts none."""
     if scal.device.type == "cpu":
+        if cycles is not None:
+            raise ValueError("cycles: only the kernel counts them")
         return edge_rows_plain(scal, q, t, K, backward)
     rcap = q.shape[1]
     B = _check_tasks(scal, q, t, rcap, K)
+    if q.data_ptr() % 4 or rcap % 4:
+        raise ValueError("q: the kernel reads it as 32-bit words; its data "
+                         "must be 4-byte aligned and its rows a multiple of "
+                         f"4 bytes (rcap {rcap})")
+    if cycles is not None:
+        cuda_lib.require(cycles, "cycles", torch.int64, (B,), scal.device)
     out = torch.empty((B, K), dtype=torch.int32, device=scal.device)
     if B:
         lib = _lib()
@@ -293,8 +320,9 @@ def edge_rows(scal, q, t, K: int, backward: bool) -> torch.Tensor:
         with cuda_lib.launch_events(name, scal):
             err = lib.rt_edge_launch(
                 cuda_lib.ptr(scal), cuda_lib.ptr(q), cuda_lib.ptr(t),
-                cuda_lib.ptr(out), B, rcap, K, rcap + K, int(backward),
-                cuda_lib.stream_of(scal))
+                cuda_lib.ptr(out),
+                None if cycles is None else cuda_lib.ptr(cycles), B, rcap,
+                K, rcap + K, int(backward), cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg edge kernel")
         cuda_lib.LAUNCHES[name] += 1
     return out

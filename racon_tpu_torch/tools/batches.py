@@ -1,4 +1,5 @@
-"""Seeded synthetic kernel inputs: POA window batches and alignment pairs.
+"""Seeded synthetic kernel inputs: POA window batches, alignment pairs and
+edge-kernel tasks.
 
 Used to hold each CUDA kernel against its plain version on the card
 (chip_smoke.py, tests/test_torch_cuda.py). Everything is drawn with
@@ -147,6 +148,53 @@ def align_pairs(seed: int, count: int, lo: int, hi: int, rate=(0.02, 0.18)):
         q = rng.integers(0, 4, int(rng.integers(lo, hi))).astype(np.uint8)
         out.append((q, mutate(rng, q, float(rng.uniform(*rate)))))
     return out
+
+
+def _edge_arrays(K, shapes, rng, rcap):
+    """Edge tasks (scal i32[B,4], q u8[B,rcap], t u8[B,rcap+K]) of the
+    given (R, S, dmin) shapes; dmin None lays the task out as the
+    aligner's orchestration does (the band centred on the drift). Codes
+    0..4 (4 is N); the target is the query with 12% of its codes
+    redrawn, padded with 255."""
+    B = len(shapes)
+    scal = np.zeros((B, 4), np.int32)
+    q = rng.integers(0, 5, (B, rcap)).astype(np.uint8)
+    t = np.full((B, rcap + K), 255, np.uint8)
+    for b, (R, S, dmin) in enumerate(shapes):
+        if dmin is None:
+            drift = S - R
+            dmin = min(0, drift) - (K - 1 - abs(drift)) // 2
+        scal[b] = (R, S, dmin, 0)
+        src = np.concatenate([q[b, :R], rng.integers(0, 5, rcap + K)])[:S]
+        flip = rng.random(S) < 0.12
+        src[flip] = rng.integers(0, 5, int(flip.sum()))
+        t[b, :S] = src
+    return scal, q, t
+
+
+def edge_tasks(K: int, seed: int, rcap: int = 512):
+    """Ten edge tasks at band K, R <= 300: near-diagonal ones, R = 1 with
+    S = 0, R a multiple of neither 4 nor 32, dmin <= -K (the first rows
+    wholly out of band, and column 0 entering at the last lane), dmin > 0
+    with S < R (column S reaching lane 0 going backward), S = rcap + K,
+    and codes 4 (N) in query and target."""
+    shapes = [(1, 0, -((K - 1) // 2)), (299, 310, None), (257, 240, None),
+              (100, 120, None), (300, 320, -K - 7), (200, 50, 5),
+              (150, rcap + K, -3), (31, 33, 1 - K), (260, 275, None),
+              (45, 40, -K - 20)]
+    return _edge_arrays(K, shapes, np.random.default_rng(seed), rcap)
+
+
+def edge_batch(K: int, B: int, seed: int, rcap: int = 512):
+    """B random edge tasks at band K: R in 1..rcap, S within K/4 of R,
+    dmin in -K/2..0."""
+    rng = np.random.default_rng(seed)
+    shapes = []
+    for _ in range(B):
+        R = int(rng.integers(1, rcap + 1))
+        S = int(rng.integers(max(0, R - K // 4), min(rcap + K, R + K // 4)))
+        shapes.append((R, S, -int(rng.integers(0, K // 2))))
+    return _edge_arrays(K, shapes, rng, rcap)
 
 
 def band_batch(cfg: PoaConfig, B: int, seed: int, roll: int = 0):

@@ -17,6 +17,7 @@ from racon_tpu.ops import align_pallas as ap
 from racon_tpu.ops.encoding import encode as jencode
 from racon_tpu_torch import native
 from racon_tpu_torch.ops import align_cuda as ac
+from racon_tpu_torch.tools import batches
 from tests.test_align import mutate
 
 
@@ -56,30 +57,23 @@ def _path_cost(ops, q: bytes, t: bytes) -> int:
     return cost
 
 
-def _first_round(enc, backward, K=256, rcap=512):
-    """First-round Hirschberg halves of every pair in band K."""
-    bands, tasks = {}, []
-    for i, (q, t) in enumerate(enc):
-        n, m = len(q), len(t)
-        if ap.band_for(n, m) != K:
-            continue
-        bands[i] = (K, int(min(0, m - n) - (K - 1 - abs(m - n)) // 2))
-        imid = n // 2
-        tasks.append(ap._Task(i, imid if backward else 0,
-                              n if backward else imid, 0, m))
-    return ap._task_arrays(enc, tasks, bands, rcap, K, backward, 1)
+# K = 256 keeps the ids "False" and "True" it had as the only band tested
+EDGE_CASES = [pytest.param(K, bwd, id=str(bwd) if K == 256 else f"{K}-{bwd}")
+              for K in (128, 256, 512, 1024, 2048) for bwd in (False, True)]
 
 
-@pytest.mark.parametrize("backward", [False, True])
-def test_edge_rows_plain_equals_pallas(backward):
-    enc = _enc(_pairs(5, 6, 300, 900))
-    scal, q, t = _first_round(enc, backward)
-    assert len(scal) >= 3
-    want = np.asarray(ap._build_edge_kernel(512, 256, backward, True, 1)(
-        len(scal))(scal, q, t))
-    got = ac.edge_rows(*ac.tasks_to_tensors(scal, q, t, "cpu"), 256,
+@pytest.mark.parametrize("K,backward", EDGE_CASES)
+def test_edge_rows_plain_equals_pallas(K, backward):
+    """The plain edge rows equal the Pallas edge kernel in interpret mode
+    at every band the kernels take, in both directions."""
+    scal, q, t = batches.edge_tasks(K, K * 2 + backward)
+    assert (q[:, :300] == 4).any() and (t == 4).any()
+    want = np.asarray(ap._build_edge_kernel(512, K, backward, True, 1)(
+        len(scal))(scal, q.astype(np.int32), t.astype(np.int32)))
+    got = ac.edge_rows(*ac.tasks_to_tensors(scal, q, t, "cpu"), K,
                        backward)
     np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < ac.INF).any(axis=1).sum() >= len(scal) - 2
 
 
 @pytest.mark.parametrize("K", [256, 512, 1024, 2048])
@@ -195,6 +189,17 @@ def test_align_pairs_ops_do_not_depend_on_chunking(monkeypatch, chunk):
         assert (w is None) == (g is None)
         if g is not None:
             np.testing.assert_array_equal(g, w)
+
+
+def test_edge_rows_cycles_only_on_the_card():
+    """The plain edge rows count no cycles: asking for them raises."""
+    scal = torch.tensor([[3, 3, -1, 0]], dtype=torch.int32)
+    q = torch.zeros((1, 512), dtype=torch.uint8)
+    t = torch.full((1, 512 + 256), 255, dtype=torch.uint8)
+    for backward in (False, True):
+        with pytest.raises(ValueError):
+            ac.edge_rows(scal, q, t, 256, backward,
+                         cycles=torch.zeros(1, dtype=torch.int64))
 
 
 def test_base_case_cycles_only_on_the_card():

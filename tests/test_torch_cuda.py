@@ -403,19 +403,10 @@ def test_probe_kernel_equals_plain(card, mode):
         np.testing.assert_array_equal(g.cpu().numpy(), w.cpu().numpy())
 
 
-@pytest.mark.parametrize("K", [128, 256, 1024])
-@pytest.mark.parametrize("backward", [False, True])
-def test_edge_kernel_equals_plain(card, K, backward):
-    rng = np.random.default_rng(K + backward)
-    B, rcap = 6, 512
-    scal = np.zeros((B, 4), np.int32)
-    q = rng.integers(0, 5, (B, rcap)).astype(np.uint8)
-    t = np.full((B, rcap + K), 255, np.uint8)
-    for b in range(B):
-        R = int(rng.integers(1, rcap + 1))
-        S = int(rng.integers(max(0, R - K // 4), min(rcap + K, R + K // 4)))
-        scal[b] = (R, S, -int(rng.integers(0, K // 2)), 0)
-        t[b, :S] = rng.integers(0, 4, S)
+EDGE_BANDS = [128, 256, 512, 1024, 2048]
+
+
+def _assert_edge_equal(card, scal, q, t, K, backward):
     want = ac.edge_rows(*ac.tasks_to_tensors(scal, q, t, "cpu"), K, backward)
     name = ac.launch_name("hirschberg_edge", K)
     n0 = cuda_lib.LAUNCHES[name]
@@ -423,6 +414,87 @@ def test_edge_kernel_equals_plain(card, K, backward):
     torch.cuda.synchronize()
     assert cuda_lib.LAUNCHES[name] == n0 + 1
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    return want
+
+
+@pytest.mark.parametrize("K", EDGE_BANDS)
+@pytest.mark.parametrize("backward", [False, True])
+def test_edge_kernel_equals_plain(card, K, backward):
+    _assert_edge_equal(card, *batches.edge_batch(K, 6, K + backward), K,
+                       backward)
+
+
+@pytest.mark.parametrize("K", EDGE_BANDS)
+@pytest.mark.parametrize("backward", [False, True])
+def test_edge_kernel_equals_plain_on_special_tasks(card, K, backward):
+    """R = 1 with S = 0, R a multiple of neither 4 nor 32, dmin <= -K,
+    dmin > 0, S = rcap + K and N codes (batches.edge_tasks): the boundary
+    cells the kernel derives without a per-cell test."""
+    want = _assert_edge_equal(card, *batches.edge_tasks(K, K * 2 + backward),
+                              K, backward)
+    assert (want < ac.INF).any(axis=1).sum() >= 8
+
+
+@pytest.mark.parametrize("K", EDGE_BANDS)
+def test_edge_kernel_equals_plain_across_many_code_words(card, K):
+    """rcap 4096: rows that cross many 32-row blocks of entering target
+    codes and 128-row chunks of query words, in both directions."""
+    for backward in (False, True):
+        scal, q, t = batches.edge_batch(K, 24, 40 + K + backward, rcap=4096)
+        assert scal[:, 0].max() > 2048
+        _assert_edge_equal(card, scal, q, t, K, backward)
+
+
+def test_edge_kernel_cycles_fit_in_the_launch(card):
+    """Each task's row-loop cycles are positive, one a task, and the
+    largest fits inside the launch's event time at the card's highest SM
+    clock; a cycles buffer of the wrong shape raises."""
+    K = 1024
+    B = 60
+    scal, q, t = ac.tasks_to_tensors(*batches.edge_batch(K, B, 3, 2048),
+                                     card)
+    for backward in (False, True):
+        ac.edge_rows(scal, q, t, K, backward)
+        cycles = torch.zeros(B, dtype=torch.int64, device=card)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        got = ac.edge_rows(scal, q, t, K, backward, cycles=cycles)
+        ev[1].record()
+        torch.cuda.synchronize()
+        assert torch.equal(got, ac.edge_rows(scal, q, t, K, backward))
+        c = cycles.cpu()
+        assert c.shape == (B,) and (c > 0).all()
+        assert int(c.max()) <= ev[0].elapsed_time(ev[1]) * \
+            _max_sm_mhz() * 1e3
+        with pytest.raises(ValueError):
+            ac.edge_rows(scal, q, t, K, backward, cycles=cycles[:10])
+
+
+def test_edge_kernel_rejects_unaligned_query(card):
+    """The kernel reads q as 32-bit words: a q whose data starts one byte
+    into its buffer raises before any launch."""
+    K = 256
+    scal, q, t = ac.tasks_to_tensors(*batches.edge_batch(K, 4, 9), card)
+    buf = torch.zeros(q.numel() + 4, dtype=torch.uint8, device=card)
+    q1 = buf[1:1 + q.numel()].view(q.shape)
+    q1.copy_(q)
+    assert q1.data_ptr() % 4 == 1 and q1.is_contiguous()
+    name = ac.launch_name("hirschberg_edge", K)
+    n0 = cuda_lib.LAUNCHES[name]
+    for backward in (False, True):
+        with pytest.raises(ValueError, match="aligned"):
+            ac.edge_rows(scal, q1, t, K, backward)
+    assert cuda_lib.LAUNCHES[name] == n0
+
+
+@pytest.mark.parametrize("K", EDGE_BANDS)
+def test_edge_kernel_occupancy(card, K):
+    for backward in (False, True):
+        occ = ac.edge_occupancy(K, backward)
+        assert 0 < occ["regs"] <= 255
+        assert occ["warps_per_sm"] >= 1
+        assert occ["local_bytes"] >= 0
 
 
 def _base_tasks(K, B, seed):
