@@ -28,7 +28,8 @@ then, each phase printing one JSON line:
   lowerr_band_vs_flat gives FASTA equality and the aligner's launches,
   device ms and lane cells per band K in both runs;
 * occupancy: each POA kernel's registers, spill bytes, shared bytes and
-  blocks per SM at the main path's geometry, and v2's shared-memory plan;
+  blocks per SM at the main path's geometry, and both kernels'
+  shared-memory plans;
 * kernel_check: runs each kernel again on the inputs of its largest
   launches in its path's run (one per POA depth bucket, per edge band and
   direction, per base-case band; the v2 kernel, colstep on and off, on
@@ -41,7 +42,10 @@ then, each phase printing one JSON line:
   and times it; the v2 lines also give the kernel's per-phase times (init,
   dp, end_pick, traceback, update, consensus: max and mean over the
   launch's windows, from clock64() cycles over the card's highest SM
-  clock), printed as "v2 POA phases" lines; each base-case band prints a
+  clock), printed as "v2 POA phases" lines; each ls launch, flat and
+  banded, prints an "ls POA phases" line the same way (init, dp,
+  end_pick, traceback, update, order, consensus), and each v2 banded
+  launch a "v2 POA phases" line; each base-case band prints a
   "base case phases" line the same way (dp and traceback, max and mean
   over the launch's tasks) and an occupancy line (registers, spill bytes,
   resident warps per SM); each edge launch prints an "edge phases" line
@@ -146,6 +150,14 @@ def phase_ms(names, st, windows: int, mhz: float) -> dict:
                 / (mhz * 1e3)}
             for n, sm, mx in zip(names, st["phase_cycles"],
                                  st["phase_cycles_max"])}
+
+
+def print_phases(label: str, phases: dict, ms: float) -> None:
+    """One "<kernel> POA phases" line: per phase the max and mean ms over
+    the launch's windows (phase_ms), after the launch's own ms."""
+    print(f"{label} ({ms:.2f} ms a launch; max / mean ms over windows): "
+          + ", ".join(f"{n} {v['max_ms']:.2f} / {v['mean_ms']:.2f}"
+                      for n, v in phases.items()), flush=True)
 
 
 def cuda_ms(torch, fn, reps: int) -> float:
@@ -385,9 +397,12 @@ def check_poa(torch, poa_cuda, rec):
     window held against the plain version (on the host, in parallel
     processes; its time is that of all buckets together). Returns the
     kernel's totals and, for the v2 check, the kept launches with their
-    plain outputs and stats and the plain time."""
+    plain outputs and stats and the plain time. Each launch also prints
+    an "ls POA phases" line (phase_ms of the kernel's clock64() phase
+    counts)."""
     from racon_tpu_torch.tools.batches import plain_poa_parallel
 
+    mhz = sm_clock_mhz()
     kept = rec.inputs("poa_consensus")
     require(kept, "no POA launch of the main run was kept to check")
     procs = max(1, min(8, os.cpu_count() or 1))
@@ -408,6 +423,9 @@ def check_poa(torch, poa_cuda, rec):
                 f"POA DP cells: kernel {kst['cells']}, plain {cells}, "
                 f"main path {cells_main}")
         ms = cuda_ms(torch, lambda: poa_cuda.poa_consensus(cfg, *dev_in), 3)
+        phases = phase_ms(poa_cuda.PHASES, kst, dev_in[0].shape[0], mhz)
+        print_phases(f"ls POA phases, depth {cfg.depth}, "
+                     f"{dev_in[0].shape[0]} windows, flat", phases, ms)
         n_bytes = nbytes(dev_in) + nbytes(got)
         n_ops = POA_OPS_PER_CELL * cells
         b_ms, b_by = bound(n_bytes, n_ops)
@@ -420,7 +438,8 @@ def check_poa(torch, poa_cuda, rec):
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms / len(kept),
                 "plain_on": f"host, {procs} processes (all buckets' time "
-                "split evenly)", "bound_ms": b_ms, "bound_by": b_by}
+                "split evenly)", "bound_ms": b_ms, "bound_by": b_by,
+                "phases": phases, "sm_clock_mhz": mhz}
         emit(line)
         tot.add(line, n_bytes, n_ops)
         per_bucket[cfg.depth] = ms
@@ -464,11 +483,8 @@ def check_poa_v2(torch, poa_v2_cuda, checked):
             line.update({f"max_abs_err_{key}": err, f"ms_{key}": ms,
                          f"steps_{key}": kst["steps"],
                          f"phases_{key}": phases, "sm_clock_mhz": mhz})
-            print(f"v2 POA phases, depth {cfg.depth}, "
-                  f"{dev_in[0].shape[0]} windows, {key} ({ms:.2f} ms a "
-                  f"launch; max / mean ms over windows): " + ", ".join(
-                      f"{n} {v['max_ms']:.2f} / {v['mean_ms']:.2f}"
-                      for n, v in phases.items()), flush=True)
+            print_phases(f"v2 POA phases, depth {cfg.depth}, "
+                         f"{dev_in[0].shape[0]} windows, {key}", phases, ms)
         line["step_ratio"] = line["steps_flat"] / line["steps_colstep"]
         n_bytes = nbytes(dev_in) + nbytes(want)
         n_ops = POA_OPS_PER_CELL * pst["cells"]
@@ -519,9 +535,14 @@ def check_poa_band(torch, fn, kernel, rec, procs, run):
     windows first, up to 16, and up to 16 others; the plain version runs
     on the host in `procs` processes), and the band cells the kernel
     counts equal the plain version's on that sample. The time is the
-    whole launch's; the bound counts its band cells."""
+    whole launch's; the bound counts its band cells. Each launch also
+    prints a "<kernel> POA phases" line from the banded run's clock64()
+    phase counts."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
     from racon_tpu_torch.tools.batches import plain_poa_parallel
 
+    mhz = sm_clock_mhz()
+    names = (poa_cuda if kernel == "ls" else poa_v2_cuda).PHASES
     name = BAND_NAME[kernel]
     kept = rec.inputs(name)
     require(kept, f"no {name} launch was kept to check")
@@ -557,6 +578,10 @@ def check_poa_band(torch, fn, kernel, rec, procs, run):
                 f"band cells: kernel {sst['cells']}, plain {pst['cells']}")
         ms = cuda_ms(torch, lambda: fn(cfg, *dev_in, wband=wband), 3)
         ms_flat = cuda_ms(torch, lambda: fn(cfg, *dev_in), 3)
+        phases = phase_ms(names, kst, dev_in[0].shape[0], mhz)
+        print_phases(f"{kernel} POA phases, depth {cfg.depth}, "
+                     f"{dev_in[0].shape[0]} windows, banded, "
+                     f"{int(got[5].sum())} band hits", phases, ms)
         n_bytes = nbytes(dev_in) + nbytes((wband,)) + nbytes(got)
         n_ops = POA_OPS_PER_CELL * kst["cells"]
         b_ms, b_by = bound(n_bytes, n_ops)
@@ -574,7 +599,7 @@ def check_poa_band(torch, fn, kernel, rec, procs, run):
                 "plain_ms": plain_ms / len(runs),
                 "plain_on": f"host, {procs} processes, the sampled windows "
                 "(all buckets' time split evenly)", "bound_ms": b_ms,
-                "bound_by": b_by}
+                "bound_by": b_by, "phases": phases, "sm_clock_mhz": mhz}
         emit(line)
         tot.add(line, n_bytes, n_ops)
     return tot.row()
@@ -1002,6 +1027,7 @@ def main() -> int:
                        cfg, band=True)}
             emit({"phase": "occupancy", "depth": cfg.depth,
                   "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
+                  "ls_plan": poa_cuda.plan(cfg),
                   "v2_plan": poa_v2_cuda.plan(cfg), **occ})
 
         # each kernel on its path's largest launches, against its plain

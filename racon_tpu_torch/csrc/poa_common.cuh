@@ -1,13 +1,15 @@
-// Device code shared by the two POA kernels (csrc/poa.cu, csrc/poa_v2.cu):
-// the block reduction that picks a winner by (value, secondary, index), the
-// in-edge update of the graph update, and the heaviest-bundle consensus.
-// Each follows the plain version ops/poa.py bit for bit.
+// Code shared by the two POA kernels (csrc/poa.cu, csrc/poa_v2.cu): the
+// block reduction that picks a winner by (value, secondary, index), the
+// in-edge update of the graph update, the heaviest-bundle consensus, the
+// rank-order helpers of the frozen-order graph update, the global scratch
+// layout and the shared-memory plan. Each follows the plain version
+// ops/poa.py bit for bit.
 //
-// The graph's arrays live where each kernel keeps them, so the edge update
-// and the consensus are templates on their element types: csrc/poa.cu
-// passes int32 arrays (in-edge tables in global memory), csrc/poa_v2.cu
-// int16 node ids, uint8 bases and int16 in-edge sources in shared memory.
-// A node's in-edge slots are E of a row of ES (ES >= E).
+// The graph's arrays live where each kernel keeps them (its Shared
+// struct), so the helpers are templates on their types: both kernels pass
+// int16 node ids, uint8 bases and int16 in-edge sources, in shared memory
+// or, where the graph is too large, in the global scratch. A node's
+// in-edge slots are E of a row of ES (ES >= E).
 
 #pragma once
 
@@ -21,18 +23,11 @@
 
 namespace poa_common {
 
-// How an edge weight (global memory) grows and is read, by where the
-// in-edge sources live. With the sources in global memory (int32) the
-// weight is a plain read-modify-write; with the sources in shared memory
-// (int16) nothing waits for the weight, so the add is a fire-and-forget
-// atomic, performed in L2, and the consensus reads the weights from L2.
+// How an edge weight (global memory) grows and is read: nothing waits for
+// the weight, so the add is a fire-and-forget atomic, performed in L2, and
+// the consensus reads the weights from L2.
 template <typename SrcT>
 struct EdgeSpace;
-template <>
-struct EdgeSpace<int> {
-  static __device__ __forceinline__ void add(int* p, int v) { *p += v; }
-  static __device__ __forceinline__ int load(const int* p) { return *p; }
-};
 template <>
 struct EdgeSpace<int16_t> {
   static __device__ __forceinline__ void add(int* p, int v) {
@@ -220,6 +215,146 @@ __device__ inline int consensus(const IdT* order, const BaseT* base, int n,
     }
   }
   return cnt;
+}
+
+// The rank-order helpers read a kernel's Shared struct (template Sh): its
+// key, order, base and path arrays.
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+// In-edge slots a node's row holds: max_edges rounded up to 4.
+__host__ __device__ inline int edge_stride(int E) { return (E + 3) & ~3; }
+
+// A window's global scratch, as int32 word offsets: H [N + 1][ML + 1],
+// the edge weights [N][ES], the in-edge sources (int16 [N][ES], used with
+// GSRC), the move records [N + 1][ML + 1]; off[3] is the total, a multiple
+// of 4 words so that every window's sources are 16-byte aligned.
+__host__ __device__ inline void scratch_layout(int N, int ML, int ES,
+                                               size_t* off) {
+  const size_t cells = (size_t)(N + 1) * (ML + 1);
+  const size_t edges = (size_t)N * ES;
+  off[0] = cells;
+  off[1] = (cells + edges + 3) & ~(size_t)3;
+  off[2] = off[1] + edges / 2;
+  off[3] = (off[2] + (cells + 3) / 4 + 3) & ~(size_t)3;
+}
+
+// Ranks in [0, n) whose key is < k (strict) or <= k, by binary search over
+// the sorted order.
+template <class Sh>
+__device__ __forceinline__ int count_keys(const Sh& s, int n, float k,
+                                          bool or_equal) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    const float km = s.key[s.order[mid]];
+    if (km < k || (or_equal && km == k)) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// First node id among the n nodes of the frozen order with key == k0 and
+// base == b, or -1 (one thread). Equal keys are adjacent in rank order, by
+// id.
+template <class Sh>
+__device__ int find_old(const Sh& s, int n, float k0, int b) {
+  for (int r = count_keys(s, n, k0, false); r < n; ++r) {
+    const int v = s.order[r];
+    if (s.key[v] != k0) return -1;
+    if (s.base[v] == b) return v;
+  }
+  return -1;
+}
+
+// First id in [lo, hi) (this layer's new nodes) with key == k0 and
+// base == b, or -1 (warp 0, all lanes get the answer).
+template <class Sh>
+__device__ int find_new(const Sh& s, int lo, int hi, float k0, int b,
+                        int lane) {
+  for (int v0 = lo; v0 < hi; v0 += 32) {
+    const int v = v0 + lane;
+    const unsigned m = __ballot_sync(
+        0xffffffffu, v < hi && s.key[v] == k0 && s.base[v] == b);
+    if (m) return v0 + __ffs(m) - 1;
+  }
+  return -1;
+}
+
+// Merges the layer's new ids [n, nn) into the frozen order[0, n) by
+// (key, id); an old node goes before a new one of equal key, since every
+// new id is larger than every old one. Each node's rank is counted: an old
+// node's rank plus the new keys below its key; a new node's place among
+// the new ones (its index, where the walk left their keys non-decreasing,
+// as it does, else counted) plus the old keys <= its key. Block-wide; path
+// is the scratch.
+template <class Sh>
+__device__ void merge_new(const Sh& s, int n, int nn) {
+  const int tid = threadIdx.x;
+  const int M = nn - n;
+  int unsorted = 0;
+  for (int m = tid; m + 1 < M; m += NT)
+    unsorted |= s.key[n + m] > s.key[n + m + 1];
+  const bool sorted = !__syncthreads_or(unsorted);
+  for (int i = tid; i < n; i += NT) {    // old: i + new keys < its key
+    const int o = s.order[i];
+    const float k = s.key[o];
+    int below = 0;
+    if (sorted) {
+      int lo = 0, hi = M;
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s.key[n + mid] < k) lo = mid + 1; else hi = mid;
+      }
+      below = lo;
+    } else {
+      for (int m = 0; m < M; ++m) below += s.key[n + m] < k;
+    }
+    s.path[i + below] = (int16_t)o;
+  }
+  for (int m = tid; m < M; m += NT) {    // new: its place among the new
+    const float k = s.key[n + m];        // plus old keys <= its key
+    int before = m;
+    if (!sorted) {
+      before = 0;
+      for (int q = 0; q < M; ++q) {
+        const float kq = s.key[n + q];
+        before += kq < k || (kq == k && q < m);
+      }
+    }
+    s.path[before + count_keys(s, n, k, true)] = (int16_t)(n + m);
+  }
+  __syncthreads();
+  for (int i = tid; i < nn; i += NT) s.order[i] = s.path[i];
+  __syncthreads();
+}
+
+// The launch's shared-memory plan at (N, ML, ES) for a kernel whose layout
+// takes bytes(N, ML, ES, ring, gsrc): the largest ring of max_ring,
+// max_ring / 2, ... 2 rows that fits the card's opt-in shared memory a
+// block, with the in-edge sources in shared memory where any ring fits so,
+// else in the global scratch. cudaErrorInvalidValue where nothing fits.
+inline cudaError_t plan(int N, int ML, int ES, int max_ring,
+                        size_t (*bytes)(int, int, int, int, bool), int* ring,
+                        bool* gsrc, size_t* sm) {
+  int dev = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  for (int g = 0; g < 2; ++g)
+    for (int rg = max_ring; rg >= 2; rg >>= 1) {
+      const size_t b = bytes(N, ML, ES, rg, g != 0);
+      if (b <= (size_t)cap) {
+        *ring = rg;
+        *gsrc = g != 0;
+        *sm = b;
+        return cudaSuccess;
+      }
+    }
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace poa_common

@@ -109,6 +109,13 @@ namespace {
 
 using poa_common::better;
 using poa_common::block_best;
+using poa_common::align16;
+using poa_common::count_keys;
+using poa_common::edge_stride;
+using poa_common::find_new;
+using poa_common::find_old;
+using poa_common::merge_new;
+using poa_common::scratch_layout;
 
 struct Cfg {
   int N, ML, MB, E, ES, D, ma, mm, gp, colstep;
@@ -143,13 +150,6 @@ struct Shared {
                      // the global scratch (not from the ring)
 };
 
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
-
-// In-edge slots a node's row holds: max_edges rounded up to 4.
-__host__ __device__ inline int edge_stride(int E) { return (E + 3) & ~3; }
-
 // The carve below, as byte offsets, for a ring of `ring` rows and the
 // in-edge sources in shared memory unless gsrc; returns the total.
 __host__ __device__ inline size_t shared_layout(int N, int ML, int ES,
@@ -170,20 +170,6 @@ __host__ __device__ inline size_t shared_bytes(int N, int ML, int ES,
                                                int ring, bool gsrc) {
   size_t off[5];
   return shared_layout(N, ML, ES, ring, gsrc, off);
-}
-
-// A window's global scratch, as int32 word offsets: H [N + 1][ML + 1],
-// the edge weights [N][ES], the in-edge sources (int16 [N][ES], used with
-// GSRC), the move bytes [N + 1][ML + 1]; off[3] is the total, a multiple
-// of 4 words so that every window's sources are 16-byte aligned.
-__host__ __device__ inline void scratch_layout(int N, int ML, int ES,
-                                               size_t* off) {
-  const size_t cells = (size_t)(N + 1) * (ML + 1);
-  const size_t edges = (size_t)N * ES;
-  off[0] = cells;
-  off[1] = (cells + edges + 3) & ~(size_t)3;
-  off[2] = off[1] + edges / 2;
-  off[3] = (off[2] + (cells + 3) / 4 + 3) & ~(size_t)3;
 }
 
 // gsrc: the in-edge sources' global home, or null to carve them here.
@@ -222,44 +208,6 @@ __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
   s.step = (uint8_t*)p; p += N;
   s.far = (uint8_t*)p;
   return s;
-}
-
-// Ranks in [0, n) whose key is < k (strict) or <= k, by binary search over
-// the sorted order.
-__device__ __forceinline__ int count_keys(const Shared& s, int n, float k,
-                                          bool or_equal) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    const float km = s.key[s.order[mid]];
-    if (km < k || (or_equal && km == k)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// First node id among the n nodes of the frozen order with key == k0 and
-// base == b, or -1 (one thread). Equal keys are adjacent in rank order, by
-// id.
-__device__ int find_old(const Shared& s, int n, float k0, int b) {
-  for (int r = count_keys(s, n, k0, false); r < n; ++r) {
-    const int v = s.order[r];
-    if (s.key[v] != k0) return -1;
-    if (s.base[v] == b) return v;
-  }
-  return -1;
-}
-
-// First id in [lo, hi) (this layer's new nodes) with key == k0 and
-// base == b, or -1 (warp 0, all lanes get the answer).
-__device__ int find_new(const Shared& s, int lo, int hi, float k0, int b,
-                        int lane) {
-  for (int v0 = lo; v0 < hi; v0 += 32) {
-    const int v = v0 + lane;
-    const unsigned m = __ballot_sync(
-        0xffffffffu, v < hi && s.key[v] == k0 && s.base[v] == b);
-    if (m) return v0 + __ffs(m) - 1;
-  }
-  return -1;
 }
 
 struct Win {
@@ -567,53 +515,6 @@ __device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
   }
 }
 
-// Merges the layer's new ids [n, nn) into the frozen order[0, n) by
-// (key, id); an old node goes before a new one of equal key, since every
-// new id is larger than every old one. Each node's rank is counted: an old
-// node's rank plus the new keys below its key; a new node's place among
-// the new ones (its index, where the walk left their keys non-decreasing,
-// as it does, else counted) plus the old keys <= its key. Block-wide; path
-// is the scratch.
-__device__ void merge_new(const Shared& s, int n, int nn) {
-  const int tid = threadIdx.x;
-  const int M = nn - n;
-  int unsorted = 0;
-  for (int m = tid; m + 1 < M; m += NT)
-    unsorted |= s.key[n + m] > s.key[n + m + 1];
-  const bool sorted = !__syncthreads_or(unsorted);
-  for (int i = tid; i < n; i += NT) {    // old: i + new keys < its key
-    const int o = s.order[i];
-    const float k = s.key[o];
-    int below = 0;
-    if (sorted) {
-      int lo = 0, hi = M;
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (s.key[n + mid] < k) lo = mid + 1; else hi = mid;
-      }
-      below = lo;
-    } else {
-      for (int m = 0; m < M; ++m) below += s.key[n + m] < k;
-    }
-    s.path[i + below] = (int16_t)o;
-  }
-  for (int m = tid; m < M; m += NT) {    // new: its place among the new
-    const float k = s.key[n + m];        // plus old keys <= its key
-    int before = m;
-    if (!sorted) {
-      before = 0;
-      for (int q = 0; q < M; ++q) {
-        const float kq = s.key[n + q];
-        before += kq < k || (kq == k && q < m);
-      }
-    }
-    s.path[before + count_keys(s, n, k, true)] = (int16_t)(n + m);
-  }
-  __syncthreads();
-  for (int i = tid; i < nn; i += NT) s.order[i] = s.path[i];
-  __syncthreads();
-}
-
 // GSRC: the in-edge sources live in the window's global scratch (where the
 // graph is too large to keep them in shared memory). BAND: the banded
 // build, which takes each window's half band (wband_a; 0 runs the flat DP)
@@ -894,28 +795,10 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
 #undef PHASE
 }
 
-// The launch's shared-memory plan at (N, ML, ES): the largest ring of
-// RING, RING / 2, ... 2 rows that fits the card's opt-in shared memory a
-// block, with the in-edge sources in shared memory where any ring fits so,
-// else in the global scratch. cudaErrorInvalidValue where nothing fits.
+// The launch's shared-memory plan (poa_common::plan) for this kernel's
+// layout.
 cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, size_t* sm) {
-  int dev = 0, cap = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  for (int g = 0; g < 2; ++g)
-    for (int rg = RING; rg >= 2; rg >>= 1) {
-      const size_t b = shared_bytes(N, ML, ES, rg, g != 0);
-      if (b <= (size_t)cap) {
-        *ring = rg;
-        *gsrc = g != 0;
-        *sm = b;
-        return cudaSuccess;
-      }
-    }
-  return cudaErrorInvalidValue;
+  return poa_common::plan(N, ML, ES, RING, shared_bytes, ring, gsrc, sm);
 }
 
 using Kernel = decltype(&poa_v2_kernel<false, false>);

@@ -5,14 +5,21 @@ Replaces the JAX package's lane-lockstep Pallas kernel
 pallas_call :876). The kernel computes what ``poa.poa_batch_plain``
 computes, one thread block per window, and returns the same five outputs.
 
-What bounds it on an H100: the serial dependency chains of POA (one DP
-row after another, the traceback, the graph update), not bytes or integer
-throughput. H, (N + 1) x (max_len + 1) int32 per window, lives in a global
-scratch allocated here; the graph's keys, bases and rank order live in
-shared memory; many windows run at once so that one window's latency
-hides behind the others'. Unlike the Pallas kernel there is no rank
-distance cap and no VMEM fit check: depth and window class never keep a
-window off the card.
+What bounds it on an H100: one window's serial chain (DP rows, traceback,
+graph update), not bytes or integer throughput; a launch lasts as long as
+its slowest window. The design takes global round trips, barriers and
+searches off that chain: the graph (int16 in-edge sources, keys, bases,
+rank order, coverage) lives in shared memory; a DP row reads its
+predecessors from a descriptor built for every row in parallel before the
+layer, takes the row before it from registers and older near rows from a
+shared ring, with one block barrier a row; the DP writes a move record a
+cell, exactly the move the ls traceback re-derives from H (in band and
+masked), so the walk fetches two steps a trip; the rank order is kept by
+one merge a layer, and each position's matched node found by binary
+search. H, the move
+records and the edge weights live in a global scratch allocated here.
+Unlike the Pallas kernel there is no rank distance cap: a predecessor
+beyond the ring is read from the global H.
 
 The banded build (``wband=``) replaces the Pallas kernel's ``band=True``
 build (racon_tpu/ops/poa_pallas_ls.py:64): each window's DP runs under
@@ -23,6 +30,10 @@ with ``kernel="ls"``): an end score no better than NEG fails the layer,
 and a layer that fails adds nothing to the graph. It computes every
 column, as the Pallas build does, and masks the rest; what bounds it is
 the flat build's serial chain.
+
+The graph grows with the window, so each launch plans its shared memory
+(``plan``): a ring of 8 rows at -w 500, fewer for larger windows, and the
+in-edge sources in the global scratch where even 2 rows do not fit.
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -38,6 +49,12 @@ import torch
 from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
 
+MAX_NODES = 32767  # node ids are int16 in both POA kernels
+_INVALID_VALUE = 1  # cudaErrorInvalidValue: the graph does not fit
+#: The kernel's timed phases, in the order of stats["phase_cycles"].
+PHASES = ("init", "dp", "end_pick", "traceback", "update", "order",
+          "consensus")
+
 _LIB = None
 
 
@@ -49,7 +66,9 @@ def _lib():
         lib.rt_poa_scratch_words.restype = ctypes.c_longlong
         lib.rt_poa_scratch_words.argtypes = [ci, ci, ci]
         lib.rt_poa_launch.restype = ci
-        lib.rt_poa_launch.argtypes = [ci] * 8 + [vp] * 18 + [ci, vp]
+        lib.rt_poa_launch.argtypes = [ci] * 8 + [vp] * 19 + [ci, vp]
+        lib.rt_poa_plan.restype = ci
+        lib.rt_poa_plan.argtypes = [ci, ci, ci, vp]
         _LIB = lib
     return _LIB
 
@@ -60,6 +79,41 @@ def occupancy(cfg: PoaConfig, band: bool = False) -> dict:
     return cuda_lib.occupancy(_lib().rt_poa_occupancy,
                               (cfg.max_nodes, cfg.max_len, int(band)),
                               cuda_lib.POA_OCCUPANCY, "POA kernel")
+
+
+def plan_with(fn, cfg: PoaConfig, what: str) -> dict:
+    """A POA kernel's shared-memory plan at cfg's geometry from its
+    library's plan export `fn` (both kernels' wrappers); raises ValueError
+    where the graph does not fit."""
+    out = (ctypes.c_int * 3)()
+    err = fn(cfg.max_nodes, cfg.max_len, cfg.max_edges, out)
+    if err == _INVALID_VALUE:
+        raise ValueError(f"{what}: a window of max_nodes={cfg.max_nodes}, "
+                         f"max_len={cfg.max_len} does not fit the card's "
+                         f"shared memory a block")
+    cuda_lib.check(err, f"{what}'s shared-memory plan")
+    return dict(zip(("ring", "src_in_shared", "shared_bytes"), out))
+
+
+def plan(cfg: PoaConfig) -> dict:
+    """How a launch at cfg's geometry lays out a window on this card: the
+    DP rows its shared ring holds ("ring": 8, 4 or 2), whether the in-edge
+    sources are in shared memory ("src_in_shared") and the dynamic shared
+    bytes a block ("shared_bytes"). Raises ValueError where the graph does
+    not fit the card's shared memory a block (needs the card)."""
+    return plan_with(_lib().rt_poa_plan, cfg, "POA kernel")
+
+
+def add_phase_cycles(stats: dict, names, cycles) -> None:
+    """Both POA wrappers' phase counts: adds a launch's i64[len(names), B]
+    clock64() cycles (one row a phase) to stats, summed over the windows
+    ("phase_cycles") and the largest window's ("phase_cycles_max")."""
+    sums = cycles.sum(dim=1).tolist()
+    peaks = cycles.max(dim=1).values.tolist()
+    old = stats.get("phase_cycles", [0] * len(names))
+    stats["phase_cycles"] = [a + b for a, b in zip(old, sums)]
+    old = stats.get("phase_cycles_max", [0] * len(names))
+    stats["phase_cycles_max"] = [max(a, b) for a, b in zip(old, peaks)]
 
 
 def check_inputs(cfg: PoaConfig, args, dev) -> int:
@@ -78,6 +132,9 @@ def check_inputs(cfg: PoaConfig, args, dev) -> int:
     if cfg.max_edges > 32 or cfg.max_len + 1 > 2048:
         raise ValueError("POA kernel takes max_edges <= 32 and "
                          f"max_len <= 2047, got {cfg}")
+    if cfg.max_nodes > MAX_NODES:
+        raise ValueError(f"POA kernel takes max_nodes <= {MAX_NODES} "
+                         f"(int16 node ids), got {cfg.max_nodes}")
     return B
 
 
@@ -91,7 +148,10 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     band_hit bool[B] to the outputs. `stats`, when given, accumulates the
     DP cells the batch needed ("cells": under a band those it admits), as
     the plain version counts them; on the card that waits for the
-    kernel."""
+    kernel. On the card only, it also accumulates each phase's clock
+    cycles (``PHASES``; thread 0 of each window's block reads
+    ``clock64()``): summed over the windows ("phase_cycles") and the
+    largest window's ("phase_cycles_max")."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats, wband=wband,
@@ -100,6 +160,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     B = check_inputs(cfg, args, dev)
     if wband is not None:
         cuda_lib.require(wband, "wband", torch.int32, (B,), dev)
+    plan(cfg)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -114,8 +175,8 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     lib = _lib()
     per = lib.rt_poa_scratch_words(N, cfg.max_len, cfg.max_edges)
     scratch = torch.empty((B, per), dtype=torch.int32, device=dev)
-    cells = None if stats is None else torch.empty(B, dtype=torch.int64,
-                                                    device=dev)
+    counts = None if stats is None else torch.empty(
+        (1 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
     name = "poa_consensus" if wband is None else "poa_consensus_band"
     with cuda_lib.launch_events(name, bb):
@@ -125,10 +186,12 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
             *(p(t) for t in args), None if wband is None else p(wband),
             p(cons_base), p(cons_cov), p(cons_len), p(failed), p(n_nodes),
             None if wband is None else p(outs[5]),
-            None if cells is None else p(cells), p(scratch), B,
+            None if counts is None else p(counts[0]),
+            None if counts is None else p(counts[1]), p(scratch), B,
             cuda_lib.stream_of(bb))
     cuda_lib.check(err, "POA consensus kernel")
     cuda_lib.LAUNCHES[name] += 1
-    if cells is not None:
-        stats["cells"] = stats.get("cells", 0) + int(cells.sum())
+    if counts is not None:
+        stats["cells"] = stats.get("cells", 0) + int(counts[0].sum())
+        add_phase_cycles(stats, PHASES, counts[1:])
     return outs

@@ -46,13 +46,11 @@ import torch
 
 from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
-from .poa_cuda import check_inputs
+from .poa_cuda import add_phase_cycles, check_inputs, plan_with
 
 VSLOT = 15        # the move records' virtual-start slot: max_edges <= 15
-MAX_NODES = 32767  # node ids are int16 in the kernel
 #: The kernel's timed phases, in the order of stats["phase_cycles"].
 PHASES = ("init", "dp", "end_pick", "traceback", "update", "consensus")
-_INVALID_VALUE = 1  # cudaErrorInvalidValue: the graph does not fit
 
 _LIB = None
 
@@ -86,15 +84,7 @@ def plan(cfg: PoaConfig) -> dict:
     sources are in shared memory ("src_in_shared") and the dynamic shared
     bytes a block ("shared_bytes"). Raises ValueError where the graph does
     not fit the card's shared memory a block (needs the card)."""
-    out = (ctypes.c_int * 3)()
-    err = _lib().rt_poa_v2_plan(cfg.max_nodes, cfg.max_len, cfg.max_edges,
-                                out)
-    if err == _INVALID_VALUE:
-        raise ValueError(f"v2 POA kernel: a window of max_nodes="
-                         f"{cfg.max_nodes}, max_len={cfg.max_len} does not "
-                         f"fit the card's shared memory a block")
-    cuda_lib.check(err, "v2 POA kernel's shared-memory plan")
-    return dict(zip(("ring", "src_in_shared", "shared_bytes"), out))
+    return plan_with(_lib().rt_poa_v2_plan, cfg, "v2 POA kernel")
 
 
 def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
@@ -125,9 +115,6 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     if cfg.max_edges > VSLOT:
         raise ValueError(f"v2 POA kernel takes max_edges <= {VSLOT}, got "
                          f"{cfg.max_edges}")
-    if cfg.max_nodes > MAX_NODES:
-        raise ValueError(f"v2 POA kernel takes max_nodes <= {MAX_NODES} "
-                         f"(int16 node ids), got {cfg.max_nodes}")
     plan(cfg)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -161,12 +148,7 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     cuda_lib.check(err, "v2 POA consensus kernel")
     cuda_lib.LAUNCHES[name] += 1
     if counts is not None:
-        sums = counts.sum(dim=1).tolist()
-        peaks = counts[2:].max(dim=1).values.tolist()
-        stats["cells"] = stats.get("cells", 0) + sums[0]
-        stats["steps"] = stats.get("steps", 0) + sums[1]
-        old = stats.get("phase_cycles", [0] * len(PHASES))
-        stats["phase_cycles"] = [a + b for a, b in zip(old, sums[2:])]
-        old = stats.get("phase_cycles_max", [0] * len(PHASES))
-        stats["phase_cycles_max"] = [max(a, b) for a, b in zip(old, peaks)]
+        stats["cells"] = stats.get("cells", 0) + int(counts[0].sum())
+        stats["steps"] = stats.get("steps", 0) + int(counts[1].sum())
+        add_phase_cycles(stats, PHASES, counts[2:])
     return outs

@@ -139,6 +139,43 @@ def pair_edge_batch(cfg: PoaConfig, windows=PAIR_EDGE_WINDOWS):
     return equal_key_batch(cfg, windows)
 
 
+def far_pred_batch(cfg: PoaConfig, B: int = 4, seed: int = 0,
+                   insert: int = 100):
+    """Windows whose graph holds in-subgraph edges far longer in rank than
+    any ring of DP rows a kernel keeps. On a random 120-base backbone of
+    codes 0..2 the first layer inserts a run of `insert` codes 3 after
+    column 40; no base of the run can match a backbone node, so the run
+    becomes one insertion and the backbone edge 40 -> 41 comes to span
+    `insert` + 1 ranks. The other layers (full span, 5% mutated) follow
+    the backbone across that edge, and every other one carries the run
+    too. cfg needs max_len >= 120 + insert + 10 and max_backbone >= 120."""
+    rng = np.random.default_rng(seed)
+    n, c = 120, 40
+    D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
+    bb = np.zeros((B, MB), np.uint8)
+    bbw = np.zeros((B, MB), np.int32)
+    bb_len = np.full(B, n, np.int32)
+    n_layers = np.full(B, D, np.int32)
+    seqs = np.zeros((B, D, ML), np.uint8)
+    ws = np.zeros((B, D, ML), np.int32)
+    lens = np.zeros((B, D), np.int32)
+    begins = np.zeros((B, D), np.int32)
+    ends = np.full((B, D), n - 1, np.int32)
+    for b in range(B):
+        back = rng.integers(0, 3, n).astype(np.uint8)
+        ins = np.full(insert, 3, np.uint8)
+        bb[b, :n] = back
+        bbw[b, :n] = rng.integers(1, 60, n)
+        for li in range(D):
+            lay = back if li % 2 else np.concatenate(
+                [back[:c + 1], ins, back[c + 1:]])
+            lay = mutate(rng, lay, 0.0 if li == 0 else 0.05)[:ML]
+            seqs[b, li, :len(lay)] = lay
+            ws[b, li, :len(lay)] = rng.integers(1, 60, len(lay))
+            lens[b, li] = len(lay)
+    return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
+
+
 def align_pairs(seed: int, count: int, lo: int, hi: int, rate=(0.02, 0.18)):
     """`count` (query, target) code pairs: a random query of lo..hi bases
     and a target mutated from it at a rate drawn from `rate`."""

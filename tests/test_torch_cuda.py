@@ -388,6 +388,80 @@ def test_poa_ls_band_build_equals_plain_on_mixed_bands(card):
     assert want[5].any() and not want[5].all()
 
 
+@pytest.mark.parametrize("band", [False, True])
+def test_poa_ls_phase_cycles_fit_in_the_launch(card, band):
+    """The ls kernel's phase cycles, flat and banded build: non-negative,
+    the DP's positive, and a window's phases add up to no more than the
+    launch lasted at the card's highest SM clock (one window a launch)."""
+    cfg = poa.PoaConfig(depth=32)
+    packed = batches.poa_batch(cfg, 3, 8, 500)
+    dev_in = poa.batch_to_tensors(packed, card)
+    kw = {"wband": torch.tensor([24], dtype=torch.int32,
+                                device=card)} if band else {}
+    mhz = _max_sm_mhz()
+    for b in range(3):
+        one = [t[b:b + 1].contiguous() for t in dev_in]
+        poa_cuda.poa_consensus(cfg, *one, **kw)
+        st = {}
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        poa_cuda.poa_consensus(cfg, *one, stats=st, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        cycles = st["phase_cycles"]
+        assert len(cycles) == len(poa_cuda.PHASES)
+        assert min(cycles) >= 0 and cycles[1] > 0
+        assert st["phase_cycles_max"] == cycles
+        assert sum(cycles) <= ev[0].elapsed_time(ev[1]) * mhz * 1e3
+
+
+@pytest.mark.parametrize("wband", [None, [0, 8, 120, 3]])
+def test_poa_ls_builds_equal_plain_across_far_predecessors(card, wband):
+    """batches.far_pred_batch: rows whose predecessor ranks about 100
+    before them, beyond any ring of rows the kernel keeps (so read from
+    the global H), flat and under half bands that admit the insertion and
+    ones that do not."""
+    cfg = CFG._replace(depth=6)
+    packed = batches.far_pred_batch(cfg)
+    if wband is None:
+        want_st, got_st = {}, {}
+        want = poa_cuda.poa_consensus(
+            cfg, *poa.batch_to_tensors(packed, "cpu"), stats=want_st)
+        got = poa_cuda.poa_consensus(
+            cfg, *poa.batch_to_tensors(packed, card), stats=got_st)
+        torch.cuda.synchronize()
+        assert got_st["cells"] == want_st["cells"]
+        for k, (w, g) in enumerate(zip(want, got)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                          err_msg=f"output {k}")
+    else:
+        want = _assert_band_build_equal(card, cfg, packed, wband, "ls")
+    # the windows whose band admits the insertion keep it and fold in all
+    # layers; the narrow ones fail at the first layer (rule 1 or the walk)
+    keep = [0, 1, 2, 3] if wband is None else [0, 2]
+    assert not want[3][keep].any() and (want[4][keep] > 200).all()
+
+
+@pytest.mark.parametrize("wband", [None, [0, 2, 5, 40]])
+def test_poa_ls_builds_equal_plain_at_32_edge_slots(card, wband):
+    """max_edges = 32, the most the ls kernel takes: its walk then fetches
+    two records a lane instead of one."""
+    cfg = CFG._replace(max_edges=32)
+    packed = batches.poa_batch(cfg, 4, 12, 100, 0.25)
+    if wband is None:
+        want = poa_cuda.poa_consensus(cfg,
+                                      *poa.batch_to_tensors(packed, "cpu"))
+        got = poa_cuda.poa_consensus(cfg,
+                                     *poa.batch_to_tensors(packed, card))
+        torch.cuda.synchronize()
+        for k, (w, g) in enumerate(zip(want, got)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                          err_msg=f"output {k}")
+    else:
+        _assert_band_build_equal(card, cfg, packed, wband, "ls")
+
+
 @pytest.mark.parametrize("mode", range(probe.N_MODES))
 def test_probe_kernel_equals_plain(card, mode):
     """out, steps and the whole last DP row (or ring row) of every

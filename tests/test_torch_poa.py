@@ -13,10 +13,12 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 from racon_tpu.ops import poa as jpoa
 from racon_tpu.ops import poa_pallas_ls
 from racon_tpu_torch.ops import poa, poa_cuda, poa_driver
+from racon_tpu_torch.tools import batches
 from tests.test_pallas import mutate
 from tests.test_pallas_ls import CFG, _alloc, _set_window
 
@@ -167,3 +169,188 @@ def test_wrapper_rejects_bad_input():
     t[0] = t[0].int()
     with pytest.raises(ValueError):
         poa_cuda.poa_consensus(CFG, *t)
+
+
+# --- models of the CUDA kernel's bookkeeping (csrc/poa.cu), held against
+# the plain version on its own graphs
+
+#: Small ls windows (tools.batches): (seed, mutation rate, half bands or
+#: None for flat); the banded ones include layers that fail rule 1 and a
+#: walk that gets stuck (tests/test_torch_cuda.py LS_BAND_CASES).
+LS_CFG = poa.PoaConfig(512, 128, 128, 8, 8, 5, -4, -8)
+FAR_CFG = poa.PoaConfig(384, 256, 128, 12, 6, 5, -4, -8)
+
+
+def _record_model(cfg, g, Hn, sub, rank, sq, u, L, band):
+    """The move record csrc/poa.cu's DP writes at each column of node u's
+    row, as (move, predecessor) pairs, or None for a row that read a
+    predecessor ranked after it (the kernel re-derives those). In band a
+    diagonal (up) is taken where the cell equals the largest computed
+    predecessor value plus the score (gap), through the first slot that
+    attains it; at a masked cell through the first slot whose value is NEG
+    less the score (gap); column 0's diagonal (banded) where the cell is
+    NEG + mismatch."""
+    NEG, gp = poa.NEG, cfg.gap
+    srcs = g.src[u]
+    valid = [e for e in range(cfg.max_edges) if srcs[e] >= 0 and sub[srcs[e]]]
+    if any(rank[srcs[e]] >= rank[u] for e in valid):
+        return None
+    jj = np.arange(L + 1)
+    if valid:
+        vals = Hn[srcs[valid] + 1, :L + 1].astype(np.int64)
+        preds = [int(srcs[e]) for e in valid]
+    else:
+        vals = (jj * gp)[None, :]
+        preds = [-1]
+    M, S = vals.max(axis=0), vals.argmax(axis=0)
+    row = Hn[u + 1, :L + 1].astype(np.int64)
+    sc = np.where(sq[:L] == g.base[u], cfg.match, cfg.mismatch)
+    off = (np.abs(jj - band.center(u)) > band.w if band is not None
+           else np.zeros(L + 1, bool))
+    out = []
+    for j in range(L + 1):
+        if band is not None and j == 0 and row[0] == NEG + cfg.mismatch:
+            out.append((0, preds[0]))
+            continue
+        if off[j]:
+            d = np.nonzero(vals[:, j - 1] == NEG - sc[j - 1])[0] if j else []
+            up = np.nonzero(vals[:, j] == NEG - gp)[0]
+            if len(d):
+                out.append((0, preds[d[0]]))
+            elif len(up):
+                out.append((1, preds[up[0]]))
+            else:
+                out.append((2, -1))
+        elif j and row[j] == M[j - 1] + sc[j - 1]:
+            out.append((0, preds[S[j - 1]]))
+        elif row[j] == M[j] + gp:
+            out.append((1, preds[S[j]]))
+        else:
+            out.append((2, -1))
+    return out
+
+
+def _check_records(cfg, g, Hn, sub, sq, L, band, rederive):
+    """Every record of the layer equals the plain version's re-derived
+    move at that cell; returns the cells held."""
+    order = poa._rank_order(g.key, np.nonzero(sub)[0])
+    rank = np.full(cfg.max_nodes, cfg.max_nodes)
+    rank[order] = np.arange(len(order))
+    held = 0
+    for u in order:
+        recs = _record_model(cfg, g, Hn, sub, rank, sq, int(u), L, band)
+        for j, rec in enumerate(recs or ()):
+            want = rederive(cfg, g, Hn, sub, sq, int(u), j,
+                            col0=band is not None)
+            assert rec == want, (int(u), j, rec, want)
+            held += 1
+    return held
+
+
+@pytest.mark.parametrize("case", ["flat", "banded", "far_flat", "far_banded"])
+def test_move_record_model_equals_rederive(monkeypatch, case):
+    """csrc/poa.cu's move records, modelled in numpy, give at every cell of
+    every layer the move the plain ls traceback re-derives from H: flat,
+    and banded (masked cells, rule-1 failures, a stuck walk) on small
+    windows and on windows with edges longer than any ring of rows."""
+    rederive, walk_ls = poa._rederive, poa._walk_ls
+    held = []
+    seen = set()
+
+    def spy_rederive(cfg, g, Hn, sub, sq, u, j, col0=False):
+        if not col0 and id(Hn) not in seen:
+            seen.add(id(Hn))
+            held.append(_check_records(cfg, g, Hn, sub, sq, Hn.shape[1] - 1,
+                                       None, rederive))
+        return rederive(cfg, g, Hn, sub, sq, u, j, col0)
+
+    def spy_walk(cfg, g, Hn, sub, sq, band, u, L):
+        held.append(_check_records(cfg, g, Hn, sub, sq, L, band, rederive))
+        return walk_ls(cfg, g, Hn, sub, sq, band, u, L)
+
+    monkeypatch.setattr(poa, "_rederive", spy_rederive)
+    monkeypatch.setattr(poa, "_walk_ls", spy_walk)
+    if case.startswith("far"):
+        cfg, packed = FAR_CFG, batches.far_pred_batch(FAR_CFG, 2)
+        wband = [8, 120]
+    else:
+        cfg = LS_CFG
+        packed = batches.poa_batch(cfg, 3, 5, 60, 0.15)
+        wband = [3, 2, 9]
+    t = poa.batch_to_tensors(packed, "cpu")
+    wb = None if case.endswith("flat") else torch.tensor(wband,
+                                                         dtype=torch.int32)
+    out = poa.poa_batch_plain(cfg, *t, wband=wb, kernel="ls")
+    assert sum(held) > 1000
+    if case == "banded":
+        assert out[3].any()   # a layer failed: rule 1 or a stuck walk
+
+
+def _merged_order(key, order, n, nn):
+    """csrc/poa.cu's merge_new: the layer's new ids [n, nn) merged into
+    the frozen order of the n old ids by counting, each old node at its
+    rank plus the new keys below its key, each new one at its place among
+    the new (by key, then id) plus the old keys <= its key."""
+    new = np.arange(n, nn)
+    old_keys = key[order]
+    out = np.empty(nn, np.int64)
+    for i, o in enumerate(order):
+        out[i + int((key[new] < key[o]).sum())] = o
+    for m, v in enumerate(new):
+        before = int(((key[new] < key[v]) | ((key[new] == key[v]) &
+                                             (new < v))).sum())
+        out[before + int((old_keys <= key[v]).sum())] = v
+    return out
+
+
+def test_merged_order_model_equals_rank_order(monkeypatch):
+    """The rank order csrc/poa.cu keeps by one merge a layer, modelled in
+    numpy, equals the stable key-then-id order (_rank_order, which the
+    kernel's earlier rebuild_order computed) after every layer of the
+    test batches, float32 key collisions included."""
+    update = poa._update_graph
+    layers = []
+
+    def spy(cfg, g, pos_node, sq, wts, L):
+        n = g.n
+        order = poa._rank_order(g.key, np.arange(n))
+        update(cfg, g, pos_node, sq, wts, L)
+        got = _merged_order(g.key, order, n, g.n)
+        np.testing.assert_array_equal(got, poa._rank_order(g.key,
+                                                           np.arange(g.n)))
+        layers.append(g.n - n)
+
+    monkeypatch.setattr(poa, "_update_graph", spy)
+    eq_cfg = CFG._replace(max_nodes=384, max_len=256, max_backbone=128,
+                          depth=16)
+    for cfg, packed in ((LS_CFG, batches.poa_batch(LS_CFG, 4, 4, 80, 0.2)),
+                        (eq_cfg, batches.equal_key_batch(eq_cfg)),
+                        (FAR_CFG, batches.far_pred_batch(FAR_CFG, 2))):
+        poa.poa_batch_plain(cfg, *poa.batch_to_tensors(packed, "cpu"),
+                            kernel="ls")
+    assert len(layers) > 50 and max(layers) >= 100
+
+
+def test_far_pred_batch_holds_far_in_subgraph_edges():
+    """batches.far_pred_batch's graphs, as the plain version builds them,
+    hold an edge whose target ranks more than 64 after its source, and
+    the layers after the first (full span: every node in the subgraph)
+    read it."""
+    packed = batches.far_pred_batch(FAR_CFG)
+    bb, bbw, bb_len, nl, seqs, ws, lens, bg, en = poa.batch_to_tensors(
+        packed, "cpu")
+    n = int(bb_len[0])
+    assert (bg == 0).all() and (en == n - 1).all() and (nl > 1).all()
+    for b in range(bb.shape[0]):
+        g = poa._Graph(FAR_CFG, bb[b], bbw[b], n)
+        for li in range(int(nl[b])):
+            poa._add_layer(FAR_CFG, g, seqs[b, li], ws[b, li].numpy(),
+                           int(lens[b, li]), 0, n - 1, n, None, True)
+            if li == 0:
+                order = poa._rank_order(g.key, np.arange(g.n))
+                rank = np.empty(g.n, np.int64)
+                rank[order] = np.arange(g.n)
+                far = max(int(rank[v] - rank[s]) for v in range(g.n)
+                          for s in g.src[v] if s >= 0)
+                assert far > 64
+        assert not g.failed
