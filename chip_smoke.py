@@ -14,8 +14,9 @@ then, each phase printing one JSON line:
   polishing lowers the edit distance to the truth;
   main_aligner_by_band gives the main run's aligner launches, device ms
   and lane cells per band K;
-* main_ls or main_v2: the same polish with the other POA kernel, recorded
-  the same way; its FASTA must be byte-identical to the main run's;
+* main_v2 (or main_ls): the same polish with the other POA kernel,
+  recorded the same way; its FASTA must be byte-identical to the main
+  run's;
 * main_band: the same polish on the banded path (band=True, slack 32:
   v2's banded build, the aligner's K = 128 builds and the verify-and-widen
   ladder), recorded the same way, with the ladder's counts for both
@@ -27,9 +28,9 @@ then, each phase printing one JSON line:
   reads, about 1% error) polished flat and banded, recorded the same way;
   lowerr_band_vs_flat gives FASTA equality and the aligner's launches,
   device ms and lane cells per band K in both runs;
-* occupancy: each POA kernel's registers, spill bytes, shared bytes and
-  blocks per SM at the main path's geometry, and both kernels'
-  shared-memory plans;
+* occupancy: each POA build's registers, spill bytes, shared bytes and
+  blocks per SM at the main path's geometry, and the shared-memory plans
+  (ls; v2 flat and banded);
 * kernel_check: runs each kernel again on the inputs of its largest
   launches in its path's run (one per POA depth bucket, per edge band and
   direction, per base-case band; the v2 kernel, colstep on and off, on
@@ -59,22 +60,31 @@ then, each phase printing one JSON line:
   lines also give the cells its warps run (R x K, "lane_cells"); the
   banded POA build's bound counts the cells its band admits;
 * poa_decision: v2 over ls and colstep over flat on each depth bucket's
-  largest launch, the numbers that settle the default POA kernel;
+  largest launch, the numbers that settle the default POA kernel (ls
+  unless v2 is at least 10% faster on every bucket);
 * parity: the card (both POA kernels) and the CPU polish a small PAF set
   to the same bytes; parity_band and parity_ls_band: the same set on the
   banded path (slack 8) with each POA kernel, on the card and on the CPU,
   the same bytes and ladder counts (the three CPU polishes run in worker
   processes while the phases above run);
+* wide: a small set at -w 1500 (window class 1536, max_len 2304: both POA
+  kernels' wide builds, 16 columns a thread) polished on the card with
+  each POA kernel and on the CPU (plain versions, in a worker process):
+  the same bytes, the edit distance to the truth lowered, every window
+  with at least two layers served on the card; then each wide build's
+  registers, spill bytes, shared bytes and blocks per SM at -w 1500's and
+  -w 2000's geometries;
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe), then every mode held
   against its plain version run on the card.
 
 Each path (main, main_<other kernel>, main_band, main_ls_band, lowerr,
-lowerr_band, probe) runs with the launch counts set to 0 just before it
-and read just after; every kernel of the path must have launched (the
-banded paths: their POA kernel's banded build and the K = 128 edge build,
-and on lowerr_band the K = 128 base case; on main_band and main_ls_band
-the flat aligner builds as the ladder's floor), and no other POA build.
+lowerr_band, wide_ls, wide_v2, probe) runs with the launch counts set to 0
+just before it and read just after; every kernel of the path must have
+launched (the banded paths: their POA kernel's banded build and the
+K = 128 edge build, and on lowerr_band the K = 128 base case; on
+main_band and main_ls_band the flat aligner builds as the ladder's
+floor), and no other POA build.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -110,6 +120,10 @@ MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
 # one window and one DP row at a time in Python.
 PARITY_MBP = 0.02
 PARITY_SLACK = 8          # the banded parity run's slack
+# The wide set: windows of 1,500 bases (the POA kernels' wide builds); its
+# CPU polish runs the plain versions beside the other phases.
+WIDE_MBP = 0.01
+WIDE_WINDOW = 1500
 # The low-error cell: PacBio-HiFi-like reads, about 1% error.
 LOWERR = dict(mbp=0.5, coverage=30, mean_read=8000, sub=0.005, ins=0.0025,
               dele=0.0025, seed=11)
@@ -505,10 +519,11 @@ def check_poa_v2(torch, poa_v2_cuda, checked):
 def poa_decision(default, ls_ms, v2_ms):
     """The numbers that settle which POA kernel and which v2 DP loop to
     keep, each depth bucket's largest launch timed in this run: v2 (with
-    colstep) over ls, and v2 with colstep over v2 without. v2 is to be
-    the default where it is at least 10% faster than ls on every bucket;
-    the colstep loop stays where it is at least 5% faster than the flat
-    loop on every bucket."""
+    colstep) over ls, and v2 with colstep over v2 without. ls, the JAX
+    package's default, stays the default unless v2 is at least 10% faster
+    than ls on every bucket (ls_stays_default false); the colstep loop
+    stays where it is at least 5% faster than the flat loop on every
+    bucket."""
     buckets = sorted(ls_ms)
     require(buckets and sorted(v2_ms) == buckets,
             "the POA decision needs both kernels timed on every bucket")
@@ -518,7 +533,7 @@ def poa_decision(default, ls_ms, v2_ms):
             "ls_ms": ls_ms, "v2_ms": {d: v2_ms[d][0] for d in buckets},
             "v2_flat_ms": {d: v2_ms[d][1] for d in buckets},
             "v2_over_ls": v2_over_ls,
-            "v2_beats_ls_by_10pct": all(r <= 0.9 for r in
+            "ls_stays_default": not all(r <= 0.9 for r in
                                         v2_over_ls.values()),
             "colstep_over_flat": colstep_over_flat,
             "colstep_beats_flat_by_5pct": all(
@@ -729,20 +744,24 @@ def read_fasta(path: str) -> bytes:
                        if not ln.startswith(">")).encode()
 
 
-def polish(racon_tpu_torch, d, device, poa_kernel="ls", band=None):
+def polish(racon_tpu_torch, d, device, poa_kernel="ls", band=None,
+           window_length=MAIN["window_length"]):
     """One polish of data set `d`; `band`, when given, is the banded
     path's slack (band=True)."""
     kw = {} if band is None else dict(band=True, band_slack=band)
     p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
                                       device=device, poa_kernel=poa_kernel,
-                                      **MAIN, **kw)
+                                      **{**MAIN,
+                                         "window_length": window_length},
+                                      **kw)
     t0 = time.perf_counter()
     p.initialize()
     out = p.polish(True)
     return out, p.stats, time.perf_counter() - t0
 
 
-def cpu_polish(d, band=None, poa_kernel="v2"):
+def cpu_polish(d, band=None, poa_kernel="v2",
+               window_length=MAIN["window_length"]):
     """The port's CPU polish of `d` (the plain versions), in a worker
     process of its own: (FASTA records, stats, seconds)."""
     import torch
@@ -751,7 +770,8 @@ def cpu_polish(d, band=None, poa_kernel="v2"):
     import racon_tpu_torch
 
     torch.set_num_threads(1)
-    return polish(racon_tpu_torch, d, "cpu", poa_kernel, band)
+    return polish(racon_tpu_torch, d, "cpu", poa_kernel, band,
+                  window_length)
 
 
 # The launch-count names of each poa_kernel's flat and banded builds.
@@ -840,6 +860,66 @@ def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
     require(ed_polished < ed_draft, "polishing did not lower the edit "
             f"distance ({ed_draft} -> {ed_polished})")
     return out, rec, launches, on_main
+
+
+def wide_phase(racon_tpu_torch, native, cuda_lib, d, cpu_run):
+    """The wide set (-w 1500) on the card with each POA kernel, launch
+    counts set to 0 just before each polish and read just after (and the
+    POA launches' device ms, from the events around each launch), against
+    the CPU polish of the plain versions (`cpu_run`, a future): the same
+    bytes, the edit distance to the truth lowered, and every window with
+    at least two layers served on the card (none to the host). Then the
+    wide builds' resources at -w 1500's and -w 2000's geometries."""
+    from racon_tpu_torch.ops import poa_cuda, poa_driver, poa_v2_cuda
+
+    runs, poa_ms = {}, {}
+    for kernel in ("ls", "v2"):
+        cuda_lib.reset_launches()
+        cuda_lib.LAUNCH_EVENTS = []
+        runs[kernel] = polish(racon_tpu_torch, d, "cuda", kernel,
+                              window_length=WIDE_WINDOW)
+        launches = dict(cuda_lib.LAUNCHES)
+        poa_ms[kernel] = sum(a.elapsed_time(b) for n, a, b in
+                             cuda_lib.LAUNCH_EVENTS if n == POA_NAME[kernel])
+        cuda_lib.LAUNCH_EVENTS = None
+        check_launches(f"wide_{kernel}", launches, kernel)
+        co = runs[kernel][1]["consensus"]
+        require(co["device"] > 0 and co["host_fallback"] == 0 and
+                co["failed"] == 0, f"wide_{kernel}: windows went to the "
+                f"host ({co})")
+        runs[kernel] += (launches[POA_NAME[kernel]],)
+    cpu, cst, cpu_s = cpu_run.result()
+    require(runs["ls"][0] == runs["v2"][0] == cpu, "the wide set's FASTAs "
+            "differ between the POA kernels or between card and CPU")
+    genome, draft = read_fasta(d["genome"]), read_fasta(d["draft"])
+    polished = "".join(s for _, s in cpu).encode()
+    ed = (native.edit_distance(draft, genome),
+          native.edit_distance(polished, genome))
+    require(ed[1] < ed[0], f"the wide polish did not lower the edit distance "
+            f"({ed[0]} -> {ed[1]})")
+    co = runs["ls"][1]["consensus"]
+    emit({"phase": "wide", "mbp": WIDE_MBP, "window_length": WIDE_WINDOW,
+          "identical": True, "cuda_ls_s": runs["ls"][2],
+          "cuda_v2_s": runs["v2"][2], "cpu_s": cpu_s,
+          "launches": {k: r[3] for k, r in runs.items()},
+          "poa_device_ms": poa_ms,
+          "windows": {k: co[k] for k in ("device", "host_fallback",
+                                         "backbone", "failed")},
+          "cpu_windows_device": cst["consensus"]["device"],
+          "edit_distance": {"draft": ed[0], "polished": ed[1]}})
+    for wl in (1536, 2048):
+        cfg = poa_driver.make_config(wl, 32, MAIN["match"],
+                                     MAIN["mismatch"], MAIN["gap"])
+        emit({"phase": "occupancy", "build": "wide", "window_class": wl,
+              "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
+              "ls_plan": poa_cuda.plan(cfg),
+              "v2_plan": poa_v2_cuda.plan(cfg),
+              "v2_band_plan": poa_v2_cuda.plan(cfg, band=True),
+              "poa_consensus": poa_cuda.occupancy(cfg),
+              "poa_consensus_band": poa_cuda.occupancy(cfg, band=True),
+              "poa_consensus_v2": poa_v2_cuda.occupancy(cfg),
+              "poa_consensus_v2_band": poa_v2_cuda.occupancy(cfg,
+                                                             band=True)})
 
 
 def probe_phase(torch, probe, cuda_lib):
@@ -934,17 +1014,21 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp, \
-            ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+            ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
                 "spawn")) as cpu_pool:
         # the parity set's three CPU polishes (plain versions: flat, and
-        # banded with each POA kernel) run in their own processes through
-        # the phases below
+        # banded with each POA kernel) and the wide set's run in their own
+        # processes through the phases below
         d_par = simulate.generate(os.path.join(tmp, "parity"),
                                   mbp=PARITY_MBP, seed=11)
+        d_wide = simulate.generate(os.path.join(tmp, "wide"), mbp=WIDE_MBP,
+                                   seed=11)
         cpu_runs = {"flat": cpu_pool.submit(cpu_polish, d_par),
                     "band": cpu_pool.submit(cpu_polish, d_par, PARITY_SLACK),
                     "ls_band": cpu_pool.submit(cpu_polish, d_par,
-                                               PARITY_SLACK, "ls")}
+                                               PARITY_SLACK, "ls"),
+                    "wide": cpu_pool.submit(cpu_polish, d_wide, None, "ls",
+                                            WIDE_WINDOW)}
 
         # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps, with the
         # default POA kernel; then the same polish with the other POA
@@ -1004,12 +1088,14 @@ def main() -> int:
         rec, rec_ls = runs[first][1], runs["ls"][1]
         rec_band, rec_low = band_run[1], low_band[1]
         rec_ls_band = ls_band_run[1]
-        keep = {id(rec_ls): ("poa_consensus",),
-                id(rec): ("hirschberg_edge", "hirschberg_base"),
-                id(rec_band): ("poa_consensus_v2_band",),
-                id(rec_ls_band): ("poa_consensus_band",),
-                id(rec_low): ("hirschberg_edge_k128",
-                              "hirschberg_base_k128")}
+        keep = {}   # recorder -> the kernels whose launches it keeps
+        for r, names in ((rec_ls, ("poa_consensus",)),
+                         (rec, ("hirschberg_edge", "hirschberg_base")),
+                         (rec_band, ("poa_consensus_v2_band",)),
+                         (rec_ls_band, ("poa_consensus_band",)),
+                         (rec_low, ("hirschberg_edge_k128",
+                                    "hirschberg_base_k128"))):
+            keep[id(r)] = keep.get(id(r), ()) + names
         for r in (runs["ls"][1], runs["v2"][1], rec_band, rec_ls_band, low[1],
                   rec_low):
             for key in list(r.largest):
@@ -1028,7 +1114,8 @@ def main() -> int:
             emit({"phase": "occupancy", "depth": cfg.depth,
                   "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
                   "ls_plan": poa_cuda.plan(cfg),
-                  "v2_plan": poa_v2_cuda.plan(cfg), **occ})
+                  "v2_plan": poa_v2_cuda.plan(cfg),
+                  "v2_band_plan": poa_v2_cuda.plan(cfg, band=True), **occ})
 
         # each kernel on its path's largest launches, against its plain
         # version
@@ -1102,6 +1189,10 @@ def main() -> int:
                        "consensus": lbstats["consensus"]["band"]},
               "align_device": lbstats["align"]["device"],
               "windows_device": lbstats["consensus"]["device"]})
+
+        # wide: -w 1500 through both POA kernels' wide builds
+        wide_phase(racon_tpu_torch, native, cuda_lib, d_wide,
+                   cpu_runs["wide"])
 
     # the DP-cost probe's path
     launches_probe, checked["dp_cost_probe"] = probe_phase(torch, probe,

@@ -77,6 +77,12 @@
 // plans its shared memory against the card's limit a block (plan): the ring
 // holds 8, 4 or 2 rows, the largest that fits, and where even 2 do not the
 // in-edge sources move to the global scratch (the GSRC instantiation).
+// A thread owns up to CHMAX = 8 columns (max_len + 1 <= 2048). Larger
+// windows (max_len + 1 <= 4096, up to backbone class 2048) run the wide
+// instantiation (CX = CHWIDE = 16 columns a thread, sources in the global
+// scratch, up to 255 registers and one block an SM, which is all their
+// shared memory allows anyway), so its registers do not weigh on the usual
+// build.
 // There is no rank-distance cap: a predecessor beyond the ring is read from
 // the global H, never refused.
 //
@@ -111,7 +117,6 @@
 
 #include "poa_common.cuh"
 
-#define CHMAX 8        // columns per thread: max_len + 1 <= NT * CHMAX
 #define VSLOT 63       // record slot of the virtual start row; E <= 32
 #define NOSLOT 64      // no slot explains the (masked) cell
 #define MV_DIAG 0
@@ -144,6 +149,7 @@ using poa_common::find_new;
 using poa_common::find_old;
 using poa_common::merge_new;
 using poa_common::scratch_layout;
+using poa_common::wide_build;
 
 struct Cfg {
   int N, ML, MB, E, ES, D, ma, mm, gp;
@@ -469,9 +475,9 @@ __device__ __forceinline__ void dp_layer(const Shared& s, const Cfg& c,
   __syncthreads();
 }
 
-// dp_layer with the thread's columns unrolled to the next of 2, 4 or 8 at
-// or above CH (a uniform branch).
-template <bool BAND>
+// dp_layer with the thread's columns unrolled to the next of 2, 4, 8 (and
+// in the wide build, CX = CHWIDE, 16) at or above CH (a uniform branch).
+template <int CX, bool BAND>
 __device__ __forceinline__ void dp_layer_ch(const Shared& s, const Cfg& c,
                                             const Win& w, int r_lo, int r_hi,
                                             int L, bool all_global, int hw,
@@ -481,9 +487,11 @@ __device__ __forceinline__ void dp_layer_ch(const Shared& s, const Cfg& c,
     dp_layer<2, BAND>(s, c, w, r_lo, r_hi, L, CH, all_global, hw, begin);
   else if (CH <= 4)
     dp_layer<4, BAND>(s, c, w, r_lo, r_hi, L, CH, all_global, hw, begin);
-  else
+  else if (CX == CHMAX || CH <= CHMAX)
     dp_layer<CHMAX, BAND>(s, c, w, r_lo, r_hi, L, CH, all_global, hw,
                           begin);
+  else
+    dp_layer<CX, BAND>(s, c, w, r_lo, r_hi, L, CH, all_global, hw, begin);
 }
 
 // The plain version's move at (u, j), re-derived from the finished rows of
@@ -802,9 +810,10 @@ __device__ void update(const Shared& s, const Cfg& c, const Win& w, int n,
 // GSRC: the in-edge sources live in the window's global scratch (where the
 // graph is too large to keep them in shared memory). BAND: the banded
 // build, which takes each window's half band (wband_a; 0 runs the flat
-// code) and writes its band hit (band_hit_out).
-template <bool GSRC, bool BAND>
-__global__ void __launch_bounds__(NT, 2)
+// code) and writes its band hit (band_hit_out). CX: the most columns a
+// thread owns, CHMAX or, in the wide build, CHWIDE.
+template <bool GSRC, bool BAND, int CX>
+__global__ void __launch_bounds__(NT, CX == CHMAX ? 2 : 1)
 poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
            const int* __restrict__ bb_len_a, const int* __restrict__ n_layers_a,
            const uint8_t* __restrict__ seqs, const int* __restrict__ ws,
@@ -942,7 +951,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     PHASE(0);
 
     // --- DP over the subgraph in rank order
-    dp_layer_ch<BAND>(s, c, w, r_lo, r_hi, L, all_global, hw, begin);
+    dp_layer_ch<CX, BAND>(s, c, w, r_lo, r_hi, L, all_global, hw, begin);
     PHASE(1);
 
     // --- end node: first best end score in rank order among subgraph
@@ -1010,13 +1019,22 @@ cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, size_t* sm) {
   return poa_common::plan(N, ML, ES, RING, shared_bytes, ring, gsrc, sm);
 }
 
-using Kernel = decltype(&poa_kernel<false, false>);
+using Kernel = decltype(&poa_kernel<false, false, CHMAX>);
 
-// The kernel instantiation a plan launches (the banded build where band),
-// with its shared-memory limit raised to sm.
-cudaError_t planned_kernel(bool gsrc, bool band, size_t sm, Kernel* fn) {
-  *fn = gsrc ? (band ? &poa_kernel<true, true> : &poa_kernel<true, false>)
-             : (band ? &poa_kernel<false, true> : &poa_kernel<false, false>);
+// The kernel instantiation a plan launches (the banded build where band,
+// the wide one where wide, which the plan gives gsrc), with its
+// shared-memory limit raised to sm.
+cudaError_t planned_kernel(bool gsrc, bool band, bool wide, size_t sm,
+                           Kernel* fn) {
+  if (wide)
+    *fn = band ? &poa_kernel<true, true, CHWIDE>
+               : &poa_kernel<true, false, CHWIDE>;
+  else if (gsrc)
+    *fn = band ? &poa_kernel<true, true, CHMAX>
+               : &poa_kernel<true, false, CHMAX>;
+  else
+    *fn = band ? &poa_kernel<false, true, CHMAX>
+               : &poa_kernel<false, false, CHMAX>;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)sm);
 }
@@ -1032,11 +1050,12 @@ long long rt_poa_scratch_words(int N, int ML, int E) {
   return (long long)off[3];
 }
 
-// The shared-memory plan at (N, ML, E): out[0] the ring's rows, out[1] 1
-// where the in-edge sources are in shared memory, out[2] the dynamic
-// shared bytes a block. cudaErrorInvalidValue where the graph does not
-// fit.
-int rt_poa_plan(int N, int ML, int E, int* out) {
+// The shared-memory plan at (N, ML, E), the same for the flat and the
+// banded build (band): out[0] the ring's rows, out[1] 1 where the in-edge
+// sources are in shared memory, out[2] the dynamic shared bytes a block.
+// cudaErrorInvalidValue where the graph does not fit.
+int rt_poa_plan(int N, int ML, int E, int band, int* out) {
+  (void)band;
   int ring = 0;
   bool gsrc = false;
   size_t sm = 0;
@@ -1067,7 +1086,7 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                   void* cons_len, void* failed, void* n_nodes, void* band_hit,
                   void* cells, void* phases, void* scratch, int B,
                   void* stream) {
-  if (E > 32 || ML + 1 > NT * CHMAX || N > 32767)
+  if (E > 32 || ML + 1 > NT * CHWIDE || N > 32767)
     return (int)cudaErrorInvalidValue;
   const int ES = edge_stride(E);
   int ring = 0;
@@ -1075,7 +1094,8 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
   size_t sm = 0;
   cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &sm);
   Kernel fn = nullptr;
-  if (err == cudaSuccess) err = planned_kernel(gsrc, wband != nullptr, sm, &fn);
+  if (err == cudaSuccess)
+    err = planned_kernel(gsrc, wband != nullptr, wide_build(ML), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, ring};
   const size_t per = (size_t)rt_poa_scratch_words(N, ML, E);
@@ -1092,14 +1112,15 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
 // The kernel's registers a thread, local (spill) bytes a thread, dynamic
 // shared bytes a block and resident blocks per SM at (N, ML) with 12 edge
 // slots, as the launch plans them, for the flat build or (band) the banded
-// one; out[4].
+// one (the wide instantiation where max_len + 1 > NT * CHMAX); out[4].
 int rt_poa_occupancy(int N, int ML, int band, int* out) {
   int ring = 0;
   bool gsrc = false;
   size_t sm = 0;
   cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &sm);
   Kernel fn = nullptr;
-  if (err == cudaSuccess) err = planned_kernel(gsrc, band != 0, sm, &fn);
+  if (err == cudaSuccess)
+    err = planned_kernel(gsrc, band != 0, wide_build(ML), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

@@ -20,6 +20,12 @@
 #define NEG_ (-(1 << 28))
 #define NT 256
 #define NWARP (NT / 32)
+// Columns a thread owns at most: max_len + 1 <= NT * CHMAX in a kernel's
+// usual build, NT * CHWIDE in its wide build (make_config's window classes
+// above 1280), which caps registers at 255 a thread and runs one block an
+// SM.
+#define CHMAX 8
+#define CHWIDE 16
 
 namespace poa_common {
 
@@ -330,11 +336,19 @@ __device__ void merge_new(const Sh& s, int n, int nn) {
   __syncthreads();
 }
 
+// Whether a window of max_len ML runs the wide build (16 columns a thread).
+__host__ __device__ inline bool wide_build(int ML) {
+  return ML + 1 > NT * CHMAX;
+}
+
 // The launch's shared-memory plan at (N, ML, ES) for a kernel whose layout
 // takes bytes(N, ML, ES, ring, gsrc): the largest ring of max_ring,
 // max_ring / 2, ... 2 rows that fits the card's opt-in shared memory a
 // block, with the in-edge sources in shared memory where any ring fits so,
-// else in the global scratch. cudaErrorInvalidValue where nothing fits.
+// else in the global scratch. The wide build always keeps them in the
+// global scratch: at its geometries (N >= 4224) they take 100 KB or more,
+// and only that instantiation of it is built. cudaErrorInvalidValue where
+// nothing fits.
 inline cudaError_t plan(int N, int ML, int ES, int max_ring,
                         size_t (*bytes)(int, int, int, int, bool), int* ring,
                         bool* gsrc, size_t* sm) {
@@ -344,7 +358,7 @@ inline cudaError_t plan(int N, int ML, int ES, int max_ring,
     err = cudaDeviceGetAttribute(
         &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  for (int g = 0; g < 2; ++g)
+  for (int g = wide_build(ML) ? 1 : 0; g < 2; ++g)
     for (int rg = max_ring; rg >= 2; rg >>= 1) {
       const size_t b = bytes(N, ML, ES, rg, g != 0);
       if (b <= (size_t)cap) {

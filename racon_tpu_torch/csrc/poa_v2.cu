@@ -83,10 +83,34 @@
 // set where the best end score's deficit below match x L passes
 // 2 |gap| max(wband / 2, 1) or where the walk comes within one cell of the
 // band edge; an end score no better than NEG starts the walk on the virtual
-// row. The move records already follow the masked row, as the Pallas
-// kernel's do. Every column is still computed: the mask costs a compare a
-// cell, and the shared-memory plan is the flat build's. wband = 0 runs the
-// flat DP through the same build.
+// row. The move records follow the masked row as the Pallas kernel's do: a
+// masked cell records the move of its unmasked predecessor maximum (left
+// only where NEG beats it). wband = 0 runs the flat DP through the same
+// build. Its DP (dp_layer_band) is not the flat build's: before this design
+// its clock64() phase counts put the DP rows at about 70% of a launch, each
+// row behind two block barriers, decoding its in-edge slots on its chain,
+// converting its node's key for the band at every row and spilling at 128
+// registers (PERF.md). So, as csrc/poa.cu's rows do, each row runs behind
+// one block barrier, with the row before it kept in the registers of the
+// threads that own its columns (the cell left of a thread's first column
+// is that row's running max there, the thread's own exclusive scan value,
+// masked as the row was) and the scan's warp totals in two alternating
+// buffers; before the layer, one thread a rank builds the row's 64-bit
+// descriptor (up to three computed predecessors as rank distance and slot,
+// in slot order, and its flags) and its band start cexp - wband, so that a
+// cell's mask is one unsigned compare. Same-column pairs (colstep) do not
+// run in the banded build: a pair's rows split the block, so the row before
+// would not be in the registers of the threads that read it. Its steps are
+// its DP rows. The descriptors take shared memory; the traceback's and the
+// update's arrays take the ring's bytes back, dead after the DP.
+//
+// A thread owns up to CHMAX = 8 columns (max_len + 1 <= 2048). Larger
+// windows (max_len + 1 <= 4096, up to backbone class 2048) run the wide
+// instantiation (CX = CHWIDE = 16 columns a thread, sources in the global
+// scratch, up to 255 registers and one block an SM, which is all their
+// shared memory allows anyway), so its registers do not weigh on the usual
+// build; a same-column pair whose half-row exceeds the build's columns runs
+// as two rows.
 //
 // Thread 0 of each block counts clock64() cycles per phase (NPHASE) for the
 // optional phases output.
@@ -98,12 +122,20 @@
 
 #include "poa_common.cuh"
 
-#define CHMAX 8        // columns per thread: max_len + 1 <= NT * CHMAX
 #define VSLOT 15       // pred slot of the virtual start row; max_edges <= 15
 #define MV_REDERIVE 3  // move of a row that read an uncomputed predecessor
 #define NPHASE 6       // init, DP, end pick, traceback, update, consensus
 #define RING 8         // most DP rows of H kept in shared memory, by rank
 #define HALF (NT / 2)  // threads of a half block (one row of a pair)
+// A banded DP row's descriptor (Shared::desc), built before the layer's
+// DP: bits 0-1 the number of computed in-subgraph predecessors listed, then
+// flags and up to three entries of 16 bits, rank distance (12 bits) | slot
+// << 12, in slot order.
+#define D_SLOW 4ull     // more than three, or one 4096 ranks back or more:
+                        // the DP reads the in-edge slots
+#define D_ANY 8ull      // some in-edge source is in the subgraph
+#define D_STALE 16ull   // some in-subgraph source ranks at or after the row
+#define D_ENT 5
 
 namespace {
 
@@ -116,14 +148,19 @@ using poa_common::find_new;
 using poa_common::find_old;
 using poa_common::merge_new;
 using poa_common::scratch_layout;
+using poa_common::wide_build;
 
 struct Cfg {
   int N, ML, MB, E, ES, D, ma, mm, gp, colstep;
   int ring;  // DP rows in the shared ring: 8, 4 or 2
 };
 
+// The banded build (BAND) keeps desc, scan and bstart, has no step, and
+// lays nkey, runrem, wts and found over the ring's bytes (dead after the
+// DP).
 struct Shared {
   long long* ph;     // [NPHASE] thread 0's cycles per phase
+  unsigned long long* desc;  // [N] by rank: the DP row's descriptor (D_*)
   int* ring;         // [ring][ML + 1] the last DP rows, slot rank % ring
   float* key;        // [N] column key by node id
   int* esc;          // [N] end score by rank (layers); score (consensus)
@@ -134,6 +171,8 @@ struct Shared {
   int* red_v;        // [NWARP] reduction scratch
   int* red_i;        // [NWARP]
   int* red_w;        // [NWARP]
+  int* scan;         // [2][NWARP] the banded DP rows' warp totals, by row
+                     // parity
   int* misc;         // [8]: n, failed, r_lo, r_hi, path count, band
                      // cells of the layer, band hit
   int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
@@ -141,6 +180,8 @@ struct Shared {
   int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
   int16_t* rank_of;  // [N] rank by node id (layers); pred (consensus)
   int16_t* path;     // [N] consensus path; the merged order (update)
+  int16_t* bstart;   // [N] by rank: the banded DP row's band start,
+                     // cexp - wband (path's bytes, unused in the DP)
   int16_t* found;    // [ML] each position's matched old node, or -1
   uint8_t* base;     // [N]
   uint8_t* seq;      // [ML]
@@ -152,12 +193,23 @@ struct Shared {
 
 // The carve below, as byte offsets, for a ring of `ring` rows and the
 // in-edge sources in shared memory unless gsrc; returns the total.
+template <bool BAND>
 __host__ __device__ inline size_t shared_layout(int N, int ML, int ES,
                                                 int ring, bool gsrc,
                                                 size_t* off) {
   size_t p = 0;
+  const size_t ring_b = (size_t)ring * (ML + 1) * 4;
+  if (BAND) {
+    off[0] = p; p += NPHASE * 8 + (size_t)N * 8;
+    off[1] = p; p += ring_b > (size_t)ML * 14 ? ring_b : (size_t)ML * 14;
+    off[2] = p = align16(p); p += (size_t)N * 4 * 3 + NWARP * 4 * 5 + 8 * 4;
+    off[3] = p = align16(p); p += (gsrc ? 0 : (size_t)N * ES * 2) +
+                                  (size_t)N * 2 * 3;
+    off[4] = p; p += (size_t)N * 3 + ML;
+    return align16(p);
+  }
   off[0] = p; p += NPHASE * 8;
-  off[1] = p; p += (size_t)ring * (ML + 1) * 4;
+  off[1] = p; p += ring_b;
   off[2] = p; p += (size_t)N * 4 * 3 + (size_t)ML * 4 * 3 + NWARP * 4 * 3 +
                    8 * 4;
   off[3] = p = align16(p); p += (gsrc ? 0 : (size_t)N * ES * 2) +
@@ -166,30 +218,46 @@ __host__ __device__ inline size_t shared_layout(int N, int ML, int ES,
   return align16(p);
 }
 
+template <bool BAND>
 __host__ __device__ inline size_t shared_bytes(int N, int ML, int ES,
                                                int ring, bool gsrc) {
   size_t off[5];
-  return shared_layout(N, ML, ES, ring, gsrc, off);
+  return shared_layout<BAND>(N, ML, ES, ring, gsrc, off);
 }
 
 // gsrc: the in-edge sources' global home, or null to carve them here.
+template <bool BAND>
 __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
                                int16_t* gsrc) {
   size_t off[5];
-  shared_layout(N, ML, ES, ring, gsrc != nullptr, off);
+  shared_layout<BAND>(N, ML, ES, ring, gsrc != nullptr, off);
   Shared s;
   s.ph = (long long*)(base + off[0]);
+  s.desc = BAND ? (unsigned long long*)(base + off[0] + NPHASE * 8)
+                : nullptr;
   s.ring = (int*)(base + off[1]);
-  char* p = base + off[2];
-  s.key = (float*)p; p += N * 4;
-  s.esc = (int*)p; p += N * 4;
-  s.cov = (int*)p; p += N * 4;
+  char* p = base + off[BAND ? 1 : 2];
+  if (!BAND) {
+    s.key = (float*)p; p += N * 4;
+    s.esc = (int*)p; p += N * 4;
+    s.cov = (int*)p; p += N * 4;
+  }
   s.nkey = (float*)p; p += ML * 4;
   s.runrem = (int*)p; p += ML * 4;
   s.wts = (int*)p; p += ML * 4;
+  if (BAND) {
+    s.found = (int16_t*)p;
+    p = base + off[2];
+    s.key = (float*)p; p += N * 4;
+    s.esc = (int*)p; p += N * 4;
+    s.cov = (int*)p; p += N * 4;
+  }
   s.red_v = (int*)p; p += NWARP * 4;
   s.red_i = (int*)p; p += NWARP * 4;
   s.red_w = (int*)p; p += NWARP * 4;
+  if (BAND) {
+    s.scan = (int*)p; p += NWARP * 4 * 2;
+  }
   s.misc = (int*)p;
   p = base + off[3];
   if (gsrc) {
@@ -199,13 +267,15 @@ __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
   }
   s.order = (int16_t*)p; p += N * 2;
   s.rank_of = (int16_t*)p; p += N * 2;
-  s.path = (int16_t*)p; p += N * 2;
-  s.found = (int16_t*)p;
+  s.path = s.bstart = (int16_t*)p; p += N * 2;
+  if (!BAND) s.found = (int16_t*)p;
   p = base + off[4];
   s.base = (uint8_t*)p; p += N;
   s.seq = (uint8_t*)p; p += ML;
   s.has_out = (uint8_t*)p; p += N;
-  s.step = (uint8_t*)p; p += N;
+  if (!BAND) {
+    s.step = (uint8_t*)p; p += N;
+  }
   s.far = (uint8_t*)p;
   return s;
 }
@@ -216,30 +286,23 @@ struct Win {
   uint8_t* MV;  // [N + 1][ML + 1] move records
 };
 
-// One DP row, rank r (node order[r]), over columns [0, L], its moves and
-// its end score, by a group of threads: gt is the thread's index in the
-// group, wb the group's first warp; the thread takes columns
-// [gt * CH, gt * CH + CH). Every thread of the block calls it the same
-// number of times (two block barriers). The row goes to the ring, and to
-// the global H where a later row reads it from there (far[r]) or where
+// One DP row of the flat build, rank r (node order[r]), over columns
+// [0, L], its moves and its end score, by a group of threads: gt is the
+// thread's index in the group, wb the group's first warp; the thread takes
+// columns [gt * CH, gt * CH + CH). Every thread of the block calls it the
+// same number of times (two block barriers). The row goes to the ring, and
+// to the global H where a later row reads it from there (far[r]) or where
 // all_global (the traceback may re-derive moves from H).
-// BAND (the banded build) with a half band hw > 0: column 0's diagonal is
-// NEG + mismatch (the Pallas kernel's shifted-in NEG), and after the in-row
-// gap pass the cells with |j - cexp| > hw become NEG, where cexp is the
-// node's key rounded as the Pallas kernel rounds it, less the layer's
-// begin. The moves record the masked row.
-template <int CHM, bool BAND>
+template <int CHM>
 __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
                                        const Win& w, int r, int r_lo,
                                        int r_hi, int L, int CH, int gt,
-                                       int wb, bool all_global, int hw,
-                                       int begin) {
+                                       int wb, bool all_global) {
   const int HS = c.ML + 1, gp = c.gp;
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
   const int j0 = gt * CH;
   const int u = s.order[r];
   const int ub = s.base[u];
-  const int cexp = BAND ? (int)(s.key[u] + 0.5f) - begin : 0;
   int P[CHM + 1], S[CHM + 1];
   int jc[CHM + 1];  // the predecessor columns this thread reads, clamped
 #pragma unroll
@@ -308,9 +371,6 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
       if (j >= 1) {
         const int diag = P[k] + (s.seq[j - 1] == ub ? c.ma : c.mm);
         if (diag >= v) { v = diag; m[k] = S[k] << 2; }
-      } else if (BAND && hw > 0 && NEG_ + c.mm >= v) {
-        v = NEG_ + c.mm;
-        m[k] = VSLOT << 2;
       }
       V[k] = v;
       v -= j * gp;
@@ -337,8 +397,7 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
   for (int k = 0; k < CHM; ++k) {
     const int j = j0 + k;
     if (k < CH && j <= L) {
-      int row = max(x[k], excl) + j * gp;
-      if (BAND && hw > 0 && abs(j - cexp) > hw) row = NEG_;
+      const int row = max(x[k], excl) + j * gp;
       if (global) hrow[j] = row;
       rrow[j] = row;
       // left only if better
@@ -349,25 +408,212 @@ __device__ __forceinline__ void dp_row(const Shared& s, const Cfg& c,
   __syncthreads();
 }
 
-// dp_row with the thread's columns unrolled to the next of 2, 4 or 8 at
-// or above CH (a uniform branch): a DP row's instructions are what bounds
-// it once two windows share an SM, and a column beyond CH costs as much as
-// one within.
-template <bool BAND>
+// dp_row with the thread's columns unrolled to the next of 2, 4, 8 (and in
+// the wide build, CX = CHWIDE, 16) at or above CH (a uniform branch): a DP
+// row's instructions are what bounds it once two windows share an SM, and
+// a column beyond CH costs as much as one within.
+template <int CX>
 __device__ __forceinline__ void dp_row_ch(const Shared& s, const Cfg& c,
                                           const Win& w, int r, int r_lo,
                                           int r_hi, int L, int CH, int gt,
-                                          int wb, bool all_global, int hw,
-                                          int begin) {
+                                          int wb, bool all_global) {
   if (CH <= 2)
-    dp_row<2, BAND>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global, hw,
-                    begin);
+    dp_row<2>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
   else if (CH <= 4)
-    dp_row<4, BAND>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global, hw,
-                    begin);
+    dp_row<4>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+  else if (CX == CHMAX || CH <= CHMAX)
+    dp_row<CHMAX>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
   else
-    dp_row<CHMAX, BAND>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global,
-                        hw, begin);
+    dp_row<CX>(s, c, w, r, r_lo, r_hi, L, CH, gt, wb, all_global);
+}
+
+// The banded build's layer DP: every row of ranks [r_lo, r_hi) in rank
+// order, its cells, move records and end score, by the whole block, one
+// barrier a row. Each thread owns columns [tid * CH, tid * CH + CH) of
+// every row; CHM >= CH is how many it unrolls. Row r reads its descriptor
+// (desc[r]) and, with a half band hw > 0, its band start (bstart[r]);
+// column 0's diagonal is then NEG + mismatch and, after the gap pass, the
+// cells outside [bstart, bstart + 2 hw] become NEG. The cells and records
+// are dp_row's: a cell records the move of the larger of its diagonal and
+// up values (diagonal on ties, through the first slot that attains the
+// predecessor maximum) unless the row's value there beats it (left). The
+// row just finished is read from registers, older rows from the ring or,
+// where far[rk] marks them, the global H. all_global: every row goes to
+// the global H too (the traceback re-derives some moves from H).
+template <int CHM>
+__device__ __forceinline__ void dp_layer_band(const Shared& s, const Cfg& c,
+                                              const Win& w, int r_lo,
+                                              int r_hi, int L, int CH,
+                                              bool all_global, int hw) {
+  const int HS = c.ML + 1, gp = c.gp;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const bool banded = hw > 0;
+  const unsigned w2 = 2u * (unsigned)hw;  // in band: j - bstart in [0, w2]
+  const int j0 = tid * CH;
+  int jc[CHM + 1];  // the predecessor columns this thread reads, clamped
+#pragma unroll
+  for (int k = 0; k <= CHM; ++k) jc[k] = min(max(j0 - 1 + k, 0), L);
+  int code[CHM];    // the layer's base at column j - 1 of each own column j
+#pragma unroll
+  for (int k = 0; k < CHM; ++k) {
+    const int j = j0 + k;
+    code[k] = k < CH && j >= 1 && j <= L ? s.seq[j - 1] : 0xff;
+  }
+  int prow[CHM];    // the row just finished, at the thread's columns
+  int pleft = NEG_; // and at column j0 - 1
+#pragma unroll
+  for (int k = 0; k < CHM; ++k) prow[k] = NEG_;
+  int par = 0;      // the row's half of the scan's double buffer
+  for (int r = r_lo; r < r_hi; ++r) {
+    const int u = s.order[r];
+    const int ub = s.base[u];
+    const int b0 = banded ? s.bstart[r] : 0;
+    // one predecessor row at the thread's columns jc (a uniform branch):
+    // the row just finished from registers, a near one from the ring, else
+    // the global H (sv < 0: the node is order[rk])
+    auto pred_row = [&](int sv, int rk, int* v) {
+      const int d = r - rk;
+      if (d == 1) {
+        v[0] = j0 == 0 ? prow[0] : pleft;
+#pragma unroll
+        for (int k = 1; k <= CHM; ++k) v[k] = prow[k - 1];
+      } else if (d < c.ring) {
+        const int* rr = s.ring + (rk & (c.ring - 1)) * HS;
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) v[k] = rr[jc[k]];
+      } else {
+        const int node = sv >= 0 ? sv : s.order[rk];
+        const int* hr = w.H + (size_t)(node + 1) * HS;
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) v[k] = hr[jc[k]];
+      }
+    };
+    // per predecessor column: the largest value over the computed
+    // in-subgraph predecessors, NEG at least, and the first slot that
+    // exceeds NEG with it (P, S)
+    int P[CHM + 1], S[CHM + 1];
+#pragma unroll
+    for (int k = 0; k <= CHM; ++k) {
+      P[k] = NEG_;
+      S[k] = VSLOT;
+    }
+    const unsigned long long dsc = s.desc[r];
+    const bool stale = dsc & D_STALE;
+    auto take = [&](int sv, int rk, int slot) {
+      int v[CHM + 1];
+      pred_row(sv, rk, v);
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k)
+        if (v[k] > P[k]) { P[k] = v[k]; S[k] = slot; }
+    };
+    if (!(dsc & D_SLOW)) {  // the computed predecessors, in slot order
+      const int np = (int)(dsc & 3);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        if (i < np) {
+          const int ent = (int)(dsc >> (D_ENT + 16 * i)) & 0xffff;
+          take(-1, r - (ent & 0xfff), ent >> 12);
+        }
+      }
+    } else {  // from the in-edge slots
+      for (int e = 0; e < c.E; ++e) {
+        const int sv = s.src[(size_t)u * c.ES + e];
+        if (sv < 0) break;
+        const int rk = s.rank_of[sv];
+        if (rk >= r_lo && rk < r) take(sv, rk, e);
+      }
+    }
+    if (!(dsc & D_ANY)) {  // the virtual start row is the only predecessor
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k) P[k] = (j0 - 1 + k) * gp;
+    }
+    // each cell's diagonal-or-up value V and its move (a byte of mq), then
+    // the running max of V - j gap
+    int x[CHM], V[CHM];
+    unsigned mq[(CHM + 3) / 4];
+#pragma unroll
+    for (int q = 0; q < (CHM + 3) / 4; ++q) mq[q] = 0;
+    int run = INT_MIN;
+#pragma unroll
+    for (int k = 0; k < CHM; ++k) {
+      const int j = j0 + k;
+      int v = INT_MIN, mk = 2;
+      V[k] = INT_MIN;
+      if (k < CH && j <= L) {
+        v = P[k + 1] + gp;
+        mk = 1 | S[k + 1] << 2;
+        if (j >= 1) {
+          const int diag = P[k] + (code[k] == ub ? c.ma : c.mm);
+          if (diag >= v) { v = diag; mk = S[k] << 2; }
+        } else if (banded && NEG_ + c.mm >= v) {
+          v = NEG_ + c.mm;
+          mk = VSLOT << 2;
+        }
+        V[k] = v;
+        v -= j * gp;
+      }
+      mq[k >> 2] |= (unsigned)mk << (8 * (k & 3));
+      run = max(run, v);
+      x[k] = run;
+    }
+    // the block's inclusive max-scan of the thread totals
+    int tot = run;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(0xffffffffu, tot, d);
+      if (lane >= d) tot = max(tot, o);
+    }
+    int* scan = s.scan + par * NWARP;
+    par ^= 1;
+    if (lane == 31) scan[wid] = tot;
+    int excl = __shfl_up_sync(0xffffffffu, tot, 1);
+    if (lane == 0) excl = INT_MIN;
+    __syncthreads();
+    for (int q = 0; q < wid; ++q) excl = max(excl, scan[q]);
+    int* hrow = w.H + (size_t)(u + 1) * HS;
+    const bool global = all_global || s.far[r];
+    int* rrow = s.ring + (size_t)(r & (c.ring - 1)) * HS;
+    uint8_t* mrow = w.MV + (size_t)(u + 1) * HS;
+#pragma unroll
+    for (int k = 0; k < CHM; ++k) {
+      const int j = j0 + k;
+      if (k < CH && j <= L) {
+        int row = max(x[k], excl) + j * gp;
+        if (banded && (unsigned)(j - b0) > w2) row = NEG_;
+        prow[k] = row;
+        if (global) hrow[j] = row;
+        rrow[j] = row;
+        // left only if better
+        const int mk = (mq[k >> 2] >> (8 * (k & 3))) & 0xff;
+        mrow[j] = (uint8_t)(stale ? MV_REDERIVE : row > V[k] ? 2 : mk);
+        if (j == L) s.esc[r] = row;
+      }
+    }
+    // column j0 - 1 of this row: its running max there, this thread's
+    // exclusive scan value, masked as the row is (thread 0 reads its own
+    // column 0 instead)
+    if (j0 >= 1)
+      pleft = banded && (unsigned)(j0 - 1 - b0) > w2 ? NEG_
+                                                    : excl + (j0 - 1) * gp;
+  }
+  __syncthreads();
+}
+
+// dp_layer_band with the thread's columns unrolled to the next of 2, 4, 8
+// (and in the wide build, CX = CHWIDE, 16) at or above CH.
+template <int CX>
+__device__ __forceinline__ void dp_layer_band_ch(const Shared& s,
+                                                 const Cfg& c, const Win& w,
+                                                 int r_lo, int r_hi, int L,
+                                                 bool all_global, int hw) {
+  const int CH = (L + 1 + NT - 1) / NT;
+  if (CH <= 2)
+    dp_layer_band<2>(s, c, w, r_lo, r_hi, L, CH, all_global, hw);
+  else if (CH <= 4)
+    dp_layer_band<4>(s, c, w, r_lo, r_hi, L, CH, all_global, hw);
+  else if (CX == CHMAX || CH <= CHMAX)
+    dp_layer_band<CHMAX>(s, c, w, r_lo, r_hi, L, CH, all_global, hw);
+  else
+    dp_layer_band<CX>(s, c, w, r_lo, r_hi, L, CH, all_global, hw);
 }
 
 // Whether node a is among node b's in-edge sources.
@@ -518,10 +764,11 @@ __device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
 // GSRC: the in-edge sources live in the window's global scratch (where the
 // graph is too large to keep them in shared memory). BAND: the banded
 // build, which takes each window's half band (wband_a; 0 runs the flat DP)
-// and writes its band hit (band_hit_out): dp_row's mask, the deficit test
-// after the end pick, and tb_step's boundary test.
-template <bool GSRC, bool BAND>
-__global__ void __launch_bounds__(NT, 2)
+// and writes its band hit (band_hit_out): dp_layer_band's rows and mask,
+// the deficit test after the end pick, and tb_step's boundary test. CX:
+// the most columns a thread owns, CHMAX or, in the wide build, CHWIDE.
+template <bool GSRC, bool BAND, int CX>
+__global__ void __launch_bounds__(NT, CX == CHMAX ? 2 : 1)
 poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
               const int* __restrict__ bbw, const int* __restrict__ bb_len_a,
               const int* __restrict__ n_layers_a,
@@ -543,8 +790,8 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   size_t so[4];
   scratch_layout(N, ML, ES, so);
   int* const wbase = scratch + (size_t)win * scratch_per;
-  Shared s = carve(smem, N, ML, ES, c.ring,
-                   GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  Shared s = carve<BAND>(smem, N, ML, ES, c.ring,
+                         GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
   const poa_common::Red red{s.red_v, s.red_w, s.red_i};
   // Thread 0 adds the cycles since the last mark to phase k's sum.
   long long tmark = clock64();
@@ -606,7 +853,7 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     const int* wq = ws + ((size_t)win * c.D + li) * ML;
     for (int j = tid; j < ML; j += NT) {
       s.seq[j] = j < L ? sq[j] : 0;
-      s.wts[j] = j < L ? wq[j] : 0;
+      if (!BAND) s.wts[j] = j < L ? wq[j] : 0;  // BAND: in the update
     }
     for (int r = tid; r < n; r += NT) {
       s.rank_of[s.order[r]] = (int16_t)r;
@@ -622,66 +869,109 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     const int r_lo = s.misc[2], r_hi = s.misc[3];
     const int n_sub = r_hi - r_lo;
     const bool banded = BAND && hw > 0;
-    PHASE(0);
+    if constexpr (BAND) {
+      // Before the banded DP, in parallel: each row's descriptor (D_*) and
+      // band start, the nodes with an out-edge inside the subgraph, the
+      // rows that a row c.ring or more ranks later reads (from the global
+      // H), whether some row has an in-subgraph predecessor not computed
+      // before it (then every row goes to the global H, for the
+      // traceback's re-derivation), and the band's cells.
+      int late = 0, band_cells = 0;
+      for (int r = r_lo + tid; r < r_hi; r += NT) {
+        const int u0 = s.order[r];
+        if (banded) {  // the columns of [0, L] the row's band admits
+          const int ce = (int)(s.key[u0] + 0.5f) - begin;
+          band_cells += max(0, min(L, ce + hw) - max(0, ce - hw) + 1);
+          s.bstart[r] = (int16_t)max(ce - min(hw, 16384), -32768);
+        }
+        unsigned long long dsc = 0;
+        int np = 0;
+        for (int e = 0; e < E; ++e) {
+          const int sv = s.src[(size_t)u0 * ES + e];
+          if (sv < 0) break;
+          const int rk = s.rank_of[sv];
+          if (rk < r_lo || rk >= r_hi) continue;
+          s.has_out[sv] = 1;
+          dsc |= D_ANY;
+          if (rk >= r) {
+            late = 1;
+            dsc |= D_STALE;
+            continue;
+          }
+          const int d = r - rk;
+          if (d >= c.ring) s.far[rk] = 1;
+          if (np < 3 && d < 4096)
+            dsc |= (unsigned long long)(d | e << 12) << (D_ENT + 16 * np++);
+          else
+            dsc |= D_SLOW;
+        }
+        s.desc[r] = dsc | np;
+      }
+      if (banded) atomicAdd(&s.misc[5], band_cells);
+      const bool all_global = __syncthreads_or(late);
+      dp_cells += banded ? (long long)atomicAdd(&s.misc[5], 0)
+                         : (long long)n_sub * (L + 1);
+      dp_steps += n_sub;
+      PHASE(0);
+      dp_layer_band_ch<CX>(s, c, w, r_lo, r_hi, L, all_global,
+                           banded ? hw : 0);
+      PHASE(1);
+    } else {
+      PHASE(0);
 
-    // --- DP over the subgraph in rank order, a same-column pair per step
-    // with colstep. The pairs are ops/colstep.pair_schedule's: rank r
-    // starts one where rank r + 1 has its key and r is an even distance
-    // from the first rank of that key in the subgraph. Each rank's step
-    // code, found in parallel: 0 one row; 1 a pair whose first node is
-    // among the second's in-edges, the rows one after the other; 2 a pair
-    // run on the two halves of the block at once.
-    const int CH = (L + 1 + NT - 1) / NT;
-    const int CHh = (L + 1 + HALF - 1) / HALF;
-    // The same pass marks each row that a row c.ring or more ranks later
-    // reads (from the global H), and finds whether some row has an
-    // in-subgraph predecessor not computed before it (then every row goes
-    // to the global H, for the traceback's re-derivation).
-    int late = 0, band_cells = 0;
-    for (int r = r_lo + tid; r < r_hi; r += NT) {
-      const int u0 = s.order[r];
-      if (banded) {  // the columns of [0, L] the row's band admits
-        const int ce = (int)(s.key[u0] + 0.5f) - begin;
-        band_cells += max(0, min(L, ce + hw) - max(0, ce - hw) + 1);
+      // --- DP over the subgraph in rank order, a same-column pair per
+      // step with colstep. The pairs are ops/colstep.pair_schedule's: rank
+      // r starts one where rank r + 1 has its key and r is an even distance
+      // from the first rank of that key in the subgraph. Each rank's step
+      // code, found in parallel: 0 one row; 1 a pair whose first node is
+      // among the second's in-edges, or whose half-row exceeds the build's
+      // CX columns a thread, the rows one after the other; 2 a pair run on
+      // the two halves of the block at once.
+      const int CH = (L + 1 + NT - 1) / NT;
+      const int CHh = (L + 1 + HALF - 1) / HALF;
+      // The same pass marks each row that a row c.ring or more ranks later
+      // reads (from the global H), and finds whether some row has an
+      // in-subgraph predecessor not computed before it (then every row
+      // goes to the global H, for the traceback's re-derivation).
+      int late = 0;
+      for (int r = r_lo + tid; r < r_hi; r += NT) {
+        const int u0 = s.order[r];
+        int code = 0;
+        if (c.colstep && r + 1 < r_hi) {
+          const int u1 = s.order[r + 1];
+          const float k = s.key[u0];
+          if (s.key[u1] == k &&
+              ((r - max(r_lo, count_keys(s, n, k, false))) & 1) == 0)
+            code = CHh <= CX && !has_src(s, c, u1, u0) ? 2 : 1;
+        }
+        s.step[r] = (uint8_t)code;
+        for (int e = 0; e < E; ++e) {
+          const int sv = s.src[(size_t)u0 * ES + e];
+          if (sv < 0) break;
+          const int rk = s.rank_of[sv];
+          if (rk < r_lo || rk >= r_hi) continue;
+          if (rk >= r) late = 1;
+          else if (r - rk >= c.ring) s.far[rk] = 1;
+        }
       }
-      int code = 0;
-      if (c.colstep && r + 1 < r_hi) {
-        const int u1 = s.order[r + 1];
-        const float k = s.key[u0];
-        if (s.key[u1] == k &&
-            ((r - max(r_lo, count_keys(s, n, k, false))) & 1) == 0)
-          code = CHh <= CHMAX && !has_src(s, c, u1, u0) ? 2 : 1;
+      const bool all_global = __syncthreads_or(late);
+      dp_cells += (long long)n_sub * (L + 1);
+      for (int r = r_lo; r < r_hi; ++dp_steps) {
+        const int code = s.step[r];
+        if (code == 2) {
+          const int h = tid / HALF;
+          dp_row_ch<CX>(s, c, w, r + h, r_lo, r_hi, L, CHh, tid % HALF,
+                        h * (NWARP / 2), all_global);
+        } else {
+          dp_row_ch<CX>(s, c, w, r, r_lo, r_hi, L, CH, tid, 0, all_global);
+          if (code == 1)
+            dp_row_ch<CX>(s, c, w, r + 1, r_lo, r_hi, L, CH, tid, 0,
+                          all_global);
+        }
+        r += code ? 2 : 1;
       }
-      s.step[r] = (uint8_t)code;
-      for (int e = 0; e < E; ++e) {
-        const int sv = s.src[(size_t)u0 * ES + e];
-        if (sv < 0) break;
-        const int rk = s.rank_of[sv];
-        if (rk < r_lo || rk >= r_hi) continue;
-        if (rk >= r) late = 1;
-        else if (r - rk >= c.ring) s.far[rk] = 1;
-      }
+      PHASE(1);
     }
-    if (banded) atomicAdd(&s.misc[5], band_cells);
-    const bool all_global = __syncthreads_or(late);
-    dp_cells += banded ? (long long)atomicAdd(&s.misc[5], 0)
-                       : (long long)n_sub * (L + 1);
-    for (int r = r_lo; r < r_hi; ++dp_steps) {
-      const int code = s.step[r];
-      if (code == 2) {
-        const int h = tid / HALF;
-        dp_row_ch<BAND>(s, c, w, r + h, r_lo, r_hi, L, CHh, tid % HALF,
-                        h * (NWARP / 2), all_global, hw, begin);
-      } else {
-        dp_row_ch<BAND>(s, c, w, r, r_lo, r_hi, L, CH, tid, 0, all_global,
-                        hw, begin);
-        if (code == 1)
-          dp_row_ch<BAND>(s, c, w, r + 1, r_lo, r_hi, L, CH, tid, 0,
-                          all_global, hw, begin);
-      }
-      r += code ? 2 : 1;
-    }
-    PHASE(1);
 
     // --- end node: first best end score in rank order among subgraph
     // nodes with no out-edge inside the subgraph
@@ -710,10 +1000,12 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
 
     // --- graph update. Each matched position's node among the n old
     // nodes, one thread per position, in the frozen order.
-    for (int jj = tid; jj < L; jj += NT)
+    for (int jj = tid; jj < L; jj += NT) {
+      if (BAND) s.wts[jj] = wq[jj];  // in the ring's bytes: loaded here
       s.found[jj] = (int16_t)(s.runrem[jj] == 0
                                   ? find_old(s, n, s.nkey[jj], s.seq[jj])
                                   : -1);
+    }
     __syncthreads();
     if (wid == 0) {                // the walk (warp 0)
       int nn = n;
@@ -796,19 +1088,30 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
 }
 
 // The launch's shared-memory plan (poa_common::plan) for this kernel's
-// layout.
-cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, size_t* sm) {
-  return poa_common::plan(N, ML, ES, RING, shared_bytes, ring, gsrc, sm);
+// layout, the flat build's or (band) the banded build's.
+cudaError_t plan(int N, int ML, int ES, bool band, int* ring, bool* gsrc,
+                 size_t* sm) {
+  return poa_common::plan(N, ML, ES, RING,
+                          band ? shared_bytes<true> : shared_bytes<false>,
+                          ring, gsrc, sm);
 }
 
-using Kernel = decltype(&poa_v2_kernel<false, false>);
+using Kernel = decltype(&poa_v2_kernel<false, false, CHMAX>);
 
-// The kernel instantiation a plan launches (the banded build where band),
-// with its shared-memory limit raised to sm.
-cudaError_t planned_kernel(bool gsrc, bool band, size_t sm, Kernel* fn) {
-  *fn = gsrc ? (band ? &poa_v2_kernel<true, true> : &poa_v2_kernel<true, false>)
-             : (band ? &poa_v2_kernel<false, true>
-                     : &poa_v2_kernel<false, false>);
+// The kernel instantiation a plan launches (the banded build where band,
+// the wide one where wide, which the plan gives gsrc), with its
+// shared-memory limit raised to sm.
+cudaError_t planned_kernel(bool gsrc, bool band, bool wide, size_t sm,
+                           Kernel* fn) {
+  if (wide)
+    *fn = band ? &poa_v2_kernel<true, true, CHWIDE>
+               : &poa_v2_kernel<true, false, CHWIDE>;
+  else if (gsrc)
+    *fn = band ? &poa_v2_kernel<true, true, CHMAX>
+               : &poa_v2_kernel<true, false, CHMAX>;
+  else
+    *fn = band ? &poa_v2_kernel<false, true, CHMAX>
+               : &poa_v2_kernel<false, false, CHMAX>;
   return cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)sm);
 }
@@ -824,15 +1127,16 @@ long long rt_poa_v2_scratch_words(int N, int ML, int E) {
   return (long long)off[3];
 }
 
-// The shared-memory plan at (N, ML, E): out[0] the ring's rows, out[1] 1
-// where the in-edge sources are in shared memory, out[2] the dynamic
-// shared bytes a block. cudaErrorInvalidValue where the graph does not
-// fit.
-int rt_poa_v2_plan(int N, int ML, int E, int* out) {
+// The shared-memory plan at (N, ML, E) of the flat build or (band) the
+// banded build: out[0] the ring's rows, out[1] 1 where the in-edge sources
+// are in shared memory, out[2] the dynamic shared bytes a block.
+// cudaErrorInvalidValue where the graph does not fit.
+int rt_poa_v2_plan(int N, int ML, int E, int band, int* out) {
   int ring = 0;
   bool gsrc = false;
   size_t sm = 0;
-  const cudaError_t err = plan(N, ML, edge_stride(E), &ring, &gsrc, &sm);
+  const cudaError_t err =
+      plan(N, ML, edge_stride(E), band != 0, &ring, &gsrc, &sm);
   out[0] = ring;
   out[1] = gsrc ? 0 : 1;
   out[2] = (int)sm;
@@ -841,7 +1145,8 @@ int rt_poa_v2_plan(int N, int ML, int E, int* out) {
 
 // One block per window. Inputs as rt_poa_launch (csrc/poa.cu), and wband
 // i32[B] or null: each window's half band (the banded build; null runs the
-// flat build); colstep pairs same-column ranks per serial step. Outputs:
+// flat build); colstep pairs same-column ranks per serial step (the flat
+// build only: the banded build runs one row a step). Outputs:
 // cons_base, cons_cov i32[B,N], cons_len i32[B], failed u8[B], n_nodes
 // i32[B], band_hit u8[B] (with wband); cells and steps i64[B] (each may be
 // null): each window's DP cells (sum over its layers of subgraph nodes x
@@ -860,15 +1165,17 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      void* cons_len, void* failed, void* n_nodes,
                      void* band_hit, void* cells, void* steps, void* phases,
                      void* scratch, int B, void* stream) {
-  if (E > VSLOT || ML + 1 > NT * CHMAX || N > 32767)
+  if (E > VSLOT || ML + 1 > NT * CHWIDE || N > 32767)
     return (int)cudaErrorInvalidValue;
   const int ES = edge_stride(E);
+  const bool band = wband != nullptr;
   int ring = 0;
   bool gsrc = false;
   size_t sm = 0;
-  cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &sm);
+  cudaError_t err = plan(N, ML, ES, band, &ring, &gsrc, &sm);
   Kernel fn = nullptr;
-  if (err == cudaSuccess) err = planned_kernel(gsrc, wband != nullptr, sm, &fn);
+  if (err == cudaSuccess)
+    err = planned_kernel(gsrc, band, wide_build(ML), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, colstep ? 1 : 0, ring};
   const size_t per = (size_t)rt_poa_v2_scratch_words(N, ML, E);
@@ -886,14 +1193,16 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
 // The kernel's registers a thread, local (spill) bytes a thread, dynamic
 // shared bytes a block and resident blocks per SM at (N, ML) with 12 edge
 // slots, as the launch plans them, for the flat build or (band) the banded
-// one; out[4].
+// one (the wide instantiation where max_len + 1 > NT * CHMAX); out[4].
 int rt_poa_v2_occupancy(int N, int ML, int band, int* out) {
   int ring = 0;
   bool gsrc = false;
   size_t sm = 0;
-  cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &sm);
+  cudaError_t err =
+      plan(N, ML, edge_stride(12), band != 0, &ring, &gsrc, &sm);
   Kernel fn = nullptr;
-  if (err == cudaSuccess) err = planned_kernel(gsrc, band != 0, sm, &fn);
+  if (err == cudaSuccess)
+    err = planned_kernel(gsrc, band != 0, wide_build(ML), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

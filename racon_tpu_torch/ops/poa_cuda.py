@@ -33,7 +33,12 @@ the flat build's serial chain.
 
 The graph grows with the window, so each launch plans its shared memory
 (``plan``): a ring of 8 rows at -w 500, fewer for larger windows, and the
-in-edge sources in the global scratch where even 2 rows do not fit.
+in-edge sources in the global scratch where even 2 rows do not fit. A
+thread owns up to 8 columns of a DP row; a window whose max_len + 1
+exceeds 2048 (make_config's classes above 1280) runs the kernel's wide
+build, 16 columns a thread, so the kernels take max_len + 1 <= 4096
+(``MAX_COLUMNS``). The shared memory a block caps the ls kernel at
+backbone class 2048 (-w 2048, max_len 3072), where ``plan`` raises.
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -50,6 +55,9 @@ from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
 
 MAX_NODES = 32767  # node ids are int16 in both POA kernels
+#: max_len + 1 both POA kernels take: 256 threads x 16 columns (the wide
+#: build; the usual build takes 8 a thread, max_len + 1 <= 2048).
+MAX_COLUMNS = 4096
 _INVALID_VALUE = 1  # cudaErrorInvalidValue: the graph does not fit
 #: The kernel's timed phases, in the order of stats["phase_cycles"].
 PHASES = ("init", "dp", "end_pick", "traceback", "update", "order",
@@ -68,7 +76,7 @@ def _lib():
         lib.rt_poa_launch.restype = ci
         lib.rt_poa_launch.argtypes = [ci] * 8 + [vp] * 19 + [ci, vp]
         lib.rt_poa_plan.restype = ci
-        lib.rt_poa_plan.argtypes = [ci, ci, ci, vp]
+        lib.rt_poa_plan.argtypes = [ci, ci, ci, ci, vp]
         _LIB = lib
     return _LIB
 
@@ -81,12 +89,13 @@ def occupancy(cfg: PoaConfig, band: bool = False) -> dict:
                               cuda_lib.POA_OCCUPANCY, "POA kernel")
 
 
-def plan_with(fn, cfg: PoaConfig, what: str) -> dict:
-    """A POA kernel's shared-memory plan at cfg's geometry from its
-    library's plan export `fn` (both kernels' wrappers); raises ValueError
-    where the graph does not fit."""
+def plan_with(fn, cfg: PoaConfig, band: bool, what: str) -> dict:
+    """A POA kernel's shared-memory plan at cfg's geometry, for its flat
+    or (`band`) banded build, from its library's plan export `fn` (both
+    kernels' wrappers); raises ValueError where the graph does not fit."""
+    check_geometry(cfg)
     out = (ctypes.c_int * 3)()
-    err = fn(cfg.max_nodes, cfg.max_len, cfg.max_edges, out)
+    err = fn(cfg.max_nodes, cfg.max_len, cfg.max_edges, int(band), out)
     if err == _INVALID_VALUE:
         raise ValueError(f"{what}: a window of max_nodes={cfg.max_nodes}, "
                          f"max_len={cfg.max_len} does not fit the card's "
@@ -95,13 +104,14 @@ def plan_with(fn, cfg: PoaConfig, what: str) -> dict:
     return dict(zip(("ring", "src_in_shared", "shared_bytes"), out))
 
 
-def plan(cfg: PoaConfig) -> dict:
+def plan(cfg: PoaConfig, band: bool = False) -> dict:
     """How a launch at cfg's geometry lays out a window on this card: the
     DP rows its shared ring holds ("ring": 8, 4 or 2), whether the in-edge
     sources are in shared memory ("src_in_shared") and the dynamic shared
-    bytes a block ("shared_bytes"). Raises ValueError where the graph does
-    not fit the card's shared memory a block (needs the card)."""
-    return plan_with(_lib().rt_poa_plan, cfg, "POA kernel")
+    bytes a block ("shared_bytes"); the banded build's (`band`) is the flat
+    build's. Raises ValueError where the graph does not fit the card's
+    shared memory a block, or the kernel's limits (needs the card)."""
+    return plan_with(_lib().rt_poa_plan, cfg, band, "POA kernel")
 
 
 def add_phase_cycles(stats: dict, names, cycles) -> None:
@@ -114,6 +124,18 @@ def add_phase_cycles(stats: dict, names, cycles) -> None:
     stats["phase_cycles"] = [a + b for a, b in zip(old, sums)]
     old = stats.get("phase_cycles_max", [0] * len(names))
     stats["phase_cycles_max"] = [max(a, b) for a, b in zip(old, peaks)]
+
+
+def check_geometry(cfg: PoaConfig) -> None:
+    """Both POA kernels' limits on cfg's geometry: max_edges <= 32,
+    max_len + 1 <= MAX_COLUMNS, max_nodes <= MAX_NODES (ValueError)."""
+    if cfg.max_edges > 32 or cfg.max_len + 1 > MAX_COLUMNS:
+        raise ValueError("POA kernel takes max_edges <= 32 and max_len + 1 "
+                         f"<= {MAX_COLUMNS} (256 threads x 16 columns), got "
+                         f"{cfg}")
+    if cfg.max_nodes > MAX_NODES:
+        raise ValueError(f"POA kernel takes max_nodes <= {MAX_NODES} "
+                         f"(int16 node ids), got {cfg.max_nodes}")
 
 
 def check_inputs(cfg: PoaConfig, args, dev) -> int:
@@ -129,12 +151,7 @@ def check_inputs(cfg: PoaConfig, args, dev) -> int:
     req(ws, "ws", torch.int32, (B, D, cfg.max_len), dev)
     for t, name in ((lens, "lens"), (begins, "begins"), (ends, "ends")):
         req(t, name, torch.int32, (B, D), dev)
-    if cfg.max_edges > 32 or cfg.max_len + 1 > 2048:
-        raise ValueError("POA kernel takes max_edges <= 32 and "
-                         f"max_len <= 2047, got {cfg}")
-    if cfg.max_nodes > MAX_NODES:
-        raise ValueError(f"POA kernel takes max_nodes <= {MAX_NODES} "
-                         f"(int16 node ids), got {cfg.max_nodes}")
+    check_geometry(cfg)
     return B
 
 
@@ -160,7 +177,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     B = check_inputs(cfg, args, dev)
     if wband is not None:
         cuda_lib.require(wband, "wband", torch.int32, (B,), dev)
-    plan(cfg)
+    plan(cfg, wband is not None)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)

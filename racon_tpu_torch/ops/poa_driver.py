@@ -4,14 +4,19 @@ host every window the kernel flags ``failed``.
 
 A copy of the JAX package's driver (racon_tpu/ops/poa_driver.py) reduced
 to one path: no journal, no sanitizer, no sharding, and no lattice. The
-kernel is an argument, ``poa_kernel``: "v2"
-(ops/poa_v2_cuda.py, the default since it beat ls by more than 10% on
-every depth bucket on the card) or "ls" (ops/poa_cuda.py, the JAX
-package's default); both compute one function, and neither steps down to
-the other. Both keep H in global memory and fit every window class up to
--w 1280 (max_len <= 2047), v2 by planning its shared memory per launch
-(poa_v2_cuda.plan), so neither depth nor window class keeps a window off
-the card.
+kernel is an argument, ``poa_kernel``: "ls" (ops/poa_cuda.py, the
+default, as in the JAX package, and faster than v2 on every depth bucket
+on the card) or "v2" (ops/poa_v2_cuda.py); both compute one function,
+and neither steps down to the other. Both keep H in global memory and
+plan their shared memory per launch (``plan``), with a wide build of 16
+columns a thread where max_len + 1 > 2048, so that every window class up
+to 2048 (-w 2048; max_len 3072) runs on the card. Before any window
+runs, the phase checks every bucket's geometry against the card and
+raises ValueError, naming the largest window length the kernel takes,
+where one does not fit; no window is sent to the host for that. A
+window's global scratch (H and the move records) grows with N x max_len:
+about 95 MB at class 2048, 24 GB for a batch of 256, which the card's
+80 GB holds, so ``batch_windows`` needs no cap by geometry.
 
 With ``band`` (the JAX package's ``RACON_TPU_BAND``) every batch runs the
 chosen kernel's banded build: each window gets the half band of its worst
@@ -35,7 +40,7 @@ import numpy as np
 import torch
 
 from . import band as _band
-from . import poa
+from . import poa, poa_cuda, poa_v2_cuda
 from .encoding import decode, encode
 from .poa_cuda import poa_consensus
 from .poa_v2_cuda import poa_consensus_v2
@@ -44,7 +49,7 @@ DEPTH_CAP = 200                    # layers per window, as the reference
 DEPTH_BUCKETS = (8, 32, DEPTH_CAP)
 NODE_FACTOR = 3                    # max_nodes = 3 x window length
 POA_KERNELS = ("ls", "v2")
-DEFAULT_POA_KERNEL = "v2"
+DEFAULT_POA_KERNEL = "ls"
 
 
 def window_class(bb_len: int) -> int:
@@ -90,6 +95,37 @@ def kernel_for(poa_kernel: str):
     return poa_consensus if poa_kernel == "ls" else poa_consensus_v2
 
 
+def check_geometries(cfgs, poa_kernel: str, band: bool) -> None:
+    """Before any window runs on the card: each geometry's shared-memory
+    plan for `poa_kernel`'s flat or (`band`) banded build. Where one does
+    not fit, raises one ValueError naming the largest window length (-w)
+    the kernel takes on this card: the largest backbone class whose
+    geometry fits (needs the card)."""
+    plan = poa_cuda.plan if poa_kernel == "ls" else poa_v2_cuda.plan
+
+    def fits(cfg) -> bool:
+        try:
+            plan(cfg, band)
+        except ValueError:
+            return False
+        return True
+
+    for cfg in cfgs:
+        if fits(cfg):
+            continue
+        largest = 0
+        for wl in range(128, cfg.max_backbone, 128):
+            if not fits(make_config(wl, cfg.depth, cfg.match, cfg.mismatch,
+                                    cfg.gap)):
+                break
+            largest = wl
+        raise ValueError(
+            f"the {poa_kernel} POA kernel does not take windows of backbone "
+            f"class {cfg.max_backbone} (max_nodes {cfg.max_nodes}, max_len "
+            f"{cfg.max_len}) on this card; the largest window length it "
+            f"takes is -w {largest}")
+
+
 def initial_poa_band(wx, keep, cfg: poa.PoaConfig, slack: int):
     """w0 (half band) for a window: the worst admitted layer's length less
     its span, plus the slack; None (flat) where the band would not be
@@ -111,7 +147,7 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
                         ) -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
-    `poa_kernel` ("v2", the default, or "ls") picks the kernel; `band`
+    `poa_kernel` ("ls", the default, or "v2") picks the kernel; `band`
     runs its banded build with the widening ladder (module note).
 
     Returns {device, host_fallback, backbone, failed, layers_dropped,
@@ -147,8 +183,12 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
         bucket = next(b for b in DEPTH_BUCKETS if depth <= b)
         buckets.setdefault((bucket, window_class(bb)), []).append(
             (i, depth, bb))
-    for (depth_bucket, wl_class), bucket_jobs in sorted(buckets.items()):
-        cfg = make_config(wl_class, depth_bucket, match, mismatch, gap)
+    cfgs = {key: make_config(key[1], key[0], match, mismatch, gap)
+            for key in buckets}
+    if device.type == "cuda":
+        check_geometries(cfgs.values(), poa_kernel, band)
+    for key, bucket_jobs in sorted(buckets.items()):
+        cfg = cfgs[key]
         # depth- and length-homogeneous batches
         bucket_jobs.sort(key=lambda job: (job[1], job[2]))
         for off in range(0, len(bucket_jobs), batch_windows):

@@ -25,13 +25,18 @@ The banded build (``wband=``) replaces the Pallas kernel's ``band=True``
 build (racon_tpu/ops/poa_pallas.py:73): each window's
 DP runs under its half band ``wband`` (0: the flat DP, bit for bit), and
 the window's ``band_hit`` comes out beside the five outputs. It computes
-every column, as the Pallas build does, and masks the rest.
+every column, as the Pallas build does, and masks the rest. Its DP rows
+are the ls kernel's design with v2's cells and records: one block barrier
+a row, the row before in registers, and a descriptor and band start a
+row built before the layer; it runs no same-column pairs, so its serial
+steps are its DP rows whatever ``colstep`` says.
 
 The graph grows with the window, so each launch plans its shared memory
-(``plan``): a ring of 8 rows at -w 500, fewer rows for larger windows
-(2 at -w 1280, the largest that ``max_len <= 2047`` admits), and the
-in-edge sources in the global scratch where even that does not fit. The
-plan fits every geometry the ls kernel takes.
+(``plan``; the banded build has a layout of its own): a ring of 8 rows at
+-w 500, fewer rows for larger windows, and the in-edge sources in the
+global scratch where even 2 rows do not fit. Windows whose max_len + 1
+exceeds 2048 run the wide build (16 columns a thread); the plan fits
+every geometry the ls kernel takes, up to backbone class 2048.
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -65,7 +70,7 @@ def _lib():
         lib.rt_poa_v2_launch.restype = ci
         lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 20 + [ci, vp]
         lib.rt_poa_v2_plan.restype = ci
-        lib.rt_poa_v2_plan.argtypes = [ci, ci, ci, vp]
+        lib.rt_poa_v2_plan.argtypes = [ci, ci, ci, ci, vp]
         _LIB = lib
     return _LIB
 
@@ -78,13 +83,15 @@ def occupancy(cfg: PoaConfig, band: bool = False) -> dict:
                               cuda_lib.POA_OCCUPANCY, "v2 POA kernel")
 
 
-def plan(cfg: PoaConfig) -> dict:
-    """How a launch at cfg's geometry lays out a window on this card: the
-    DP rows its shared ring holds ("ring": 8, 4 or 2), whether the in-edge
-    sources are in shared memory ("src_in_shared") and the dynamic shared
-    bytes a block ("shared_bytes"). Raises ValueError where the graph does
-    not fit the card's shared memory a block (needs the card)."""
-    return plan_with(_lib().rt_poa_v2_plan, cfg, "v2 POA kernel")
+def plan(cfg: PoaConfig, band: bool = False) -> dict:
+    """How a launch of the flat or (`band`) the banded build at cfg's
+    geometry lays out a window on this card: the DP rows its shared ring
+    holds ("ring": 8, 4 or 2), whether the in-edge sources are in shared
+    memory ("src_in_shared") and the dynamic shared bytes a block
+    ("shared_bytes"). Raises ValueError where the graph does not fit the
+    card's shared memory a block, or the kernel's limits (needs the
+    card)."""
+    return plan_with(_lib().rt_poa_v2_plan, cfg, band, "v2 POA kernel")
 
 
 def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
@@ -95,18 +102,20 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
 
     Inputs as ``poa.batch_to_tensors`` makes them. `wband`, an i32[B]
     tensor of half bands (0: flat), runs the banded build and appends
-    band_hit bool[B] to the outputs. `colstep` pairs
-    same-column ranks per serial DP iteration; the outputs do not depend
-    on it. `stats`, when given, accumulates the DP cells ("cells") and
-    the serial DP iterations ("steps") the batch needed, as the plain
-    version counts them; on the card the kernel counts both, and reading
-    them waits for it. On the card only, it also accumulates each
-    phase's clock cycles (``PHASES``; thread 0 of each window's block
-    reads ``clock64()``): summed over the windows ("phase_cycles") and
-    the largest window's ("phase_cycles_max")."""
+    band_hit bool[B] to the outputs. `colstep` pairs same-column ranks
+    per serial DP iteration in the flat build (the banded build runs one
+    row a step); the outputs do not depend on it. `stats`, when given,
+    accumulates the DP cells ("cells") and the serial DP iterations
+    ("steps") the batch needed, as the plain version counts them; on the
+    card the kernel counts both, and reading them waits for it. On the
+    card only, it also accumulates each phase's clock cycles (``PHASES``;
+    thread 0 of each window's block reads ``clock64()``): summed over the
+    windows ("phase_cycles") and the largest window's
+    ("phase_cycles_max")."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
-        return poa_batch_plain(cfg, *args, stats=stats, colstep=colstep,
+        return poa_batch_plain(cfg, *args, stats=stats,
+                               colstep=colstep and wband is None,
                                wband=wband)
     dev = bb.device
     B = check_inputs(cfg, args, dev)
@@ -115,7 +124,7 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     if cfg.max_edges > VSLOT:
         raise ValueError(f"v2 POA kernel takes max_edges <= {VSLOT}, got "
                          f"{cfg.max_edges}")
-    plan(cfg)
+    plan(cfg, wband is not None)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)

@@ -39,13 +39,13 @@ class TorchPolisher:
 
     ``device`` is where the kernels run ("cuda", the default, or "cpu"
     for the plain PyTorch versions); ``batch_windows`` is the POA batch
-    in windows; ``poa_kernel`` picks the POA kernel ("v2", the default,
-    or "ls"; both compute the same consensus). ``band`` runs the banded
-    DP on both phases (the JAX package's ``RACON_TPU_BAND``; ops/band.py):
-    each job and window starts on the band of its length delta plus
-    ``band_slack`` and widens at most ``band_max_widenings`` times before
-    it runs flat, through the chosen POA kernel's banded build; the output
-    is the flat run's. The other keyword arguments are racon's (window_length,
+    in windows; ``poa_kernel`` picks the POA kernel ("ls", the default,
+    as in the JAX package, or "v2"; both compute the same consensus).
+    ``band`` runs the banded DP on both phases (the JAX package's
+    ``RACON_TPU_BAND``; ops/band.py): each job and window starts on the
+    band of its length delta plus ``band_slack`` and widens at most
+    ``band_max_widenings`` times before it runs flat, through the chosen
+    POA kernel's banded build; the output is the flat run's. The other keyword arguments are racon's (window_length,
     quality_threshold, error_threshold, trim, match, mismatch, gap,
     fragment_correction, num_threads).
 

@@ -161,12 +161,17 @@ def test_poa_v2_equals_plain_on_a_full_depth_200_batch(card):
 
 #: Geometries beyond -w 500 and the v2 shared-memory plan each gets on an
 #: H100 (227 KiB a block): (config, window, ring rows, sources in shared
-#: memory). -w 1280 is the largest window make_config's max_len admits;
-#: "n6144" is a graph too large to keep its in-edge sources on chip.
+#: memory). -w 1280 is the largest window of the usual build (max_len + 1
+#: <= 2048); -w 1500 and -w 2000 (their window classes' geometries,
+#: max_len 2304 and 3072) run the wide build, 2000 the largest class both
+#: kernels take; "n6144" is a graph too large to keep its in-edge sources
+#: on chip.
 LARGE = {
     "w1000": (poa_driver.make_config(1000, 32, 5, -4, -8), 1000, 8, 1),
     "w1200": (poa_driver.make_config(1200, 32, 5, -4, -8), 1200, 4, 1),
     "w1280": (poa_driver.make_config(1280, 200, 5, -4, -8), 1280, 2, 1),
+    "w1500": (poa_driver.make_config(1536, 32, 5, -4, -8), 1500, 8, 0),
+    "w2000": (poa_driver.make_config(2048, 32, 5, -4, -8), 2000, 4, 0),
     "n6144": (CFG._replace(max_nodes=6144, max_len=1024, max_backbone=512,
                            depth=16), 500, 8, 0),
 }
@@ -250,6 +255,58 @@ def test_poa_v2_phase_cycles_fit_in_the_launch(card):
         assert sum(cycles) <= ev[0].elapsed_time(ev[1]) * mhz * 1e3
 
 
+#: Each POA build's registers a thread, local (spill) bytes a thread and
+#: dynamic shared bytes a block at -w 500 (make_config(500, ...)): the
+#: builds the main path runs, which the wide builds (max_len + 1 > 2048)
+#: leave as they were. The v2 banded build's, redesigned, have no spill.
+W500_RESOURCES = {("ls", False): (127, 0, 107040),
+                  ("ls", True): (127, 0, 107040),
+                  ("v2", False): (128, 16, 106960)}
+
+
+@pytest.mark.parametrize("kernel,band", [("ls", False), ("ls", True),
+                                         ("v2", False), ("v2", True)])
+def test_poa_builds_keep_their_resources_at_w500(card, kernel, band):
+    """The -w 500 builds keep their registers, spill and shared bytes; the
+    v2 banded build runs within 128 registers with no spill, in the shared
+    bytes its plan gives."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    mod = poa_cuda if kernel == "ls" else poa_v2_cuda
+    occ = mod.occupancy(cfg, band=band)
+    got = (occ["regs"], occ["local_bytes"], occ["shared_bytes"])
+    if (kernel, band) in W500_RESOURCES:
+        assert got == W500_RESOURCES[kernel, band]
+    else:
+        assert occ["regs"] <= 128 and occ["local_bytes"] == 0
+        assert occ["shared_bytes"] == mod.plan(cfg, band)["shared_bytes"]
+    assert occ["blocks_per_sm"] >= 2
+
+
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+def test_poa_kernels_run_a_full_batch_at_w2000(card, kernel):
+    """256 windows at -w 2000's geometry (backbone class 2048, max_len
+    3072: the wide build, one block an SM, about 95 MB of global scratch a
+    window), flat and banded: the batch fits the card, and every window
+    equals the plain version's run of the same window (the batch tiles
+    four windows of two or three layers)."""
+    cfg = poa_driver.make_config(2048, 8, 5, -4, -8)
+    packed = batches.poa_batch(cfg, 4, 23, 2000, layers=(2, 3))
+    wband = torch.tensor([0, 12, 60, 400], dtype=torch.int32)
+    fn = poa_driver.kernel_for(kernel)
+    small = poa.batch_to_tensors(packed, "cpu")
+    tile = torch.arange(256) % 4
+    dev_in = [t[tile].contiguous().to(card) for t in small]
+    for wb in (None, wband):
+        kw = {} if wb is None else {"wband": wb}
+        want = fn(cfg, *small, **kw)
+        got = fn(cfg, *dev_in, **({} if wb is None else
+                                  {"wband": wb[tile].contiguous().to(card)}))
+        torch.cuda.synchronize()
+        for k, (w, g) in enumerate(zip(want, got)):
+            np.testing.assert_array_equal(g.cpu().numpy(), w[tile].numpy(),
+                                          err_msg=f"output {k}, wband {wb}")
+
+
 @pytest.mark.parametrize("kernel", ["ls", "v2"])
 def test_poa_kernels_fit_two_blocks_an_sm(card, kernel):
     """At the main path's geometry (-w 500) each POA kernel has at least
@@ -263,14 +320,16 @@ def test_poa_kernels_fit_two_blocks_an_sm(card, kernel):
 
 
 def test_poa_v2_band_build_fits_two_blocks_an_sm(card):
-    """The banded build at -w 500: the flat build's shared-memory plan and,
-    as the flat build, two blocks an SM within 128 registers a thread (its
-    local bytes, a few more than the flat build's, are reported by
-    chip_smoke.py's occupancy lines)."""
+    """The banded build at -w 500: its own shared-memory plan (ring 8, the
+    in-edge sources on chip, the row descriptors beside them) and, as the
+    flat build, two blocks an SM within 128 registers a thread, with no
+    local bytes."""
     cfg = poa_driver.make_config(500, 32, 5, -4, -8)
     occ = poa_v2_cuda.occupancy(cfg, band=True)
-    assert occ["shared_bytes"] == poa_v2_cuda.occupancy(cfg)["shared_bytes"]
-    assert occ["regs"] <= 128
+    plan = poa_v2_cuda.plan(cfg, band=True)
+    assert plan["ring"] == 8 and plan["src_in_shared"] == 1
+    assert occ["shared_bytes"] == plan["shared_bytes"]
+    assert occ["regs"] <= 128 and occ["local_bytes"] == 0
     assert occ["blocks_per_sm"] >= 2
 
 
@@ -307,13 +366,15 @@ def _assert_band_build_equal(card, cfg, packed, wband, kernel="v2"):
     return want
 
 
-@pytest.mark.parametrize("window", [500, 1280])
+@pytest.mark.parametrize("window", [500, 1280, 1500, 2000])
 @pytest.mark.parametrize("wband,roll", [(0, 0), (8, 0), (1, 5)])
 def test_poa_v2_band_build_equals_plain(card, window, wband, roll):
     """The banded fixture of the JAX package's tests (tools.batches
-    band_batch) at -w 500 and -w 1280: wband 0 (flat), 8, and 1 on layers
-    that drift off the diagonal (every window hits)."""
-    cfg = poa_driver.make_config(window, 4, 5, -4, -8)
+    band_batch) at -w 500, 1280, 1500 and 2000 (their window classes'
+    geometries; the last two the wide build): wband 0 (flat), 8, and 1 on
+    layers that drift off the diagonal (every window hits)."""
+    cfg = poa_driver.make_config(poa_driver.window_class(window), 4, 5, -4,
+                                 -8)
     packed = batches.band_batch(cfg, 4, window + roll, roll)
     want = _assert_band_build_equal(card, cfg, packed, [wband] * 4)
     if roll:
@@ -339,12 +400,14 @@ def test_poa_ls_band_build_fits_two_blocks_an_sm(card):
     assert occ["blocks_per_sm"] >= 2
 
 
-@pytest.mark.parametrize("window", [500, 1280])
+@pytest.mark.parametrize("window", [500, 1280, 1500, 2000])
 @pytest.mark.parametrize("wband,roll", [(0, 0), (8, 0), (1, 5)])
 def test_poa_ls_band_build_equals_plain(card, window, wband, roll):
-    """The ls kernel's banded build on band_batch at -w 500 and -w 1280:
+    """The ls kernel's banded build on band_batch at -w 500, 1280, 1500 and
+    2000 (their window classes' geometries; the last two the wide build):
     wband 0 (the flat build's outputs), 8, and 1 on drifting layers."""
-    cfg = poa_driver.make_config(window, 4, 5, -4, -8)
+    cfg = poa_driver.make_config(poa_driver.window_class(window), 4, 5, -4,
+                                 -8)
     packed = batches.band_batch(cfg, 4, window + roll, roll)
     want = _assert_band_build_equal(card, cfg, packed, [wband] * 4, "ls")
     if roll:
@@ -441,6 +504,31 @@ def test_poa_ls_builds_equal_plain_across_far_predecessors(card, wband):
     # layers; the narrow ones fail at the first layer (rule 1 or the walk)
     keep = [0, 1, 2, 3] if wband is None else [0, 2]
     assert not want[3][keep].any() and (want[4][keep] > 200).all()
+
+
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+def test_poa_band_builds_equal_plain_where_keys_collide(card, kernel):
+    """batches.equal_key_batch under half bands, narrow on two windows and
+    wide on the rest: banded rows with predecessors ranked after them
+    (the descriptor's stale flag: their moves re-derived from the global
+    H) equal the plain version's, all six outputs."""
+    cfg = CFG._replace(depth=16)
+    packed = batches.equal_key_batch(cfg)
+    B = packed[0].shape[0]
+    _assert_band_build_equal(card, cfg, packed, [6, 6] + [200] * (B - 2),
+                             kernel)
+
+
+@pytest.mark.parametrize("wband", [[0, 8, 120, 3], [2, 30, 60, 500]])
+def test_poa_v2_band_build_equals_plain_across_far_predecessors(card,
+                                                                wband):
+    """The v2 banded build on batches.far_pred_batch: rows whose
+    predecessor ranks about 100 before them (read from the global H, the
+    descriptor's rank distance), under half bands that admit the insertion
+    and ones that do not."""
+    cfg = CFG._replace(depth=6)
+    packed = batches.far_pred_batch(cfg)
+    _assert_band_build_equal(card, cfg, packed, wband)
 
 
 @pytest.mark.parametrize("wband", [None, [0, 2, 5, 40]])

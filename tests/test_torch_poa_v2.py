@@ -15,6 +15,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
@@ -23,7 +24,8 @@ import racon_tpu_torch
 from racon_tpu.ops import colstep as jcolstep
 from racon_tpu.ops import poa_pallas
 from racon_tpu_torch import cli
-from racon_tpu_torch.ops import colstep, poa, poa_driver, poa_v2_cuda
+from racon_tpu_torch.ops import (colstep, poa, poa_cuda, poa_driver,
+                                 poa_v2_cuda)
 from racon_tpu_torch.tools import batches
 from tests.test_pallas import mutate
 from tests.test_pallas_ls import CFG, _alloc, _set_window
@@ -372,18 +374,194 @@ def test_parallel_pair_rule_equals_pair_schedule(ids):
     assert _parallel_pair_starts(keys) == want
 
 
-def test_default_poa_kernel_is_v2(tmp_path):
-    """v2 is the default POA kernel of TorchPolisher, create_polisher, the
-    consensus driver and the CLI (it beat ls by more than 10% on every
-    depth bucket on the card)."""
+def test_default_poa_kernel_is_ls(tmp_path):
+    """ls is the default POA kernel of TorchPolisher, create_polisher, the
+    consensus driver and the CLI, as RACON_TPU_POA_KERNEL's default is in
+    the JAX package (and ls is faster than v2 on every depth bucket on the
+    card)."""
     import inspect
 
-    assert poa_driver.DEFAULT_POA_KERNEL == "v2"
+    from racon_tpu import config
+
+    assert poa_driver.DEFAULT_POA_KERNEL == "ls"
+    assert poa_driver.DEFAULT_POA_KERNEL == \
+        config.KNOBS["RACON_TPU_POA_KERNEL"].default
     paths = _paf_dataset(tmp_path)
     assert racon_tpu_torch.TorchPolisher(*paths, device="cpu",
-                                         **KW).poa_kernel == "v2"
+                                         **KW).poa_kernel == "ls"
     assert racon_tpu_torch.create_polisher(*paths, device="cpu",
-                                           **KW).poa_kernel == "v2"
+                                           **KW).poa_kernel == "ls"
     sig = inspect.signature(poa_driver.run_consensus_phase)
-    assert sig.parameters["poa_kernel"].default == "v2"
-    assert cli.build_arg_parser().get_default("poa_kernel") == "v2"
+    assert sig.parameters["poa_kernel"].default == "ls"
+    assert cli.build_arg_parser().get_default("poa_kernel") == "ls"
+
+
+# --- a model of the banded build's row descriptors and band starts
+# (csrc/poa_v2.cu, the pass before each layer's DP), held against the
+# plain version's banded rows
+
+D_SLOW, D_ANY, D_STALE, D_ENT = 4, 8, 16, 5
+
+
+def _desc_model(cfg, g, sub, rank, u, r):
+    """The 64-bit descriptor csrc/poa_v2.cu builds for the row of node u at
+    rank r: its computed in-subgraph predecessors (rank distance | slot <<
+    12, 16 bits each, up to three, in slot order) and its flags."""
+    dsc, n = 0, 0
+    for e in range(cfg.max_edges):
+        sv = int(g.src[u, e])
+        if sv < 0:
+            break
+        if not sub[sv]:
+            continue
+        dsc |= D_ANY
+        if rank[sv] >= r:
+            dsc |= D_STALE
+            continue
+        d = r - int(rank[sv])
+        if n < 3 and d < 4096:
+            dsc |= (d | e << 12) << (D_ENT + 16 * n)
+            n += 1
+        else:
+            dsc |= D_SLOW
+    return dsc | n
+
+
+def _in_band_model(band, u, L):
+    """The banded DP's mask of node u's row from its band start
+    (bstart = cexp - wband, int16): a cell is in band where the unsigned
+    difference j - bstart is at most 2 wband."""
+    bstart = max(band.center(u) - min(band.w, 16384), -32768)
+    jj = np.arange(L + 1, dtype=np.int64)
+    return (jj - bstart) % 2 ** 32 <= 2 * band.w
+
+
+@pytest.mark.parametrize("case", ["mutated", "far", "equal_keys"])
+def test_band_descriptor_model_equals_plain_rows(monkeypatch, case):
+    """csrc/poa_v2.cu's banded rows read their predecessors from a
+    descriptor and their mask from a band start, both built before the
+    layer; modelled in numpy, at every banded row the descriptor lists the
+    plain version's computed predecessors in slot order (the row at each
+    rank distance is the slot's source), flags a row with none in the
+    subgraph and a row with one not computed yet, and the band start
+    gives the plain row's mask."""
+    real_row = poa._Band.row
+    seen = {"rows": 0, "slow": 0, "stale": 0, "listed": 0, "masked": 0}
+
+    def spy_row(band, Hn, u, seq):
+        cfg, g, sub, rank = band.cfg, band.g, band.sub, band.rank
+        srcs = g.src[u]
+        e = np.nonzero(srcs >= 0)[0]
+        e = e[sub[srcs[e]]]
+        done = e[rank[srcs[e]] < rank[u]]
+        dsc = _desc_model(cfg, g, sub, rank, int(u), int(rank[u]))
+        assert bool(dsc & D_ANY) == (len(e) > 0)
+        assert bool(dsc & D_STALE) == (len(done) < len(e))
+        if dsc & D_SLOW:
+            assert len(done) > 3
+            seen["slow"] += 1
+        else:
+            ents = [(dsc >> (D_ENT + 16 * i)) & 0xffff
+                    for i in range(dsc & 3)]
+            assert [ent >> 12 for ent in ents] == list(done)
+            for ent in ents:
+                assert rank[srcs[ent >> 12]] == rank[u] - (ent & 0xfff)
+            seen["listed"] += len(ents)
+        seen["stale"] += bool(dsc & D_STALE)
+        real_row(band, Hn, u, seq)
+        L = len(band.jj) - 1
+        off = np.abs(band.jj - band.center(u)) > band.w
+        assert np.array_equal(_in_band_model(band, u, L), ~off)
+        seen["rows"] += 1
+        seen["masked"] += int(off.sum())
+
+    monkeypatch.setattr(poa._Band, "row", spy_row)
+    if case == "mutated":
+        cfg = poa_driver.make_config(100, 32, 5, -4, -8)
+        packed = batches.poa_batch(cfg, 4, 41, 100, 0.2)
+        wband = [1, 4, 12, 40]
+    elif case == "far":
+        cfg = poa.PoaConfig(384, 256, 128, 12, 6, 5, -4, -8)
+        packed = batches.far_pred_batch(cfg, 2)
+        wband = [8, 120]
+    else:
+        cfg = CFG._replace(depth=16)
+        packed = batches.equal_key_batch(cfg)
+        wband = [6, 6] + [200] * (packed[0].shape[0] - 2)  # wide: late rows
+    poa_v2_cuda.poa_consensus_v2(
+        cfg, *poa.batch_to_tensors(packed, "cpu"),
+        wband=torch.tensor(wband, dtype=torch.int32))
+    assert seen["rows"] > 500 and seen["listed"] > seen["rows"] // 2
+    assert seen["masked"] > 0
+    if case == "mutated":
+        assert seen["slow"] > 0
+    if case == "equal_keys":
+        assert seen["stale"] > 0
+
+
+def test_banded_build_counts_one_row_a_step():
+    """The banded build runs no same-column pairs: its serial steps are its
+    DP rows, colstep or not, while the flat build's pairs cut them."""
+    cfg = poa_driver.make_config(100, 8, 5, -4, -8)
+    t = poa.batch_to_tensors(batches.poa_batch(cfg, 2, 43, 100), "cpu")
+    flat, band = {}, {}
+    poa_v2_cuda.poa_consensus_v2(cfg, *t, stats=flat)
+    poa_v2_cuda.poa_consensus_v2(cfg, *t, stats=band, colstep=True,
+                                 wband=torch.tensor([3, 0],
+                                                    dtype=torch.int32))
+    assert band["steps"] == band["rows"] > 0
+    assert flat["steps"] < flat["rows"]
+
+
+@pytest.mark.parametrize("window", [1500, 2000])
+@pytest.mark.parametrize("wrapper", ["ls", "v2"])
+def test_wrappers_take_wide_geometries(window, wrapper):
+    """Both wrappers' argument check takes make_config's geometries at -w
+    1500 and -w 2000 (max_len 2304 and 3072: the wide build) and refuses
+    max_len + 1 > 4096 with a message that names the limit."""
+    mod = poa_cuda if wrapper == "ls" else poa_v2_cuda
+    cfg = poa_driver.make_config(poa_driver.window_class(window), 8, 5, -4,
+                                 -8)
+    assert cfg.max_len + 1 > 2048
+    t = poa.batch_to_tensors(batches.poa_batch(cfg, 2, 44, 60), "cpu")
+    assert mod.check_inputs(cfg, t, torch.device("cpu")) == 2
+    wide = cfg._replace(max_len=4096)
+    t = poa.batch_to_tensors(batches.poa_batch(wide, 1, 44, 60), "cpu")
+    with pytest.raises(ValueError, match="max_len \\+ 1 <= 4096"):
+        mod.check_inputs(wide, t, torch.device("cpu"))
+
+
+def test_consensus_phase_checks_every_geometry_before_any_window(
+        monkeypatch):
+    """On the card, run_consensus_phase plans every bucket's geometry
+    before it exports a window, and where one does not fit raises one
+    ValueError that names the largest -w the kernel takes (here a card
+    whose shared memory holds backbone classes up to 1024)."""
+    calls = []
+
+    def plan(cfg, band=False):
+        calls.append((cfg.max_backbone, band))
+        if cfg.max_backbone > 1024:
+            raise ValueError("does not fit")
+        return {}
+
+    class Windows:
+        exported = 0
+
+        def num_windows(self):
+            return 3
+
+        def window_info(self, i):
+            return (9, (400, 900, 1500)[i], 0, True, 0, 0)
+
+        def export_window(self, i):
+            Windows.exported += 1
+            raise AssertionError("a window ran before the geometry check")
+
+    monkeypatch.setattr(poa_cuda, "plan", plan)
+    with pytest.raises(ValueError, match="-w 1024$"):
+        poa_driver.run_consensus_phase(Windows(), match=5, mismatch=-4,
+                                       gap=-8, trim=True, device="cuda",
+                                       band=True)
+    assert Windows.exported == 0
+    assert (1536, True) in calls and (512, True) in calls
