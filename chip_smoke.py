@@ -69,22 +69,35 @@ then, each phase printing one JSON line:
   processes while the phases above run);
 * wide: a small set at -w 1500 (window class 1536, max_len 2304: both POA
   kernels' wide builds, 16 columns a thread) polished on the card with
-  each POA kernel and on the CPU (plain versions, in a worker process):
-  the same bytes, the edit distance to the truth lowered, every window
-  with at least two layers served on the card; then each wide build's
-  registers, spill bytes, shared bytes and blocks per SM at -w 1500's and
-  -w 2000's geometries;
+  each POA kernel, recorded as the main run is (device ms and bound from
+  the DP cells of each launch), and on the CPU (plain versions, in a
+  worker process): the same bytes, the edit distance to the truth
+  lowered, every window with at least two layers served on the card; then
+  each wide build's registers, spill bytes, shared bytes and blocks per
+  SM at -w 1500's and -w 2000's geometries;
+* wide_3000: a set at -w 3000 (window class 3072: max_nodes 9,216, max_len
+  4,608, where no shared-memory layout fits, so both POA kernels run
+  their global build: the graph in global memory, DP rows in tiles)
+  polished on the card with each POA kernel, flat and banded (slack 8),
+  recorded the same way, and flat on the CPU: the flat runs' bytes equal
+  the CPU's, no window sent to the host, each global build launched;
+  each global build then held against the plain version on its path's
+  largest launch (kernel_check lines, the banded ones as the other banded
+  builds are), and an occupancy line for each global build at classes
+  3072, 4096 and 10,880;
 * probe: the DP-cost probe's gate and per-mode timing table on the card
-  (python -m racon_tpu_torch.tools.dp_cost_probe), then every mode held
+  (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
+  mode with its ns a rank step and ps a DP cell), then every mode held
   against its plain version run on the card.
 
 Each path (main, main_<other kernel>, main_band, main_ls_band, lowerr,
-lowerr_band, wide_ls, wide_v2, probe) runs with the launch counts set to 0
-just before it and read just after; every kernel of the path must have
-launched (the banded paths: their POA kernel's banded build and the
-K = 128 edge build, and on lowerr_band the K = 128 base case; on
-main_band and main_ls_band the flat aligner builds as the ladder's
-floor), and no other POA build.
+lowerr_band, wide_ls, wide_v2, wide_3000_<kernel>, wide_3000_<kernel>_band,
+probe) runs with the launch counts set to 0 just before it and read just
+after; every kernel of the path must have launched (the banded paths:
+their POA kernel's banded build and the K = 128 edge build, and on
+lowerr_band the K = 128 base case; on main_band and main_ls_band the flat
+aligner builds as the ladder's floor; on the -w 3000 paths the kernel's
+global build), and no other POA kernel's build.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -117,13 +130,18 @@ BASE_OPS_PER_CELL = 7   # the edge cell, a compare for each move bit, their pack
 
 MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
 # The parity set: small, because its CPU polish runs the plain versions,
-# one window and one DP row at a time in Python.
-PARITY_MBP = 0.02
+# one window and one DP row at a time in Python (its two banded polishes,
+# ≈12 minutes at 0.02 Mbp, were the smoke's longest path).
+PARITY_MBP = 0.015
 PARITY_SLACK = 8          # the banded parity run's slack
 # The wide set: windows of 1,500 bases (the POA kernels' wide builds); its
 # CPU polish runs the plain versions beside the other phases.
 WIDE_MBP = 0.01
 WIDE_WINDOW = 1500
+# The -w 3000 set: two windows of class 3072 (the POA kernels' global
+# builds) and the draft's last bases; its CPU polish runs beside the rest.
+WIDE3_MBP = 0.006
+WIDE3_WINDOW = 3000
 # The low-error cell: PacBio-HiFi-like reads, about 1% error.
 LOWERR = dict(mbp=0.5, coverage=30, mean_read=8000, sub=0.005, ins=0.0025,
               dele=0.0025, seed=11)
@@ -283,8 +301,13 @@ class MainPathRecorder:
             return set_consensus(pl, i, consensus, polished)
 
         def poa_call(name, fn, cfg, args, kw):
+            from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+
             st = {}
             wband = kw.get("wband")
+            # the build the wrapper launches, as its plan picks it
+            mod = poa_cuda if name == "poa_consensus" else poa_v2_cuda
+            glob = mod.plan(cfg, wband is not None)["global_build"]
 
             def cells_of(out):
                 self.steps += st.get("steps", 0)
@@ -293,7 +316,7 @@ class MainPathRecorder:
             # a banded build: the largest launch of each depth bucket with
             # band hits, and the largest without
             return self._call(
-                name if wband is None else name + "_band",
+                poa_cuda.launch_name(name, wband is not None, glob),
                 (cfg.depth,) if wband is None else
                 (lambda out: (cfg.depth, bool(out[5].any()))),
                 POA_OPS_PER_CELL,
@@ -540,7 +563,7 @@ def poa_decision(default, ls_ms, v2_ms):
                 r <= 0.95 for r in colstep_over_flat.values())}
 
 
-def check_poa_band(torch, fn, kernel, rec, procs, run):
+def check_poa_band(torch, fn, kernel, rec, procs, run, name=None):
     """A POA kernel's banded build (`fn` is its wrapper; `kernel` "v2" or
     "ls", whose banded semantics the plain version runs) on the `run`'s
     largest banded launch of each depth bucket, with band hits and
@@ -552,13 +575,14 @@ def check_poa_band(torch, fn, kernel, rec, procs, run):
     counts equal the plain version's on that sample. The time is the
     whole launch's; the bound counts its band cells. Each launch also
     prints a "<kernel> POA phases" line from the banded run's clock64()
-    phase counts."""
+    phase counts. `name` is the build's launch-count name (the kernel's
+    banded build unless given: its global build)."""
     from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
     from racon_tpu_torch.tools.batches import plain_poa_parallel
 
     mhz = sm_clock_mhz()
     names = (poa_cuda if kernel == "ls" else poa_v2_cuda).PHASES
-    name = BAND_NAME[kernel]
+    name = name or BAND_NAME[kernel]
     kept = rec.inputs(name)
     require(kept, f"no {name} launch was kept to check")
     runs, samples = [], []
@@ -862,32 +886,51 @@ def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
     return out, rec, launches, on_main
 
 
-def wide_phase(racon_tpu_torch, native, cuda_lib, d, cpu_run):
-    """The wide set (-w 1500) on the card with each POA kernel, launch
-    counts set to 0 just before each polish and read just after (and the
-    POA launches' device ms, from the events around each launch), against
-    the CPU polish of the plain versions (`cpu_run`, a future): the same
-    bytes, the edit distance to the truth lowered, and every window with
-    at least two layers served on the card (none to the host). Then the
-    wide builds' resources at -w 1500's and -w 2000's geometries."""
-    from racon_tpu_torch.ops import poa_cuda, poa_driver, poa_v2_cuda
+def recorded_polish(torch, racon_tpu_torch, ac, poa_driver, cuda_lib, d,
+                    kernel, window_length, band=None):
+    """One polish of `d` on the card, recorded as the main run is
+    (MainPathRecorder: each launch's device ms, DP cells and bound), with
+    the launch counts set to 0 just before it and read just after:
+    (FASTA records, stats, seconds, launches, per-kernel summary,
+    recorder)."""
+    rec = MainPathRecorder(torch, ac, poa_driver)
+    cuda_lib.reset_launches()
+    with rec:
+        out, st, wall = polish(racon_tpu_torch, d, "cuda", kernel, band,
+                               window_length)
+    launches = dict(cuda_lib.LAUNCHES)
+    return out, st, wall, launches, rec.summary(), rec
 
-    runs, poa_ms = {}, {}
+
+def poa_summary(summary, names) -> dict:
+    """The POA builds' launches, device ms and bound ms of a recorded run."""
+    return {n: {k: summary[n][k] for k in ("launches", "device_ms",
+                                           "bound_ms")}
+            for n in names if n in summary}
+
+
+def wide_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+               cpu_run):
+    """The wide set (-w 1500) on the card with each POA kernel, each polish
+    recorded (recorded_polish: its POA launches' device ms and bound from
+    their DP cells), against the CPU polish of the plain versions
+    (`cpu_run`, a future): the same bytes, the edit distance to the truth
+    lowered, and every window with at least two layers served on the card
+    (none to the host). Then the wide builds' resources at -w 1500's and
+    -w 2000's geometries."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+
+    runs = {}
     for kernel in ("ls", "v2"):
-        cuda_lib.reset_launches()
-        cuda_lib.LAUNCH_EVENTS = []
-        runs[kernel] = polish(racon_tpu_torch, d, "cuda", kernel,
-                              window_length=WIDE_WINDOW)
-        launches = dict(cuda_lib.LAUNCHES)
-        poa_ms[kernel] = sum(a.elapsed_time(b) for n, a, b in
-                             cuda_lib.LAUNCH_EVENTS if n == POA_NAME[kernel])
-        cuda_lib.LAUNCH_EVENTS = None
+        runs[kernel] = recorded_polish(torch, racon_tpu_torch, ac,
+                                       poa_driver, cuda_lib, d, kernel,
+                                       WIDE_WINDOW)
+        launches = runs[kernel][3]
         check_launches(f"wide_{kernel}", launches, kernel)
         co = runs[kernel][1]["consensus"]
         require(co["device"] > 0 and co["host_fallback"] == 0 and
                 co["failed"] == 0, f"wide_{kernel}: windows went to the "
                 f"host ({co})")
-        runs[kernel] += (launches[POA_NAME[kernel]],)
     cpu, cst, cpu_s = cpu_run.result()
     require(runs["ls"][0] == runs["v2"][0] == cpu, "the wide set's FASTAs "
             "differ between the POA kernels or between card and CPU")
@@ -901,25 +944,180 @@ def wide_phase(racon_tpu_torch, native, cuda_lib, d, cpu_run):
     emit({"phase": "wide", "mbp": WIDE_MBP, "window_length": WIDE_WINDOW,
           "identical": True, "cuda_ls_s": runs["ls"][2],
           "cuda_v2_s": runs["v2"][2], "cpu_s": cpu_s,
-          "launches": {k: r[3] for k, r in runs.items()},
-          "poa_device_ms": poa_ms,
+          "launches": {k: r[3][POA_NAME[k]] for k, r in runs.items()},
+          "poa_device_ms": {k: r[4][POA_NAME[k]]["device_ms"]
+                            for k, r in runs.items()},
+          "poa_bound_ms": {k: r[4][POA_NAME[k]]["bound_ms"]
+                           for k, r in runs.items()},
+          "poa": {k: poa_summary(r[4], (POA_NAME[k],))
+                  for k, r in runs.items()},
           "windows": {k: co[k] for k in ("device", "host_fallback",
                                          "backbone", "failed")},
           "cpu_windows_device": cst["consensus"]["device"],
           "edit_distance": {"draft": ed[0], "polished": ed[1]}})
     for wl in (1536, 2048):
-        cfg = poa_driver.make_config(wl, 32, MAIN["match"],
-                                     MAIN["mismatch"], MAIN["gap"])
-        emit({"phase": "occupancy", "build": "wide", "window_class": wl,
-              "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
-              "ls_plan": poa_cuda.plan(cfg),
-              "v2_plan": poa_v2_cuda.plan(cfg),
-              "v2_band_plan": poa_v2_cuda.plan(cfg, band=True),
-              "poa_consensus": poa_cuda.occupancy(cfg),
-              "poa_consensus_band": poa_cuda.occupancy(cfg, band=True),
-              "poa_consensus_v2": poa_v2_cuda.occupancy(cfg),
-              "poa_consensus_v2_band": poa_v2_cuda.occupancy(cfg,
-                                                             band=True)})
+        emit(occupancy_line(poa_driver, poa_cuda, poa_v2_cuda, wl, "wide"))
+
+
+def occupancy_line(poa_driver, poa_cuda, poa_v2_cuda, wl, build) -> dict:
+    """Each POA build's plan, registers, spill bytes, shared bytes and
+    blocks per SM at window class `wl`'s geometry (depth 32)."""
+    cfg = poa_driver.make_config(wl, 32, MAIN["match"], MAIN["mismatch"],
+                                 MAIN["gap"])
+    return {"phase": "occupancy", "build": build, "window_class": wl,
+            "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
+            "ls_plan": poa_cuda.plan(cfg),
+            "ls_band_plan": poa_cuda.plan(cfg, band=True),
+            "v2_plan": poa_v2_cuda.plan(cfg),
+            "v2_band_plan": poa_v2_cuda.plan(cfg, band=True),
+            "poa_consensus": poa_cuda.occupancy(cfg),
+            "poa_consensus_band": poa_cuda.occupancy(cfg, band=True),
+            "poa_consensus_v2": poa_v2_cuda.occupancy(cfg),
+            "poa_consensus_v2_band": poa_v2_cuda.occupancy(cfg, band=True)}
+
+
+# The launch-count names of each poa_kernel's global builds, flat and banded.
+GLOBAL_NAME = {k: v + "_global" for k, v in POA_NAME.items()}
+GLOBAL_BAND_NAME = {k: v + "_global" for k, v in BAND_NAME.items()}
+
+
+def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+                cpu_run, procs):
+    """The -w 3000 set (window class 3072: both POA kernels' global
+    builds) on the card with each POA kernel, flat and banded (slack
+    PARITY_SLACK), each polish recorded with the launch counts set to 0
+    just before it and read just after: each path launched its kernel's
+    global build (banded on the banded paths), no other kernel's POA
+    build, and sent no window to the host; the flat FASTAs equal the CPU
+    polish's (`cpu_run`, plain versions); whether each banded FASTA equals
+    the flat one is printed. Then each global build on its path's largest
+    launch against the plain version (check_global, check_poa_band), and
+    an occupancy line per global geometry. Returns (kernel-check rows,
+    path of each global build: (launches, summary))."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+
+    runs = {}
+    for kernel in ("ls", "v2"):
+        for band in (None, PARITY_SLACK):
+            path = f"wide_3000_{kernel}" + ("_band" if band else "")
+            r = recorded_polish(torch, racon_tpu_torch, ac, poa_driver,
+                                cuda_lib, d, kernel, WIDE3_WINDOW, band)
+            runs[path] = r
+            launches = r[3]
+            own = (GLOBAL_BAND_NAME if band else GLOBAL_NAME)[kernel]
+            need = (own, "hirschberg_edge") if band else (
+                own, "hirschberg_edge", "hirschberg_base")
+            for name in need:   # a banded job's edge rows at K = 128 count
+                n = launches[name] + (launches["hirschberg_edge_k128"]
+                                      if band and name == need[1] else 0)
+                require(n > 0, f"kernel {name} was not launched on the "
+                        f"{path} path")
+            for other in ("ls", "v2"):
+                if other != kernel:
+                    for n in (POA_NAME, BAND_NAME, GLOBAL_NAME,
+                              GLOBAL_BAND_NAME):
+                        require(launches[n[other]] == 0,
+                                f"{path} launched {n[other]}")
+            co = r[1]["consensus"]
+            require(co["device"] > 0 and co["host_fallback"] == 0 and
+                    co["failed"] == 0, f"{path}: windows went to the host "
+                    f"({co})")
+    cpu, cst, cpu_s = cpu_run.result()
+    flat = runs["wide_3000_ls"][0]
+    require(flat == runs["wide_3000_v2"][0] == cpu, "the -w 3000 set's "
+            "FASTAs differ between the POA kernels or between card and CPU")
+    genome, draft = read_fasta(d["genome"]), read_fasta(d["draft"])
+    polished = "".join(s for _, s in cpu).encode()
+    ed = (native.edit_distance(draft, genome),
+          native.edit_distance(polished, genome))
+    require(ed[1] < ed[0], "the -w 3000 polish did not lower the edit "
+            f"distance ({ed[0]} -> {ed[1]})")
+    names = (*POA_NAME.values(), *BAND_NAME.values(),
+             *GLOBAL_NAME.values(), *GLOBAL_BAND_NAME.values())
+    emit({"phase": "wide_3000", "mbp": WIDE3_MBP,
+          "window_length": WIDE3_WINDOW, "identical": True,
+          "banded_equals_flat": {p: r[0] == flat for p, r in runs.items()
+                                 if p.endswith("_band")},
+          "cuda_s": {p: r[2] for p, r in runs.items()}, "cpu_s": cpu_s,
+          "poa": {p: poa_summary(r[4], names) for p, r in runs.items()},
+          "band": {p: r[1]["consensus"]["band"] for p, r in runs.items()
+                   if p.endswith("_band")},
+          "windows": {p: {k: r[1]["consensus"][k] for k in (
+              "device", "host_fallback", "backbone", "failed")}
+              for p, r in runs.items()},
+          "cpu_windows_device": cst["consensus"]["device"],
+          "edit_distance": {"draft": ed[0], "polished": ed[1]}})
+    rows = check_global(torch, runs["wide_3000_ls"][5], procs)
+    for kernel in ("ls", "v2"):
+        fn = (poa_cuda.poa_consensus if kernel == "ls"
+              else poa_v2_cuda.poa_consensus_v2)
+        rows[GLOBAL_BAND_NAME[kernel]] = check_poa_band(
+            torch, fn, kernel, runs[f"wide_3000_{kernel}_band"][5], procs,
+            f"wide_3000_{kernel}_band", GLOBAL_BAND_NAME[kernel])
+    for wl in (3072, 4096, 10880):
+        emit(occupancy_line(poa_driver, poa_cuda, poa_v2_cuda, wl, "global"))
+    path_of = {GLOBAL_NAME[k]: runs[f"wide_3000_{k}"][3:5]
+               for k in ("ls", "v2")}
+    path_of.update({GLOBAL_BAND_NAME[k]: runs[f"wide_3000_{k}_band"][3:5]
+                    for k in ("ls", "v2")})
+    return rows, path_of
+
+
+def check_global(torch, rec, procs):
+    """Both POA kernels' flat global builds on the ls -w 3000 run's
+    largest global launch of each depth bucket, every window held against
+    the plain version (on the host, in `procs` processes; one plain pass
+    for both kernels), the DP cells (and v2's serial steps, colstep on)
+    equal the plain version's; each timed (three calls) beside its bound.
+    Each launch prints a "<kernel> POA phases" line."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+    from racon_tpu_torch.tools.batches import plain_poa_parallel
+
+    mhz = sm_clock_mhz()
+    kept = rec.inputs(GLOBAL_NAME["ls"])
+    require(kept, "no global POA launch of the -w 3000 run was kept")
+    t0 = time.perf_counter()
+    plain = plain_poa_parallel([inp for _, inp in kept], procs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    rows = {}
+    for kernel, mod in (("ls", poa_cuda), ("v2", poa_v2_cuda)):
+        fn = (mod.poa_consensus if kernel == "ls" else mod.poa_consensus_v2)
+        tot = Totals()
+        for (_, (cfg, dev_in)), (want, pst) in zip(kept, plain):
+            require(mod.plan(cfg)["global_build"], f"{kernel}: the -w 3000 "
+                    f"geometry {cfg} does not take the global build")
+            kst = {}
+            got = fn(cfg, *dev_in, stats=kst)
+            torch.cuda.synchronize()
+            err = max_abs_err(want, got)
+            require(err == 0, f"{kernel} global build (depth {cfg.depth}) "
+                    f"differs from its plain version by {err}")
+            require(kst["cells"] == pst["cells"] and
+                    (kernel == "ls" or kst["steps"] == pst["steps"]),
+                    f"{kernel} global build counts: kernel {kst}, plain "
+                    f"{pst}")
+            ms = cuda_ms(torch, lambda: fn(cfg, *dev_in), 3)
+            phases = phase_ms(mod.PHASES, kst, dev_in[0].shape[0], mhz)
+            print_phases(f"{kernel} POA phases, depth {cfg.depth}, "
+                         f"{dev_in[0].shape[0]} windows, global build",
+                         phases, ms)
+            n_bytes = nbytes(dev_in) + nbytes(got)
+            n_ops = POA_OPS_PER_CELL * pst["cells"]
+            b_ms, b_by = bound(n_bytes, n_ops)
+            line = {"phase": "kernel_check", "kernel": GLOBAL_NAME[kernel],
+                    "input": "largest global launch of its depth bucket in "
+                    "the wide_3000_ls run", "windows": dev_in[0].shape[0],
+                    "depth": cfg.depth, "max_nodes": cfg.max_nodes,
+                    "max_len": cfg.max_len, "dp_cells": pst["cells"],
+                    "failed": int(got[3].sum()), "max_abs_err": err,
+                    "ms": ms, "plain_ms": plain_ms / len(kept),
+                    "plain_on": f"host, {procs} processes (one pass for "
+                    "both kernels)", "bound_ms": b_ms, "bound_by": b_by,
+                    "phases": phases, "sm_clock_mhz": mhz}
+            emit(line)
+            tot.add(line, n_bytes, n_ops)
+        rows[GLOBAL_NAME[kernel]] = tot.row()
+    return rows
 
 
 def probe_phase(torch, probe, cuda_lib):
@@ -954,6 +1152,10 @@ def probe_phase(torch, probe, cuda_lib):
             r["bound_ms"], r["bound_by"] = bound(12 * B, r["ops"])
             r["ns_per_row"] = r["per_node_us"] * 1e3
             r["over_bound"] = r["warm_s"] * 1e3 / r["bound_ms"]
+            print(f"probe mode {r['mode']}, R=800 B={B}: "
+                  f"{r['warm_s'] * 1e3:.4f} ms, {r['ns_per_step']:.1f} ns a "
+                  f"rank step, {r['ps_per_cell']:.3f} ps a DP cell",
+                  flush=True)
         bound_sum[B] = sum(r["bound_ms"] for r in rows)
         emit({"phase": "probe", "R": 800, "B": B, "modes": rows})
 
@@ -1014,21 +1216,25 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp, \
-            ProcessPoolExecutor(4, mp_context=multiprocessing.get_context(
+            ProcessPoolExecutor(5, mp_context=multiprocessing.get_context(
                 "spawn")) as cpu_pool:
         # the parity set's three CPU polishes (plain versions: flat, and
-        # banded with each POA kernel) and the wide set's run in their own
-        # processes through the phases below
+        # banded with each POA kernel) and the two wide sets' run in their
+        # own processes through the phases below
         d_par = simulate.generate(os.path.join(tmp, "parity"),
                                   mbp=PARITY_MBP, seed=11)
         d_wide = simulate.generate(os.path.join(tmp, "wide"), mbp=WIDE_MBP,
                                    seed=11)
+        d_wide3 = simulate.generate(os.path.join(tmp, "wide3"),
+                                    mbp=WIDE3_MBP, seed=11)
         cpu_runs = {"flat": cpu_pool.submit(cpu_polish, d_par),
                     "band": cpu_pool.submit(cpu_polish, d_par, PARITY_SLACK),
                     "ls_band": cpu_pool.submit(cpu_polish, d_par,
                                                PARITY_SLACK, "ls"),
                     "wide": cpu_pool.submit(cpu_polish, d_wide, None, "ls",
-                                            WIDE_WINDOW)}
+                                            WIDE_WINDOW),
+                    "wide3": cpu_pool.submit(cpu_polish, d_wide3, None, "ls",
+                                             WIDE3_WINDOW)}
 
         # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps, with the
         # default POA kernel; then the same polish with the other POA
@@ -1191,8 +1397,13 @@ def main() -> int:
               "windows_device": lbstats["consensus"]["device"]})
 
         # wide: -w 1500 through both POA kernels' wide builds
-        wide_phase(racon_tpu_torch, native, cuda_lib, d_wide,
-                   cpu_runs["wide"])
+        wide_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib,
+                   d_wide, cpu_runs["wide"])
+        # wide_3000: -w 3000 through both POA kernels' global builds
+        global_rows, global_paths = wide3_phase(
+            torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d_wide3,
+            cpu_runs["wide3"], procs)
+        checked.update(global_rows)
 
     # the DP-cost probe's path
     launches_probe, checked["dp_cost_probe"] = probe_phase(torch, probe,
@@ -1218,6 +1429,18 @@ def main() -> int:
              replaces="racon_tpu/ops/align_pallas.py:299 (K=128)"),
         dict(name="dp_cost_probe", source=src + "dp_cost_probe.cu",
              replaces="racon_tpu/tools/dp_cost_probe.py:89"),
+        dict(name="poa_consensus_global", source=src + "poa.cu",
+             replaces="racon_tpu/ops/poa_pallas_ls.py:64 (window classes "
+             "above 2048)"),
+        dict(name="poa_consensus_band_global", source=src + "poa.cu",
+             replaces="racon_tpu/ops/poa_pallas_ls.py:64 (band=True, window "
+             "classes above 2048)"),
+        dict(name="poa_consensus_v2_global", source=src + "poa_v2.cu",
+             replaces="racon_tpu/ops/poa_pallas.py:73 (window classes above "
+             "2304)"),
+        dict(name="poa_consensus_v2_band_global", source=src + "poa_v2.cu",
+             replaces="racon_tpu/ops/poa_pallas.py:73 (band=True, window "
+             "classes above 2048)"),
     ]
     # launches and path sums: each POA kernel from its own polish, the
     # banded POA builds from main_band and main_ls_band, the K = 128
@@ -1229,6 +1452,7 @@ def main() -> int:
     for name in ("hirschberg_edge_k128", "hirschberg_base_k128"):
         path_of[name] = (low_band[2], low_band[3])
     path_of["dp_cost_probe"] = (launches_probe, None)
+    path_of.update(global_paths)
     for k in kernels:
         k.update(checked[k["name"]])
         counts, summary = path_of.get(k["name"],

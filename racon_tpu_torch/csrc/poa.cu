@@ -86,6 +86,21 @@
 // There is no rank-distance cap: a predecessor beyond the ring is read from
 // the global H, never refused.
 //
+// The global build (CX = CHGLOBAL). From backbone class 2176 up (N 6528)
+// the graph does not fit a block's shared memory even with a ring of 2 rows
+// and the in-edge sources in global memory, so plan picks, by geometry and
+// before the launch, a third build: the graph, the rank order, the row
+// descriptors and the traceback's and update's per-position arrays move to
+// the window's global scratch (carve_global; poa_common::graph_layout), and
+// shared memory keeps only the phase cycles, the reductions, the scan's
+// warp totals and misc. Each DP row runs in tiles of TW = NT x CHMAX
+// columns (dp_layer_tiled), the scan's running max carried from tile to
+// tile, one barrier a tile, so max_len has no limit; every row goes to the
+// global H and every predecessor row is read from there (L1 and L2 hold the
+// recent ones), since a row of 16,384 columns does not fit the registers.
+// The cells, records, walk, update and consensus are the other builds',
+// bit for bit. Node ids stay int16: N <= 32767, backbone class 10,880.
+//
 // The banded build (template BAND; the wrapper's wband argument) replaces
 // the Pallas kernel's band=True build: a per-window half band wband in, a
 // band hit out, and the ls build's banded semantics. Under wband > 0 column
@@ -174,6 +189,9 @@ struct Shared {
   int* scan;         // [2][NWARP] the DP rows' warp totals, by row parity
   int* misc;         // [8]: n, failed, r_lo, r_hi, path count, band cells
                      // of the layer, band hit
+  int* left;         // [n_tiles][NT] (global build): the row just
+                     // finished at the cell left of each thread's first
+                     // column of each tile
   int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
                      // memory, or the global scratch with GSRC)
   int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
@@ -246,6 +264,24 @@ __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
   s.seq = (uint8_t*)p; p += ML;
   s.has_out = (uint8_t*)p; p += N;
   s.far = (uint8_t*)p;
+  s.left = nullptr;
+  return s;
+}
+
+// The global build's carve: the phase cycles, reductions, scan buffers and
+// misc in shared memory (GLOBAL_SHARED bytes), everything else in the
+// window's global scratch (poa_common::carve_graph).
+__device__ inline Shared carve_global(char* base, char* g, int N, int ML,
+                                      int16_t* gsrc) {
+  Shared s;
+  char* p = base;
+  s.ph = (long long*)p; p += NPHASE * 8;
+  s.red_v = (int*)p; p += NWARP * 4;
+  s.red_i = (int*)p; p += NWARP * 4;
+  s.red_w = (int*)p; p += NWARP * 4;
+  s.scan = (int*)p; p += NWARP * 4 * 2;
+  s.misc = (int*)p;
+  poa_common::carve_graph(s, g, N, ML, gsrc);
   return s;
 }
 
@@ -492,6 +528,207 @@ __device__ __forceinline__ void dp_layer_ch(const Shared& s, const Cfg& c,
                           begin);
   else
     dp_layer<CX, BAND>(s, c, w, r_lo, r_hi, L, CH, all_global, hw, begin);
+}
+
+// The global build's layer DP: dp_layer's rows, cells, move records and
+// end scores, with each row's columns [0, L] in tiles of TW (tile t,
+// thread tid: columns t * TW + tid * CHMAX + k), so max_len has no limit.
+// A tile's scan starts from the running max of the tiles before it
+// (carry); one barrier a tile, the warp totals alternating between two
+// buffers. Every row goes to the global H, and every predecessor row is
+// read from there: a thread's own columns of the row just finished are
+// cells it wrote itself, and the cell left of its first column is that
+// row's running max there, which it kept in left[t][tid] (masked as the
+// row was).
+template <bool BAND>
+__device__ void dp_layer_tiled(const Shared& s, const Cfg& c, const Win& w,
+                               int r_lo, int r_hi, int L, int hw,
+                               int begin) {
+  constexpr int CHM = CHMAX;
+  const int HS = c.ML + 1, gp = c.gp;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const bool banded = BAND && hw > 0;
+  const int ntile = (L + TW) / TW;
+  int par = 0;      // the tile's half of the scan's double buffer
+  const int nwin = max(max(abs(c.ma), abs(c.mm)), abs(gp));
+  const bool zero = c.ma == 0 || c.mm == 0 || gp == 0;
+  for (int r = r_lo; r < r_hi; ++r) {
+    const int u = s.order[r];
+    const int ub = s.base[u];
+    const int cexp = BAND ? (int)(s.key[u] + 0.5f) - begin : 0;
+    const unsigned long long dsc = s.desc[r];
+    const bool any = dsc & D_ANY, stale = dsc & D_STALE;
+    const int first = (int)(dsc >> D_FIRST) & 63;
+    int* hrow = w.H + (size_t)(u + 1) * HS;
+    uint8_t* mrow = w.MV + (size_t)(u + 1) * HS;
+    int carry = INT_MIN;  // the row's running max before the tile
+    for (int t = 0; t < ntile; ++t) {
+      const int j0 = t * TW + tid * CHM;
+      int* lft = s.left + t * NT + tid;
+      int jc[CHM + 1];
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k) jc[k] = min(max(j0 - 1 + k, 0), L);
+      int sc[CHM];
+#pragma unroll
+      for (int k = 0; k < CHM; ++k) {
+        const int j = j0 + k;
+        sc[k] = j >= 1 && j <= L && s.seq[j - 1] == ub ? c.ma : c.mm;
+      }
+      // one predecessor row at the thread's columns jc, from the global H
+      // (sv < 0: the node is order[rk])
+      auto pred_row = [&](int sv, int rk, int* v) {
+        const int node = sv >= 0 ? sv : s.order[rk];
+        const int* hr = w.H + (size_t)(node + 1) * HS;
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) v[k] = hr[jc[k]];
+        if (r - rk == 1 && j0 >= 1) v[0] = *lft;
+      };
+      int M[CHM + 1], S[CHM + 1];
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k) {
+        M[k] = NONE_;
+        S[k] = VSLOT;
+      }
+      bool near = false;
+      auto take = [&](int sv, int rk, int slot) {
+        int v[CHM + 1];
+        pred_row(sv, rk, v);
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) {
+          if (v[k] > M[k]) { M[k] = v[k]; S[k] = slot; }
+          if (BAND)
+            near |= (zero || v[k] != NEG_) &&
+                    (unsigned)(v[k] - (NEG_ - nwin)) <= 2u * nwin;
+        }
+      };
+      if (!(dsc & D_SLOW)) {
+        const int np = (int)(dsc & 3);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          if (i < np) {
+            const int ent = (int)(dsc >> (D_ENT + 17 * i)) & 0x1ffff;
+            take(-1, r - (ent & 0xfff), ent >> 12);
+          }
+        }
+      } else {
+        for (int e = 0; e < c.E; ++e) {
+          const int sv = s.src[(size_t)u * c.ES + e];
+          if (sv < 0) break;
+          const int rk = s.rank_of[sv];
+          if (rk >= r_lo && rk < r) take(sv, rk, e);
+        }
+      }
+      int P[CHM + 1];
+      if (!any) {
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) {
+          P[k] = M[k] = (j0 - 1 + k) * gp;
+          if (BAND)
+            near |= (zero || P[k] != NEG_) &&
+                    (unsigned)(P[k] - (NEG_ - nwin)) <= 2u * nwin;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) P[k] = max(M[k], NEG_);
+      }
+      int offrec[(CHM + 3) / 4];
+#pragma unroll
+      for (int q = 0; q < (CHM + 3) / 4; ++q) offrec[q] = MV_LEFT * 0x01010101;
+      if (BAND && near) {
+        int dq[CHM], uq[CHM];
+#pragma unroll
+        for (int k = 0; k < CHM; ++k) {
+          dq[k] = !any && P[k] == NEG_ - sc[k] ? VSLOT : NOSLOT;
+          uq[k] = !any && P[k + 1] == NEG_ - gp ? VSLOT : NOSLOT;
+        }
+        for (int e = 0; any && e < c.E; ++e) {
+          const int sv = s.src[(size_t)u * c.ES + e];
+          if (sv < 0) break;
+          const int rk = s.rank_of[sv];
+          if (rk < r_lo || rk >= r) continue;
+          int v[CHM + 1];
+          pred_row(sv, rk, v);
+#pragma unroll
+          for (int k = 0; k < CHM; ++k) {
+            if (dq[k] == NOSLOT && v[k] == NEG_ - sc[k]) dq[k] = e;
+            if (uq[k] == NOSLOT && v[k + 1] == NEG_ - gp) uq[k] = e;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < CHM; ++k) {
+          const int mv = j0 + k >= 1 && dq[k] != NOSLOT ? MV_DIAG | dq[k] << 2
+                         : uq[k] != NOSLOT              ? MV_UP | uq[k] << 2
+                                                        : MV_LEFT;
+          offrec[k >> 2] ^= (mv ^ MV_LEFT) << (8 * (k & 3));
+        }
+      }
+      int x[CHM];
+      int run = INT_MIN;
+#pragma unroll
+      for (int k = 0; k < CHM; ++k) {
+        const int j = j0 + k;
+        int v = INT_MIN;
+        if (j <= L) {
+          v = P[k + 1] + gp;
+          if (j >= 1)
+            v = max(v, P[k] + sc[k]);
+          else if (banded)
+            v = max(v, NEG_ + c.mm);
+          v -= j * gp;
+        }
+        run = max(run, v);
+        x[k] = run;
+      }
+      // the block's inclusive max-scan of the thread totals, after carry
+      int tot = run;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, tot, d);
+        if (lane >= d) tot = max(tot, o);
+      }
+      int* scan = s.scan + par * NWARP;
+      par ^= 1;
+      if (lane == 31) scan[wid] = tot;
+      int excl = __shfl_up_sync(0xffffffffu, tot, 1);
+      if (lane == 0) excl = INT_MIN;
+      __syncthreads();
+      int tmax = carry;
+      for (int q = 0; q < NWARP; ++q) {
+        const int sq = scan[q];
+        if (q < wid) excl = max(excl, sq);
+        tmax = max(tmax, sq);
+      }
+      excl = max(excl, carry);
+      carry = tmax;
+#pragma unroll
+      for (int k = 0; k < CHM; ++k) {
+        const int j = j0 + k;
+        if (j <= L) {
+          int row = max(x[k], excl) + j * gp;
+          const bool off = banded && abs(j - cexp) > hw;
+          if (off) row = NEG_;
+          hrow[j] = row;
+          int mv = MV_LEFT;
+          if (stale) {
+            mv = MV_REDERIVE;
+          } else if (banded && j == 0 && row == NEG_ + c.mm) {
+            mv = MV_DIAG | first << 2;
+          } else if (off) {
+            mv = (offrec[k >> 2] >> (8 * (k & 3))) & 0xff;
+          } else if (j >= 1 && row == M[k] + sc[k]) {
+            mv = MV_DIAG | S[k] << 2;
+          } else if (row == M[k + 1] + gp) {
+            mv = MV_UP | S[k + 1] << 2;
+          }
+          mrow[j] = (uint8_t)mv;
+          if (j == L) s.esc[r] = row;
+        }
+      }
+      if (j0 >= 1 && j0 - 1 <= L)
+        *lft = banded && abs(j0 - 1 - cexp) > hw ? NEG_
+                                                 : excl + (j0 - 1) * gp;
+    }
+  }
+  __syncthreads();
 }
 
 // The plain version's move at (u, j), re-derived from the finished rows of
@@ -811,9 +1048,10 @@ __device__ void update(const Shared& s, const Cfg& c, const Win& w, int n,
 // graph is too large to keep them in shared memory). BAND: the banded
 // build, which takes each window's half band (wband_a; 0 runs the flat
 // code) and writes its band hit (band_hit_out). CX: the most columns a
-// thread owns, CHMAX or, in the wide build, CHWIDE.
+// thread owns, CHMAX or, in the wide build, CHWIDE; CHGLOBAL is the global
+// build (the graph in the global scratch, rows in tiles; GSRC).
 template <bool GSRC, bool BAND, int CX>
-__global__ void __launch_bounds__(NT, CX == CHMAX ? 2 : 1)
+__global__ void __launch_bounds__(NT, CX == CHWIDE ? 1 : 2)
 poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
            const int* __restrict__ bb_len_a, const int* __restrict__ n_layers_a,
            const uint8_t* __restrict__ seqs, const int* __restrict__ ws,
@@ -829,11 +1067,14 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   const int N = c.N, ML = c.ML, E = c.E, ES = c.ES;
   const int win = blockIdx.x;
   const int tid = threadIdx.x, wid = tid >> 5;
-  size_t so[4];
-  scratch_layout(N, ML, ES, so);
+  constexpr bool GLB = CX == CHGLOBAL;
+  size_t so[5];
+  scratch_layout(N, ML, ES, GLB, so);
   int* const wbase = scratch + (size_t)win * scratch_per;
-  Shared s = carve(smem, N, ML, ES, c.ring,
-                   GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  Shared s = GLB ? carve_global(smem, (char*)(wbase + so[3]), N, ML,
+                                (int16_t*)(wbase + so[1]))
+                 : carve(smem, N, ML, ES, c.ring,
+                         GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
   const poa_common::Red red{s.red_v, s.red_w, s.red_i};
   // Thread 0 adds the cycles since the last mark to phase k's sum.
   long long tmark = clock64();
@@ -951,7 +1192,10 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     PHASE(0);
 
     // --- DP over the subgraph in rank order
-    dp_layer_ch<CX, BAND>(s, c, w, r_lo, r_hi, L, all_global, hw, begin);
+    if constexpr (GLB)
+      dp_layer_tiled<BAND>(s, c, w, r_lo, r_hi, L, hw, begin);
+    else
+      dp_layer_ch<CX, BAND>(s, c, w, r_lo, r_hi, L, all_global, hw, begin);
     PHASE(1);
 
     // --- end node: first best end score in rank order among subgraph
@@ -1013,20 +1257,24 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
 #undef PHASE
 }
 
-// The launch's shared-memory plan (poa_common::plan) for this kernel's
-// layout.
-cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, size_t* sm) {
-  return poa_common::plan(N, ML, ES, RING, shared_bytes, ring, gsrc, sm);
+// The launch's plan (poa_common::plan) for this kernel's layout.
+cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, bool* glob,
+                 size_t* sm) {
+  return poa_common::plan(N, ML, ES, RING, shared_bytes, ring, gsrc, glob,
+                          sm);
 }
 
 using Kernel = decltype(&poa_kernel<false, false, CHMAX>);
 
-// The kernel instantiation a plan launches (the banded build where band,
-// the wide one where wide, which the plan gives gsrc), with its
-// shared-memory limit raised to sm.
-cudaError_t planned_kernel(bool gsrc, bool band, bool wide, size_t sm,
-                           Kernel* fn) {
-  if (wide)
+// The kernel instantiation a plan launches (the banded build where band;
+// the global build where glob, else the wide one where wide, which the
+// plan gives gsrc), with its shared-memory limit raised to sm.
+cudaError_t planned_kernel(bool gsrc, bool band, bool wide, bool glob,
+                           size_t sm, Kernel* fn) {
+  if (glob)
+    *fn = band ? &poa_kernel<true, true, CHGLOBAL>
+               : &poa_kernel<true, false, CHGLOBAL>;
+  else if (wide)
     *fn = band ? &poa_kernel<true, true, CHWIDE>
                : &poa_kernel<true, false, CHWIDE>;
   else if (gsrc)
@@ -1043,26 +1291,29 @@ cudaError_t planned_kernel(bool gsrc, bool band, bool wide, size_t sm,
 
 extern "C" {
 
-// Scratch int32 words per window (scratch_layout).
-long long rt_poa_scratch_words(int N, int ML, int E) {
-  size_t off[4];
-  scratch_layout(N, ML, edge_stride(E), off);
-  return (long long)off[3];
+// Scratch int32 words per window (scratch_layout), for the global build
+// where glob.
+long long rt_poa_scratch_words(int N, int ML, int E, int glob) {
+  size_t off[5];
+  scratch_layout(N, ML, edge_stride(E), glob != 0, off);
+  return (long long)off[4];
 }
 
-// The shared-memory plan at (N, ML, E), the same for the flat and the
-// banded build (band): out[0] the ring's rows, out[1] 1 where the in-edge
-// sources are in shared memory, out[2] the dynamic shared bytes a block.
-// cudaErrorInvalidValue where the graph does not fit.
+// The plan at (N, ML, E), the same for the flat and the banded build
+// (band): out[0] the ring's rows, out[1] 1 where the in-edge sources are in
+// shared memory, out[2] the dynamic shared bytes a block, out[3] 1 for the
+// global build.
 int rt_poa_plan(int N, int ML, int E, int band, int* out) {
   (void)band;
   int ring = 0;
-  bool gsrc = false;
+  bool gsrc = false, glob = false;
   size_t sm = 0;
-  const cudaError_t err = plan(N, ML, edge_stride(E), &ring, &gsrc, &sm);
+  const cudaError_t err =
+      plan(N, ML, edge_stride(E), &ring, &gsrc, &glob, &sm);
   out[0] = ring;
   out[1] = gsrc ? 0 : 1;
   out[2] = (int)sm;
+  out[3] = glob ? 1 : 0;
   return (int)err;
 }
 
@@ -1077,7 +1328,8 @@ int rt_poa_plan(int N, int ML, int E, int band, int* out) {
 // null): each window's clock64() cycles in graph init and layer set-up,
 // DP, end-node pick, traceback, graph update, rank-order merge and
 // consensus, as thread 0 sees them.
-// scratch i32[B, rt_poa_scratch_words]. Node ids are int16: N <= 32767.
+// scratch i32[B, rt_poa_scratch_words(..., the plan's global build)].
+// Node ids are int16: N <= 32767.
 int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                   int gp, const void* bb, const void* bbw, const void* bb_len,
                   const void* n_layers, const void* seqs, const void* ws,
@@ -1086,19 +1338,19 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                   void* cons_len, void* failed, void* n_nodes, void* band_hit,
                   void* cells, void* phases, void* scratch, int B,
                   void* stream) {
-  if (E > 32 || ML + 1 > NT * CHWIDE || N > 32767)
-    return (int)cudaErrorInvalidValue;
+  if (E > 32 || N > 32767) return (int)cudaErrorInvalidValue;
   const int ES = edge_stride(E);
   int ring = 0;
-  bool gsrc = false;
+  bool gsrc = false, glob = false;
   size_t sm = 0;
-  cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &sm);
+  cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, wband != nullptr, wide_build(ML), sm, &fn);
+    err = planned_kernel(gsrc, wband != nullptr, wide_build(ML), glob, sm,
+                         &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, ring};
-  const size_t per = (size_t)rt_poa_scratch_words(N, ML, E);
+  const size_t per = (size_t)rt_poa_scratch_words(N, ML, E, glob);
   fn<<<B, NT, sm, (cudaStream_t)stream>>>(
       c, (const uint8_t*)bb, (const int*)bbw, (const int*)bb_len,
       (const int*)n_layers, (const uint8_t*)seqs, (const int*)ws,
@@ -1112,15 +1364,16 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
 // The kernel's registers a thread, local (spill) bytes a thread, dynamic
 // shared bytes a block and resident blocks per SM at (N, ML) with 12 edge
 // slots, as the launch plans them, for the flat build or (band) the banded
-// one (the wide instantiation where max_len + 1 > NT * CHMAX); out[4].
+// one (the wide instantiation where max_len + 1 > NT * CHMAX, the global
+// one where the plan says so); out[4].
 int rt_poa_occupancy(int N, int ML, int band, int* out) {
   int ring = 0;
-  bool gsrc = false;
+  bool gsrc = false, glob = false;
   size_t sm = 0;
-  cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &sm);
+  cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, band != 0, wide_build(ML), sm, &fn);
+    err = planned_kernel(gsrc, band != 0, wide_build(ML), glob, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

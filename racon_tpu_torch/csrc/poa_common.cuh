@@ -2,8 +2,8 @@
 // block reduction that picks a winner by (value, secondary, index), the
 // in-edge update of the graph update, the heaviest-bundle consensus, the
 // rank-order helpers of the frozen-order graph update, the global scratch
-// layout and the shared-memory plan. Each follows the plain version
-// ops/poa.py bit for bit.
+// layout (with the global build's graph) and the launch's plan. Each
+// follows the plain version ops/poa.py bit for bit.
 //
 // The graph's arrays live where each kernel keeps them (its Shared
 // struct), so the helpers are templates on their types: both kernels pass
@@ -23,11 +23,23 @@
 // Columns a thread owns at most: max_len + 1 <= NT * CHMAX in a kernel's
 // usual build, NT * CHWIDE in its wide build (make_config's window classes
 // above 1280), which caps registers at 255 a thread and runs one block an
-// SM.
+// SM. The global build (CX = CHGLOBAL), which a launch takes where no
+// shared-memory layout fits, keeps the graph in the global scratch and
+// runs each DP row in tiles of TW = NT * CHMAX columns, so it takes any
+// max_len.
 #define CHMAX 8
 #define CHWIDE 16
+#define CHGLOBAL 0
+#define TW (NT * CHMAX)
+// Shared bytes of the global build: the phase cycles, the reductions, the
+// scan's two buffers of warp totals and misc, rounded up.
+#define GLOBAL_SHARED 512
 
 namespace poa_common {
+
+__host__ __device__ inline size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
 
 // How an edge weight (global memory) grows and is read: nothing waits for
 // the weight, so the add is a fire-and-forget atomic, performed in L2, and
@@ -226,25 +238,82 @@ __device__ inline int consensus(const IdT* order, const BaseT* base, int n,
 // The rank-order helpers read a kernel's Shared struct (template Sh): its
 // key, order, base and path arrays.
 
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~(size_t)15;
-}
-
 // In-edge slots a node's row holds: max_edges rounded up to 4.
 __host__ __device__ inline int edge_stride(int E) { return (E + 3) & ~3; }
 
+// The global build's graph and per-position arrays, as byte offsets from
+// the start of their part of the scratch (G_* name each array; both
+// kernels' arrays, each 16-byte aligned); off[G_END] is the total. left
+// holds, for each tile of a DP row and thread, the running max of the row
+// just finished at the cell left of the thread's first column.
+enum {
+  G_DESC, G_KEY, G_ESC, G_COV, G_NKEY, G_RUNREM, G_WTS, G_LEFT, G_ORDER,
+  G_RANK, G_PATH, G_BSTART, G_FOUND, G_BASE, G_SEQ, G_HASOUT, G_STEP, G_FAR,
+  G_END
+};
+
+// Tiles of TW columns that cover a DP row of ML + 1 columns.
+__host__ __device__ inline int n_tiles(int ML) { return (ML + TW) / TW; }
+
+__host__ __device__ inline void graph_layout(int N, int ML, size_t* off) {
+  const size_t n = N, ml = ML;
+  const size_t sz[G_END] = {
+      n * 8, n * 4, n * 4, n * 4, ml * 4, ml * 4, ml * 4,
+      (size_t)n_tiles(ML) * NT * 4, n * 2, n * 2, n * 2, n * 2, ml * 2, n,
+      ml, n, n, n};
+  size_t p = 0;
+  for (int i = 0; i < G_END; ++i) {
+    off[i] = p;
+    p = align16(p + sz[i]);
+  }
+  off[G_END] = p;
+}
+
 // A window's global scratch, as int32 word offsets: H [N + 1][ML + 1],
 // the edge weights [N][ES], the in-edge sources (int16 [N][ES], used with
-// GSRC), the move records [N + 1][ML + 1]; off[3] is the total, a multiple
-// of 4 words so that every window's sources are 16-byte aligned.
+// GSRC), the move records [N + 1][ML + 1], and in the global build (glob)
+// the graph (graph_layout) from off[3]; off[4] is the total, a multiple of
+// 4 words so that every window's sources and graph are 16-byte aligned.
 __host__ __device__ inline void scratch_layout(int N, int ML, int ES,
-                                               size_t* off) {
+                                               bool glob, size_t* off) {
   const size_t cells = (size_t)(N + 1) * (ML + 1);
   const size_t edges = (size_t)N * ES;
   off[0] = cells;
   off[1] = (cells + edges + 3) & ~(size_t)3;
   off[2] = off[1] + edges / 2;
   off[3] = (off[2] + (cells + 3) / 4 + 3) & ~(size_t)3;
+  size_t g[G_END + 1];
+  graph_layout(N, ML, g);
+  off[4] = off[3] + (glob ? g[G_END] / 4 : 0);
+}
+
+// The global build's carve of a kernel's Shared struct (template Sh, both
+// kernels' fields): the graph and the per-position arrays from g in the
+// window's global scratch (graph_layout), the in-edge sources at gsrc; no
+// ring. Each kernel carves its shared-memory fields and its own extras.
+template <class Sh>
+__device__ inline void carve_graph(Sh& s, char* g, int N, int ML,
+                                   int16_t* gsrc) {
+  size_t off[G_END + 1];
+  graph_layout(N, ML, off);
+  s.desc = (unsigned long long*)(g + off[G_DESC]);
+  s.ring = nullptr;
+  s.key = (float*)(g + off[G_KEY]);
+  s.esc = (int*)(g + off[G_ESC]);
+  s.cov = (int*)(g + off[G_COV]);
+  s.nkey = (float*)(g + off[G_NKEY]);
+  s.runrem = (int*)(g + off[G_RUNREM]);
+  s.wts = (int*)(g + off[G_WTS]);
+  s.left = (int*)(g + off[G_LEFT]);
+  s.src = gsrc;
+  s.order = (int16_t*)(g + off[G_ORDER]);
+  s.rank_of = (int16_t*)(g + off[G_RANK]);
+  s.path = (int16_t*)(g + off[G_PATH]);
+  s.found = (int16_t*)(g + off[G_FOUND]);
+  s.base = (uint8_t*)(g + off[G_BASE]);
+  s.seq = (uint8_t*)(g + off[G_SEQ]);
+  s.has_out = (uint8_t*)(g + off[G_HASOUT]);
+  s.far = (uint8_t*)(g + off[G_FAR]);
 }
 
 // Ranks in [0, n) whose key is < k (strict) or <= k, by binary search over
@@ -341,34 +410,42 @@ __host__ __device__ inline bool wide_build(int ML) {
   return ML + 1 > NT * CHMAX;
 }
 
-// The launch's shared-memory plan at (N, ML, ES) for a kernel whose layout
+// The launch's plan at (N, ML, ES) for a kernel whose shared-memory layout
 // takes bytes(N, ML, ES, ring, gsrc): the largest ring of max_ring,
 // max_ring / 2, ... 2 rows that fits the card's opt-in shared memory a
 // block, with the in-edge sources in shared memory where any ring fits so,
 // else in the global scratch. The wide build always keeps them in the
 // global scratch: at its geometries (N >= 4224) they take 100 KB or more,
-// and only that instantiation of it is built. cudaErrorInvalidValue where
-// nothing fits.
+// and only that instantiation of it is built. Where no layout fits, or
+// max_len + 1 exceeds the wide build's NT * CHWIDE columns, the global
+// build (*glob; no ring, GLOBAL_SHARED bytes): chosen by geometry, before
+// any launch.
 inline cudaError_t plan(int N, int ML, int ES, int max_ring,
                         size_t (*bytes)(int, int, int, int, bool), int* ring,
-                        bool* gsrc, size_t* sm) {
+                        bool* gsrc, bool* glob, size_t* sm) {
   int dev = 0, cap = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(
         &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
-  for (int g = wide_build(ML) ? 1 : 0; g < 2; ++g)
-    for (int rg = max_ring; rg >= 2; rg >>= 1) {
-      const size_t b = bytes(N, ML, ES, rg, g != 0);
-      if (b <= (size_t)cap) {
-        *ring = rg;
-        *gsrc = g != 0;
-        *sm = b;
-        return cudaSuccess;
+  *glob = false;
+  if (ML + 1 <= NT * CHWIDE)
+    for (int g = wide_build(ML) ? 1 : 0; g < 2; ++g)
+      for (int rg = max_ring; rg >= 2; rg >>= 1) {
+        const size_t b = bytes(N, ML, ES, rg, g != 0);
+        if (b <= (size_t)cap) {
+          *ring = rg;
+          *gsrc = g != 0;
+          *sm = b;
+          return cudaSuccess;
+        }
       }
-    }
-  return cudaErrorInvalidValue;
+  *ring = 0;
+  *gsrc = true;
+  *glob = true;
+  *sm = GLOBAL_SHARED;
+  return cudaSuccess;
 }
 
 }  // namespace poa_common

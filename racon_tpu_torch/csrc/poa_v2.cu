@@ -112,6 +112,22 @@
 // build; a same-column pair whose half-row exceeds the build's columns runs
 // as two rows.
 //
+// The global build (CX = CHGLOBAL), flat and banded. From backbone class
+// 2176 up (2432 for the flat build) no shared-memory layout fits a block,
+// so plan picks, by geometry and before the launch, a build whose graph,
+// rank order, row descriptors, band starts (an array of their own) and
+// per-position arrays live in the window's global scratch (carve_global;
+// poa_common::graph_layout); shared memory keeps the phase cycles, the
+// reductions, the scan's warp totals and misc. Both of its builds run the
+// banded build's rows (wband 0 for the flat one, whose outputs are the
+// flat DP's, bit for bit) in tiles of TW = NT x CHMAX columns
+// (dp_layer_tiled): the scan's running max carried from tile to tile, one
+// barrier a tile, every row written to the global H and every predecessor
+// row read from there, so max_len has no limit. Same-column pairs do not
+// run; the flat build still counts colstep's serial steps (a pair is one
+// step), found in the descriptor pass. Node ids stay int16: N <= 32767,
+// backbone class 10,880.
+//
 // Thread 0 of each block counts clock64() cycles per phase (NPHASE) for the
 // optional phases output.
 
@@ -174,7 +190,11 @@ struct Shared {
   int* scan;         // [2][NWARP] the banded DP rows' warp totals, by row
                      // parity
   int* misc;         // [8]: n, failed, r_lo, r_hi, path count, band
-                     // cells of the layer, band hit
+                     // cells of the layer, band hit, colstep pairs of
+                     // the layer (global build)
+  int* left;         // [n_tiles][NT] (global build): the row just
+                     // finished at the cell left of each thread's first
+                     // column of each tile
   int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
                      // memory, or the global scratch with GSRC)
   int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
@@ -277,6 +297,30 @@ __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
     s.step = (uint8_t*)p; p += N;
   }
   s.far = (uint8_t*)p;
+  s.left = nullptr;
+  return s;
+}
+
+// The global build's carve: the phase cycles, reductions, scan buffers and
+// misc in shared memory (GLOBAL_SHARED bytes), everything else in the
+// window's global scratch (poa_common::carve_graph), the band starts and
+// step codes in arrays of their own.
+__device__ inline Shared carve_global(char* base, char* g, int N, int ML,
+                                      int16_t* gsrc) {
+  using namespace poa_common;
+  Shared s;
+  char* p = base;
+  s.ph = (long long*)p; p += NPHASE * 8;
+  s.red_v = (int*)p; p += NWARP * 4;
+  s.red_i = (int*)p; p += NWARP * 4;
+  s.red_w = (int*)p; p += NWARP * 4;
+  s.scan = (int*)p; p += NWARP * 4 * 2;
+  s.misc = (int*)p;
+  carve_graph(s, g, N, ML, gsrc);
+  size_t off[G_END + 1];
+  graph_layout(N, ML, off);
+  s.bstart = (int16_t*)(g + off[G_BSTART]);
+  s.step = (uint8_t*)(g + off[G_STEP]);
   return s;
 }
 
@@ -616,6 +660,151 @@ __device__ __forceinline__ void dp_layer_band_ch(const Shared& s,
     dp_layer_band<CX>(s, c, w, r_lo, r_hi, L, CH, all_global, hw);
 }
 
+// The global build's layer DP: dp_layer_band's rows, cells, move records
+// and end scores (hw 0: the flat DP), with each row's columns [0, L] in
+// tiles of TW (tile t, thread tid: columns t * TW + tid * CHMAX + k), so
+// max_len has no limit. A tile's scan starts from the running max of the
+// tiles before it (carry); one barrier a tile, the warp totals alternating
+// between two buffers. Every row goes to the global H, and every
+// predecessor row is read from there: a thread's own columns of the row
+// just finished are cells it wrote itself, and the cell left of its first
+// column is that row's running max there, which it kept in left[t][tid]
+// (masked as the row was).
+__device__ void dp_layer_tiled(const Shared& s, const Cfg& c, const Win& w,
+                               int r_lo, int r_hi, int L, int hw) {
+  constexpr int CHM = CHMAX;
+  const int HS = c.ML + 1, gp = c.gp;
+  const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
+  const bool banded = hw > 0;
+  const unsigned w2 = 2u * (unsigned)hw;  // in band: j - bstart in [0, w2]
+  const int ntile = (L + TW) / TW;
+  int par = 0;      // the tile's half of the scan's double buffer
+  for (int r = r_lo; r < r_hi; ++r) {
+    const int u = s.order[r];
+    const int ub = s.base[u];
+    const int b0 = banded ? s.bstart[r] : 0;
+    const unsigned long long dsc = s.desc[r];
+    const bool stale = dsc & D_STALE;
+    int* hrow = w.H + (size_t)(u + 1) * HS;
+    uint8_t* mrow = w.MV + (size_t)(u + 1) * HS;
+    int carry = INT_MIN;  // the row's running max before the tile
+    for (int t = 0; t < ntile; ++t) {
+      const int j0 = t * TW + tid * CHM;
+      int* lft = s.left + t * NT + tid;
+      int jc[CHM + 1];
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k) jc[k] = min(max(j0 - 1 + k, 0), L);
+      // one predecessor row at the thread's columns jc, from the global H
+      // (sv < 0: the node is order[rk])
+      auto pred_row = [&](int sv, int rk, int* v) {
+        const int node = sv >= 0 ? sv : s.order[rk];
+        const int* hr = w.H + (size_t)(node + 1) * HS;
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) v[k] = hr[jc[k]];
+        if (r - rk == 1 && j0 >= 1) v[0] = *lft;
+      };
+      int P[CHM + 1], S[CHM + 1];
+#pragma unroll
+      for (int k = 0; k <= CHM; ++k) {
+        P[k] = NEG_;
+        S[k] = VSLOT;
+      }
+      auto take = [&](int sv, int rk, int slot) {
+        int v[CHM + 1];
+        pred_row(sv, rk, v);
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k)
+          if (v[k] > P[k]) { P[k] = v[k]; S[k] = slot; }
+      };
+      if (!(dsc & D_SLOW)) {
+        const int np = (int)(dsc & 3);
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+          if (i < np) {
+            const int ent = (int)(dsc >> (D_ENT + 16 * i)) & 0xffff;
+            take(-1, r - (ent & 0xfff), ent >> 12);
+          }
+        }
+      } else {
+        for (int e = 0; e < c.E; ++e) {
+          const int sv = s.src[(size_t)u * c.ES + e];
+          if (sv < 0) break;
+          const int rk = s.rank_of[sv];
+          if (rk >= r_lo && rk < r) take(sv, rk, e);
+        }
+      }
+      if (!(dsc & D_ANY)) {
+#pragma unroll
+        for (int k = 0; k <= CHM; ++k) P[k] = (j0 - 1 + k) * gp;
+      }
+      int x[CHM], V[CHM];
+      unsigned mq[(CHM + 3) / 4];
+#pragma unroll
+      for (int q = 0; q < (CHM + 3) / 4; ++q) mq[q] = 0;
+      int run = INT_MIN;
+#pragma unroll
+      for (int k = 0; k < CHM; ++k) {
+        const int j = j0 + k;
+        int v = INT_MIN, mk = 2;
+        V[k] = INT_MIN;
+        if (j <= L) {
+          v = P[k + 1] + gp;
+          mk = 1 | S[k + 1] << 2;
+          if (j >= 1) {
+            const int diag = P[k] + (s.seq[j - 1] == ub ? c.ma : c.mm);
+            if (diag >= v) { v = diag; mk = S[k] << 2; }
+          } else if (banded && NEG_ + c.mm >= v) {
+            v = NEG_ + c.mm;
+            mk = VSLOT << 2;
+          }
+          V[k] = v;
+          v -= j * gp;
+        }
+        mq[k >> 2] |= (unsigned)mk << (8 * (k & 3));
+        run = max(run, v);
+        x[k] = run;
+      }
+      // the block's inclusive max-scan of the thread totals, after carry
+      int tot = run;
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(0xffffffffu, tot, d);
+        if (lane >= d) tot = max(tot, o);
+      }
+      int* scan = s.scan + par * NWARP;
+      par ^= 1;
+      if (lane == 31) scan[wid] = tot;
+      int excl = __shfl_up_sync(0xffffffffu, tot, 1);
+      if (lane == 0) excl = INT_MIN;
+      __syncthreads();
+      int tmax = carry;
+      for (int q = 0; q < NWARP; ++q) {
+        const int sq = scan[q];
+        if (q < wid) excl = max(excl, sq);
+        tmax = max(tmax, sq);
+      }
+      excl = max(excl, carry);
+      carry = tmax;
+#pragma unroll
+      for (int k = 0; k < CHM; ++k) {
+        const int j = j0 + k;
+        if (j <= L) {
+          int row = max(x[k], excl) + j * gp;
+          if (banded && (unsigned)(j - b0) > w2) row = NEG_;
+          hrow[j] = row;
+          // left only if better
+          const int mk = (mq[k >> 2] >> (8 * (k & 3))) & 0xff;
+          mrow[j] = (uint8_t)(stale ? MV_REDERIVE : row > V[k] ? 2 : mk);
+          if (j == L) s.esc[r] = row;
+        }
+      }
+      if (j0 >= 1 && j0 - 1 <= L)
+        *lft = banded && (unsigned)(j0 - 1 - b0) > w2 ? NEG_
+                                                      : excl + (j0 - 1) * gp;
+    }
+  }
+  __syncthreads();
+}
+
 // Whether node a is among node b's in-edge sources.
 __device__ __forceinline__ bool has_src(const Shared& s, const Cfg& c, int b,
                                         int a) {
@@ -766,9 +955,12 @@ __device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
 // build, which takes each window's half band (wband_a; 0 runs the flat DP)
 // and writes its band hit (band_hit_out): dp_layer_band's rows and mask,
 // the deficit test after the end pick, and tb_step's boundary test. CX:
-// the most columns a thread owns, CHMAX or, in the wide build, CHWIDE.
+// the most columns a thread owns, CHMAX or, in the wide build, CHWIDE;
+// CHGLOBAL is the global build (the graph in the global scratch, the
+// banded build's rows in tiles; GSRC), flat (BAND false: wband 0, colstep's
+// steps counted) or banded.
 template <bool GSRC, bool BAND, int CX>
-__global__ void __launch_bounds__(NT, CX == CHMAX ? 2 : 1)
+__global__ void __launch_bounds__(NT, CX == CHWIDE ? 1 : 2)
 poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
               const int* __restrict__ bbw, const int* __restrict__ bb_len_a,
               const int* __restrict__ n_layers_a,
@@ -787,11 +979,14 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   const int HS = ML + 1;
   const int win = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
-  size_t so[4];
-  scratch_layout(N, ML, ES, so);
+  constexpr bool GLB = CX == CHGLOBAL;
+  size_t so[5];
+  scratch_layout(N, ML, ES, GLB, so);
   int* const wbase = scratch + (size_t)win * scratch_per;
-  Shared s = carve<BAND>(smem, N, ML, ES, c.ring,
-                         GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  Shared s = GLB ? carve_global(smem, (char*)(wbase + so[3]), N, ML,
+                                (int16_t*)(wbase + so[1]))
+                 : carve<BAND>(smem, N, ML, ES, c.ring,
+                               GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
   const poa_common::Red red{s.red_v, s.red_w, s.red_i};
   // Thread 0 adds the cycles since the last mark to phase k's sum.
   long long tmark = clock64();
@@ -864,21 +1059,29 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
       s.misc[2] = count_keys(s, n, lo, false);  // r_lo
       s.misc[3] = count_keys(s, n, hi, true);   // r_hi, within [0, n)
       s.misc[5] = 0;                            // band cells
+      if (GLB) s.misc[7] = 0;                   // colstep pairs
     }
     __syncthreads();
     const int r_lo = s.misc[2], r_hi = s.misc[3];
     const int n_sub = r_hi - r_lo;
     const bool banded = BAND && hw > 0;
-    if constexpr (BAND) {
+    if constexpr (BAND || GLB) {
       // Before the banded DP, in parallel: each row's descriptor (D_*) and
       // band start, the nodes with an out-edge inside the subgraph, the
       // rows that a row c.ring or more ranks later reads (from the global
       // H), whether some row has an in-subgraph predecessor not computed
       // before it (then every row goes to the global H, for the
-      // traceback's re-derivation), and the band's cells.
-      int late = 0, band_cells = 0;
+      // traceback's re-derivation), and the band's cells. The flat global
+      // build also counts colstep's pairs (ranks that start one, as the
+      // flat build's step codes find them), for its serial steps.
+      int late = 0, band_cells = 0, pairs = 0;
       for (int r = r_lo + tid; r < r_hi; r += NT) {
         const int u0 = s.order[r];
+        if (GLB && !BAND && c.colstep && r + 1 < r_hi) {
+          const float k = s.key[u0];
+          pairs += s.key[s.order[r + 1]] == k &&
+                   ((r - max(r_lo, count_keys(s, n, k, false))) & 1) == 0;
+        }
         if (banded) {  // the columns of [0, L] the row's band admits
           const int ce = (int)(s.key[u0] + 0.5f) - begin;
           band_cells += max(0, min(L, ce + hw) - max(0, ce - hw) + 1);
@@ -908,13 +1111,17 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
         s.desc[r] = dsc | np;
       }
       if (banded) atomicAdd(&s.misc[5], band_cells);
+      if (GLB && pairs) atomicAdd(&s.misc[7], pairs);
       const bool all_global = __syncthreads_or(late);
       dp_cells += banded ? (long long)atomicAdd(&s.misc[5], 0)
                          : (long long)n_sub * (L + 1);
-      dp_steps += n_sub;
+      dp_steps += n_sub - (GLB ? atomicAdd(&s.misc[7], 0) : 0);
       PHASE(0);
-      dp_layer_band_ch<CX>(s, c, w, r_lo, r_hi, L, all_global,
-                           banded ? hw : 0);
+      if constexpr (GLB)
+        dp_layer_tiled(s, c, w, r_lo, r_hi, L, banded ? hw : 0);
+      else
+        dp_layer_band_ch<CX>(s, c, w, r_lo, r_hi, L, all_global,
+                             banded ? hw : 0);
       PHASE(1);
     } else {
       PHASE(0);
@@ -1087,23 +1294,26 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
 #undef PHASE
 }
 
-// The launch's shared-memory plan (poa_common::plan) for this kernel's
-// layout, the flat build's or (band) the banded build's.
+// The launch's plan (poa_common::plan) for this kernel's layout, the flat
+// build's or (band) the banded build's.
 cudaError_t plan(int N, int ML, int ES, bool band, int* ring, bool* gsrc,
-                 size_t* sm) {
+                 bool* glob, size_t* sm) {
   return poa_common::plan(N, ML, ES, RING,
                           band ? shared_bytes<true> : shared_bytes<false>,
-                          ring, gsrc, sm);
+                          ring, gsrc, glob, sm);
 }
 
 using Kernel = decltype(&poa_v2_kernel<false, false, CHMAX>);
 
-// The kernel instantiation a plan launches (the banded build where band,
-// the wide one where wide, which the plan gives gsrc), with its
-// shared-memory limit raised to sm.
-cudaError_t planned_kernel(bool gsrc, bool band, bool wide, size_t sm,
-                           Kernel* fn) {
-  if (wide)
+// The kernel instantiation a plan launches (the banded build where band;
+// the global build where glob, else the wide one where wide, which the
+// plan gives gsrc), with its shared-memory limit raised to sm.
+cudaError_t planned_kernel(bool gsrc, bool band, bool wide, bool glob,
+                           size_t sm, Kernel* fn) {
+  if (glob)
+    *fn = band ? &poa_v2_kernel<true, true, CHGLOBAL>
+               : &poa_v2_kernel<true, false, CHGLOBAL>;
+  else if (wide)
     *fn = band ? &poa_v2_kernel<true, true, CHWIDE>
                : &poa_v2_kernel<true, false, CHWIDE>;
   else if (gsrc)
@@ -1120,26 +1330,28 @@ cudaError_t planned_kernel(bool gsrc, bool band, bool wide, size_t sm,
 
 extern "C" {
 
-// Scratch int32 words per window (scratch_layout).
-long long rt_poa_v2_scratch_words(int N, int ML, int E) {
-  size_t off[4];
-  scratch_layout(N, ML, edge_stride(E), off);
-  return (long long)off[3];
+// Scratch int32 words per window (scratch_layout), for the global build
+// where glob.
+long long rt_poa_v2_scratch_words(int N, int ML, int E, int glob) {
+  size_t off[5];
+  scratch_layout(N, ML, edge_stride(E), glob != 0, off);
+  return (long long)off[4];
 }
 
-// The shared-memory plan at (N, ML, E) of the flat build or (band) the
-// banded build: out[0] the ring's rows, out[1] 1 where the in-edge sources
-// are in shared memory, out[2] the dynamic shared bytes a block.
-// cudaErrorInvalidValue where the graph does not fit.
+// The plan at (N, ML, E) of the flat build or (band) the banded build:
+// out[0] the ring's rows, out[1] 1 where the in-edge sources are in shared
+// memory, out[2] the dynamic shared bytes a block, out[3] 1 for the global
+// build.
 int rt_poa_v2_plan(int N, int ML, int E, int band, int* out) {
   int ring = 0;
-  bool gsrc = false;
+  bool gsrc = false, glob = false;
   size_t sm = 0;
   const cudaError_t err =
-      plan(N, ML, edge_stride(E), band != 0, &ring, &gsrc, &sm);
+      plan(N, ML, edge_stride(E), band != 0, &ring, &gsrc, &glob, &sm);
   out[0] = ring;
   out[1] = gsrc ? 0 : 1;
   out[2] = (int)sm;
+  out[3] = glob ? 1 : 0;
   return (int)err;
 }
 
@@ -1155,7 +1367,8 @@ int rt_poa_v2_plan(int N, int ML, int E, int band, int* out) {
 // phases i64[NPHASE, B] (may be null): each window's clock64() cycles in
 // graph init and layer set-up, DP, end-node pick, traceback, graph update
 // and consensus, as thread 0 sees them.
-// scratch i32[B, rt_poa_v2_scratch_words]. Node ids are int16: N <= 32767.
+// scratch i32[B, rt_poa_v2_scratch_words(..., the plan's global build)].
+// Node ids are int16: N <= 32767.
 int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      int gp, int colstep, const void* bb, const void* bbw,
                      const void* bb_len, const void* n_layers,
@@ -1165,20 +1378,19 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      void* cons_len, void* failed, void* n_nodes,
                      void* band_hit, void* cells, void* steps, void* phases,
                      void* scratch, int B, void* stream) {
-  if (E > VSLOT || ML + 1 > NT * CHWIDE || N > 32767)
-    return (int)cudaErrorInvalidValue;
+  if (E > VSLOT || N > 32767) return (int)cudaErrorInvalidValue;
   const int ES = edge_stride(E);
   const bool band = wband != nullptr;
   int ring = 0;
-  bool gsrc = false;
+  bool gsrc = false, glob = false;
   size_t sm = 0;
-  cudaError_t err = plan(N, ML, ES, band, &ring, &gsrc, &sm);
+  cudaError_t err = plan(N, ML, ES, band, &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, band, wide_build(ML), sm, &fn);
+    err = planned_kernel(gsrc, band, wide_build(ML), glob, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, colstep ? 1 : 0, ring};
-  const size_t per = (size_t)rt_poa_v2_scratch_words(N, ML, E);
+  const size_t per = (size_t)rt_poa_v2_scratch_words(N, ML, E, glob);
   fn<<<B, NT, sm, (cudaStream_t)stream>>>(
       c, (const uint8_t*)bb, (const int*)bbw, (const int*)bb_len,
       (const int*)n_layers, (const uint8_t*)seqs, (const int*)ws,
@@ -1193,16 +1405,17 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
 // The kernel's registers a thread, local (spill) bytes a thread, dynamic
 // shared bytes a block and resident blocks per SM at (N, ML) with 12 edge
 // slots, as the launch plans them, for the flat build or (band) the banded
-// one (the wide instantiation where max_len + 1 > NT * CHMAX); out[4].
+// one (the wide instantiation where max_len + 1 > NT * CHMAX, the global
+// one where the plan says so); out[4].
 int rt_poa_v2_occupancy(int N, int ML, int band, int* out) {
   int ring = 0;
-  bool gsrc = false;
+  bool gsrc = false, glob = false;
   size_t sm = 0;
   cudaError_t err =
-      plan(N, ML, edge_stride(12), band != 0, &ring, &gsrc, &sm);
+      plan(N, ML, edge_stride(12), band != 0, &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, band != 0, wide_build(ML), sm, &fn);
+    err = planned_kernel(gsrc, band != 0, wide_build(ML), glob, sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

@@ -38,6 +38,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_band": 0,
                             "poa_consensus_v2": 0,
                             "poa_consensus_v2_band": 0,
+                            "poa_consensus_global": 0,
+                            "poa_consensus_band_global": 0,
+                            "poa_consensus_v2_global": 0,
+                            "poa_consensus_v2_band_global": 0,
                             "hirschberg_edge": 0, "hirschberg_edge_k128": 0,
                             "hirschberg_base": 0, "hirschberg_base_k128": 0,
                             "dp_cost_probe": 0}

@@ -36,9 +36,11 @@ The graph grows with the window, so each launch plans its shared memory
 in-edge sources in the global scratch where even 2 rows do not fit. A
 thread owns up to 8 columns of a DP row; a window whose max_len + 1
 exceeds 2048 (make_config's classes above 1280) runs the kernel's wide
-build, 16 columns a thread, so the kernels take max_len + 1 <= 4096
-(``MAX_COLUMNS``). The shared memory a block caps the ls kernel at
-backbone class 2048 (-w 2048, max_len 3072), where ``plan`` raises.
+build, 16 columns a thread. Where no shared-memory layout fits (backbone
+class 2176 and up), the plan picks the global build: the graph in the
+window's global scratch, each DP row in tiles of 2048 columns, so no
+limit on max_len. Node ids are int16 in every build, so the kernels take
+max_nodes <= 32767 (``MAX_NODES``): backbone class 10,880 (-w 10880).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -55,10 +57,7 @@ from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
 
 MAX_NODES = 32767  # node ids are int16 in both POA kernels
-#: max_len + 1 both POA kernels take: 256 threads x 16 columns (the wide
-#: build; the usual build takes 8 a thread, max_len + 1 <= 2048).
-MAX_COLUMNS = 4096
-_INVALID_VALUE = 1  # cudaErrorInvalidValue: the graph does not fit
+TILE_COLUMNS = 2048  # the global build's DP row tile: 256 threads x 8
 #: The kernel's timed phases, in the order of stats["phase_cycles"].
 PHASES = ("init", "dp", "end_pick", "traceback", "update", "order",
           "consensus")
@@ -72,7 +71,7 @@ def _lib():
         lib = cuda_lib.load("poa")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rt_poa_scratch_words.restype = ctypes.c_longlong
-        lib.rt_poa_scratch_words.argtypes = [ci, ci, ci]
+        lib.rt_poa_scratch_words.argtypes = [ci, ci, ci, ci]
         lib.rt_poa_launch.restype = ci
         lib.rt_poa_launch.argtypes = [ci] * 8 + [vp] * 19 + [ci, vp]
         lib.rt_poa_plan.restype = ci
@@ -90,28 +89,54 @@ def occupancy(cfg: PoaConfig, band: bool = False) -> dict:
 
 
 def plan_with(fn, cfg: PoaConfig, band: bool, what: str) -> dict:
-    """A POA kernel's shared-memory plan at cfg's geometry, for its flat
-    or (`band`) banded build, from its library's plan export `fn` (both
-    kernels' wrappers); raises ValueError where the graph does not fit."""
+    """A POA kernel's plan at cfg's geometry, for its flat or (`band`)
+    banded build, from its library's plan export `fn` (both kernels'
+    wrappers); raises ValueError beyond the kernels' limits."""
     check_geometry(cfg)
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     err = fn(cfg.max_nodes, cfg.max_len, cfg.max_edges, int(band), out)
-    if err == _INVALID_VALUE:
-        raise ValueError(f"{what}: a window of max_nodes={cfg.max_nodes}, "
-                         f"max_len={cfg.max_len} does not fit the card's "
-                         f"shared memory a block")
-    cuda_lib.check(err, f"{what}'s shared-memory plan")
-    return dict(zip(("ring", "src_in_shared", "shared_bytes"), out))
+    cuda_lib.check(err, f"{what}'s plan")
+    plan = dict(zip(("ring", "src_in_shared", "shared_bytes"), out))
+    plan["global_build"] = bool(out[3])
+    return plan
 
 
 def plan(cfg: PoaConfig, band: bool = False) -> dict:
     """How a launch at cfg's geometry lays out a window on this card: the
-    DP rows its shared ring holds ("ring": 8, 4 or 2), whether the in-edge
-    sources are in shared memory ("src_in_shared") and the dynamic shared
-    bytes a block ("shared_bytes"); the banded build's (`band`) is the flat
-    build's. Raises ValueError where the graph does not fit the card's
-    shared memory a block, or the kernel's limits (needs the card)."""
+    DP rows its shared ring holds ("ring": 8, 4 or 2; 0 in the global
+    build), whether the in-edge sources are in shared memory
+    ("src_in_shared"), the dynamic shared bytes a block ("shared_bytes"),
+    and whether no shared-memory layout fits, so that the global build
+    runs ("global_build"); the banded build's (`band`) is the flat
+    build's. Raises ValueError beyond the kernel's limits (needs the
+    card)."""
     return plan_with(_lib().rt_poa_plan, cfg, band, "POA kernel")
+
+
+def scratch_words(cfg: PoaConfig, global_build: bool) -> int:
+    """int32 words of one window's global scratch, as both kernels lay it
+    out (csrc/poa_common.cuh scratch_layout and graph_layout): H and the
+    move records over (max_nodes + 1) x (max_len + 1) cells, the edge
+    weights and in-edge sources, and in the global build the graph. A
+    pure function of the geometry."""
+    N, ML = cfg.max_nodes, cfg.max_len
+    ES = (cfg.max_edges + 3) & ~3
+
+    def up4(x):
+        return (x + 3) & ~3
+
+    def align16(x):
+        return (x + 15) & ~15
+
+    cells, edges = (N + 1) * (ML + 1), N * ES
+    w = up4(up4(cells + edges) + edges // 2 + (cells + 3) // 4)
+    if not global_build:
+        return w
+    tiles = (ML + TILE_COLUMNS) // TILE_COLUMNS
+    sizes = (N * 8, N * 4, N * 4, N * 4, ML * 4, ML * 4, ML * 4,
+             tiles * 256 * 4, N * 2, N * 2, N * 2, N * 2, ML * 2, N, ML, N,
+             N, N)
+    return w + sum(align16(b) for b in sizes) // 4
 
 
 def add_phase_cycles(stats: dict, names, cycles) -> None:
@@ -127,15 +152,20 @@ def add_phase_cycles(stats: dict, names, cycles) -> None:
 
 
 def check_geometry(cfg: PoaConfig) -> None:
-    """Both POA kernels' limits on cfg's geometry: max_edges <= 32,
-    max_len + 1 <= MAX_COLUMNS, max_nodes <= MAX_NODES (ValueError)."""
-    if cfg.max_edges > 32 or cfg.max_len + 1 > MAX_COLUMNS:
-        raise ValueError("POA kernel takes max_edges <= 32 and max_len + 1 "
-                         f"<= {MAX_COLUMNS} (256 threads x 16 columns), got "
-                         f"{cfg}")
+    """Both POA kernels' limits on cfg's geometry: max_edges <= 32 and
+    max_nodes <= MAX_NODES (int16 node ids); any max_len (ValueError)."""
+    if cfg.max_edges > 32:
+        raise ValueError(f"POA kernel takes max_edges <= 32, got {cfg}")
     if cfg.max_nodes > MAX_NODES:
         raise ValueError(f"POA kernel takes max_nodes <= {MAX_NODES} "
                          f"(int16 node ids), got {cfg.max_nodes}")
+
+
+def launch_name(kernel: str, band: bool, global_build: bool) -> str:
+    """A POA build's launch-count name: the kernel's, then "_band" for
+    its banded build and "_global" for its global build."""
+    return kernel + ("_band" if band else "") + (
+        "_global" if global_build else "")
 
 
 def check_inputs(cfg: PoaConfig, args, dev) -> int:
@@ -168,7 +198,8 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     kernel. On the card only, it also accumulates each phase's clock
     cycles (``PHASES``; thread 0 of each window's block reads
     ``clock64()``): summed over the windows ("phase_cycles") and the
-    largest window's ("phase_cycles_max")."""
+    largest window's ("phase_cycles_max"). The launch counts under
+    ``launch_name``: the build the plan picks."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats, wband=wband,
@@ -177,7 +208,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     B = check_inputs(cfg, args, dev)
     if wband is not None:
         cuda_lib.require(wband, "wband", torch.int32, (B,), dev)
-    plan(cfg, wband is not None)
+    glob = plan(cfg, wband is not None)["global_build"]
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -190,12 +221,12 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     if B == 0:
         return outs
     lib = _lib()
-    per = lib.rt_poa_scratch_words(N, cfg.max_len, cfg.max_edges)
+    per = lib.rt_poa_scratch_words(N, cfg.max_len, cfg.max_edges, int(glob))
     scratch = torch.empty((B, per), dtype=torch.int32, device=dev)
     counts = None if stats is None else torch.empty(
         (1 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
-    name = "poa_consensus" if wband is None else "poa_consensus_band"
+    name = launch_name("poa_consensus", wband is not None, glob)
     with cuda_lib.launch_events(name, bb):
         err = lib.rt_poa_launch(
             N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,

@@ -9,14 +9,18 @@ default, as in the JAX package, and faster than v2 on every depth bucket
 on the card) or "v2" (ops/poa_v2_cuda.py); both compute one function,
 and neither steps down to the other. Both keep H in global memory and
 plan their shared memory per launch (``plan``), with a wide build of 16
-columns a thread where max_len + 1 > 2048, so that every window class up
-to 2048 (-w 2048; max_len 3072) runs on the card. Before any window
-runs, the phase checks every bucket's geometry against the card and
-raises ValueError, naming the largest window length the kernel takes,
-where one does not fit; no window is sent to the host for that. A
-window's global scratch (H and the move records) grows with N x max_len:
-about 95 MB at class 2048, 24 GB for a batch of 256, which the card's
-80 GB holds, so ``batch_windows`` needs no cap by geometry.
+columns a thread where max_len + 1 > 2048 and a global build (the graph
+in global memory, DP rows in tiles) where no shared-memory layout fits,
+so that every window class up to the int16 node-id limit (-w 10880;
+max_nodes 32,640, max_len 16,384) runs on the card. Before any window
+runs, the phase checks every bucket's geometry (``check_geometries``)
+and raises one ValueError, naming that limit and the largest window
+length, where one is beyond it; no window is sent to the host for its
+size. A window's global scratch (H and the move records, about 5 bytes
+a DP cell) grows with N x max_len: about 95 MB at class 2048, 380 MB at
+4096, 2.7 GB at 10,880. So on the card each bucket's batches are capped
+by geometry (``batch_cap``): as many windows as the card's free memory
+holds, less a margin (``MEMORY_MARGIN``), and at most ``batch_windows``.
 
 With ``band`` (the JAX package's ``RACON_TPU_BAND``) every batch runs the
 chosen kernel's banded build: each window gets the half band of its worst
@@ -40,7 +44,7 @@ import numpy as np
 import torch
 
 from . import band as _band
-from . import poa, poa_cuda, poa_v2_cuda
+from . import poa, poa_cuda
 from .encoding import decode, encode
 from .poa_cuda import poa_consensus
 from .poa_v2_cuda import poa_consensus_v2
@@ -50,6 +54,10 @@ DEPTH_BUCKETS = (8, 32, DEPTH_CAP)
 NODE_FACTOR = 3                    # max_nodes = 3 x window length
 POA_KERNELS = ("ls", "v2")
 DEFAULT_POA_KERNEL = "ls"
+#: What a batch leaves of the card's free memory: 1 GiB and a tenth of the
+#: rest, for the allocator's rounding, the phase's other tensors and
+#: whatever else runs on the card.
+MEMORY_MARGIN = (1 << 30, 0.1)
 
 
 def window_class(bb_len: int) -> int:
@@ -95,35 +103,56 @@ def kernel_for(poa_kernel: str):
     return poa_consensus if poa_kernel == "ls" else poa_consensus_v2
 
 
-def check_geometries(cfgs, poa_kernel: str, band: bool) -> None:
-    """Before any window runs on the card: each geometry's shared-memory
-    plan for `poa_kernel`'s flat or (`band`) banded build. Where one does
-    not fit, raises one ValueError naming the largest window length (-w)
-    the kernel takes on this card: the largest backbone class whose
-    geometry fits (needs the card)."""
-    plan = poa_cuda.plan if poa_kernel == "ls" else poa_v2_cuda.plan
+def largest_window() -> int:
+    """The largest window length (-w) whose window class both POA kernels
+    take: node ids are int16, so make_config's max_nodes <= 32767."""
+    wl = 128
+    while make_config(wl + 128, 1, 0, 0, 0).max_nodes <= poa_cuda.MAX_NODES:
+        wl += 128
+    return wl
 
-    def fits(cfg) -> bool:
-        try:
-            plan(cfg, band)
-        except ValueError:
-            return False
-        return True
 
+def check_geometries(cfgs, poa_kernel: str) -> None:
+    """Before any window runs on the card: both POA kernels take every
+    geometry whose node ids fit int16 (max_nodes <= 32767), flat or
+    banded, through their global build where no shared-memory layout
+    fits. Beyond that limit, raises one ValueError naming it and the
+    largest window length (-w) the kernels take."""
     for cfg in cfgs:
-        if fits(cfg):
-            continue
-        largest = 0
-        for wl in range(128, cfg.max_backbone, 128):
-            if not fits(make_config(wl, cfg.depth, cfg.match, cfg.mismatch,
-                                    cfg.gap)):
-                break
-            largest = wl
-        raise ValueError(
-            f"the {poa_kernel} POA kernel does not take windows of backbone "
-            f"class {cfg.max_backbone} (max_nodes {cfg.max_nodes}, max_len "
-            f"{cfg.max_len}) on this card; the largest window length it "
-            f"takes is -w {largest}")
+        if cfg.max_nodes > poa_cuda.MAX_NODES:
+            raise ValueError(
+                f"the {poa_kernel} POA kernel does not take windows of "
+                f"backbone class {cfg.max_backbone}: max_nodes "
+                f"{cfg.max_nodes} is beyond the int16 node-id limit of "
+                f"{poa_cuda.MAX_NODES}; the largest window length it takes "
+                f"is -w {largest_window()}")
+
+
+def window_bytes(cfg: poa.PoaConfig) -> int:
+    """Device bytes one window of a batch at cfg's geometry takes: its
+    global scratch (the global build's, the larger), its inputs, outputs
+    and counts. A pure function of the geometry."""
+    N, ML, MB, D = cfg.max_nodes, cfg.max_len, cfg.max_backbone, cfg.depth
+    inputs = MB * 5 + 8 + D * ML * 5 + D * 12 + 4
+    outputs = 2 * N * 4 + 4 + 1 + 4 + 1 + 8 * 8
+    return 4 * poa_cuda.scratch_words(cfg, True) + inputs + outputs
+
+
+def batch_cap(cfg: poa.PoaConfig, free_bytes: int) -> int:
+    """How many windows of cfg's geometry a batch may hold on a card with
+    `free_bytes` free: the free bytes less MEMORY_MARGIN over
+    ``window_bytes``, at least 1."""
+    fixed, share = MEMORY_MARGIN
+    room = free_bytes - fixed - int(share * max(0, free_bytes - fixed))
+    return max(1, room // window_bytes(cfg))
+
+
+def free_device_bytes(device) -> int:
+    """The card's free memory, counting what the caching allocator holds
+    but does not use."""
+    free, _ = torch.cuda.mem_get_info(device)
+    return free + torch.cuda.memory_reserved(device) - \
+        torch.cuda.memory_allocated(device)
 
 
 def initial_poa_band(wx, keep, cfg: poa.PoaConfig, slack: int):
@@ -186,13 +215,17 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     cfgs = {key: make_config(key[1], key[0], match, mismatch, gap)
             for key in buckets}
     if device.type == "cuda":
-        check_geometries(cfgs.values(), poa_kernel, band)
+        check_geometries(cfgs.values(), poa_kernel)
     for key, bucket_jobs in sorted(buckets.items()):
         cfg = cfgs[key]
-        # depth- and length-homogeneous batches
+        # depth- and length-homogeneous batches, as many as the card holds
         bucket_jobs.sort(key=lambda job: (job[1], job[2]))
-        for off in range(0, len(bucket_jobs), batch_windows):
-            idxs = [i for i, _, _ in bucket_jobs[off:off + batch_windows]]
+        per_batch = batch_windows
+        if device.type == "cuda":
+            per_batch = min(per_batch,
+                            batch_cap(cfg, free_device_bytes(device)))
+        for off in range(0, len(bucket_jobs), per_batch):
+            idxs = [i for i, _, _ in bucket_jobs[off:off + per_batch]]
             chunk = _export_chunk(pipeline, idxs, cfg, fallback, stats)
             if not chunk:
                 continue

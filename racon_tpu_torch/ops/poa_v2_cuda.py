@@ -35,8 +35,12 @@ The graph grows with the window, so each launch plans its shared memory
 (``plan``; the banded build has a layout of its own): a ring of 8 rows at
 -w 500, fewer rows for larger windows, and the in-edge sources in the
 global scratch where even 2 rows do not fit. Windows whose max_len + 1
-exceeds 2048 run the wide build (16 columns a thread); the plan fits
-every geometry the ls kernel takes, up to backbone class 2048.
+exceeds 2048 run the wide build (16 columns a thread). Where no
+shared-memory layout fits (backbone class 2176 and up; 2432 for the flat
+build), the plan picks the global build, flat or banded: the graph in the
+window's global scratch and the banded build's rows (wband 0 for the flat
+one) in tiles of 2048 columns, so no limit on max_len; node ids stay
+int16 (max_nodes <= 32767).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -51,7 +55,7 @@ import torch
 
 from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
-from .poa_cuda import add_phase_cycles, check_inputs, plan_with
+from .poa_cuda import add_phase_cycles, check_inputs, launch_name, plan_with
 
 VSLOT = 15        # the move records' virtual-start slot: max_edges <= 15
 #: The kernel's timed phases, in the order of stats["phase_cycles"].
@@ -66,7 +70,7 @@ def _lib():
         lib = cuda_lib.load("poa_v2")
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rt_poa_v2_scratch_words.restype = ctypes.c_longlong
-        lib.rt_poa_v2_scratch_words.argtypes = [ci, ci, ci]
+        lib.rt_poa_v2_scratch_words.argtypes = [ci, ci, ci, ci]
         lib.rt_poa_v2_launch.restype = ci
         lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 20 + [ci, vp]
         lib.rt_poa_v2_plan.restype = ci
@@ -86,11 +90,11 @@ def occupancy(cfg: PoaConfig, band: bool = False) -> dict:
 def plan(cfg: PoaConfig, band: bool = False) -> dict:
     """How a launch of the flat or (`band`) the banded build at cfg's
     geometry lays out a window on this card: the DP rows its shared ring
-    holds ("ring": 8, 4 or 2), whether the in-edge sources are in shared
-    memory ("src_in_shared") and the dynamic shared bytes a block
-    ("shared_bytes"). Raises ValueError where the graph does not fit the
-    card's shared memory a block, or the kernel's limits (needs the
-    card)."""
+    holds ("ring": 8, 4 or 2; 0 in the global build), whether the in-edge
+    sources are in shared memory ("src_in_shared"), the dynamic shared
+    bytes a block ("shared_bytes"), and whether no shared-memory layout
+    fits, so that the global build runs ("global_build"). Raises
+    ValueError beyond the kernel's limits (needs the card)."""
     return plan_with(_lib().rt_poa_v2_plan, cfg, band, "v2 POA kernel")
 
 
@@ -111,7 +115,8 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     card only, it also accumulates each phase's clock cycles (``PHASES``;
     thread 0 of each window's block reads ``clock64()``): summed over the
     windows ("phase_cycles") and the largest window's
-    ("phase_cycles_max")."""
+    ("phase_cycles_max"). The launch counts under ``launch_name``: the
+    build the plan picks."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats,
@@ -124,7 +129,7 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     if cfg.max_edges > VSLOT:
         raise ValueError(f"v2 POA kernel takes max_edges <= {VSLOT}, got "
                          f"{cfg.max_edges}")
-    plan(cfg, wband is not None)
+    glob = plan(cfg, wband is not None)["global_build"]
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -137,12 +142,13 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     if B == 0:
         return outs
     lib = _lib()
-    per = lib.rt_poa_v2_scratch_words(N, cfg.max_len, cfg.max_edges)
+    per = lib.rt_poa_v2_scratch_words(N, cfg.max_len, cfg.max_edges,
+                                      int(glob))
     scratch = torch.empty((B, per), dtype=torch.int32, device=dev)
     counts = None if stats is None else torch.empty(
         (2 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
-    name = "poa_consensus_v2" if wband is None else "poa_consensus_v2_band"
+    name = launch_name("poa_consensus_v2", wband is not None, glob)
     with cuda_lib.launch_events(name, bb):
         err = lib.rt_poa_v2_launch(
             N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,

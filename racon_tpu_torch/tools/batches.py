@@ -37,12 +37,12 @@ def mutate(rng: np.random.Generator, seq: np.ndarray, rate: float):
 
 
 def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
-              rate: float = 0.1, layers=None):
-    """B windows of about `window` bases with 2..cfg.depth layers each, or
-    `layers` = (lo, hi) layers, lo..hi inclusive (one partial-span layer
-    where there are three or more), per-base weights, and backbone
-    weights: the nine numpy arrays ``poa.batch_to_tensors`` takes, as a
-    tuple with a trailing None."""
+              rate: float = 0.1, layers=None, shortest=None):
+    """B windows of about `window` bases (from `shortest`, else 4/5 of
+    it) with 2..cfg.depth layers each, or `layers` = (lo, hi) layers,
+    lo..hi inclusive (one partial-span layer where there are three or
+    more), per-base weights, and backbone weights: the nine numpy arrays
+    ``poa.batch_to_tensors`` takes, as a tuple with a trailing None."""
     rng = np.random.default_rng(seed)
     D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
     bb = np.zeros((B, MB), np.uint8)
@@ -55,7 +55,8 @@ def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
     begins = np.zeros((B, D), np.int32)
     ends = np.zeros((B, D), np.int32)
     for b in range(B):
-        n = int(rng.integers(max(8, window * 4 // 5), window + 1))
+        lo = window * 4 // 5 if shortest is None else shortest
+        n = int(rng.integers(max(8, lo), window + 1))
         truth = rng.integers(0, 4, n).astype(np.uint8)
         backbone = mutate(rng, truth, rate)[:MB]
         L = len(backbone)
@@ -309,3 +310,48 @@ def plain_poa_parallel(batches, procs: int, kernel: str = "v2"):
                     {k: sum(p[1][k] for p in mine)
                      for k in ("cells", "steps", "rows")}))
     return res
+
+
+class WindowSet:
+    """A stand-in for ``pipeline.Pipeline`` in the consensus phase
+    (``poa_driver.run_consensus_phase``): the windows of a ``poa_batch``,
+    exported as the pipeline exports them, and the consensus each gets
+    (``consensus``: window -> (bases, polished)). A window the kernel
+    fails gets None from ``consensus_cpu_one``."""
+
+    def __init__(self, packed):
+        self.packed = packed
+        self.consensus = {}
+
+    def num_windows(self) -> int:
+        return len(self.packed[2])
+
+    def window_info(self, i: int):
+        bb_len, n_layers = self.packed[2][i], self.packed[3][i]
+        return (int(n_layers) + 1, int(bb_len), 0, True, 0, 0)
+
+    def export_window(self, i: int):
+        from ..ops.encoding import decode
+        from ..pipeline import WindowExport
+
+        bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends = \
+            self.packed[:9]
+        L, K = int(bb_len[i]), int(n_layers[i])
+        lk = lens[i, :K]
+        ascii_of = np.frombuffer(decode(np.arange(4)), np.uint8)
+        return WindowExport(
+            index=i, rank=0, target_id=0, is_tgs=True,
+            backbone=ascii_of[bb[i, :L]], backbone_weights=bbw[i, :L].astype(
+                np.uint8), lens=lk.astype(np.uint32),
+            begins=begins[i, :K].astype(np.uint32),
+            ends=ends[i, :K].astype(np.uint32),
+            bases=np.concatenate([ascii_of[seqs[i, k, :lk[k]]]
+                                  for k in range(K)]),
+            weights=np.concatenate([ws[i, k, :lk[k]] for k in range(K)]
+                                   ).astype(np.uint8))
+
+    def set_consensus(self, i: int, bases: bytes, polished: bool) -> None:
+        self.consensus[i] = (bases, polished)
+
+    def consensus_cpu_one(self, i: int) -> None:
+        self.consensus[i] = None

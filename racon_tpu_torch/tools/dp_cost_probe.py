@@ -56,15 +56,28 @@ kernel. ``gate()`` holds the compressed modes' measured counts against
 their baselines: >= 1.5x fewer serial steps (11 vs 1, 12 vs 9), >= 2x
 (14 vs 13), >= 3x fewer cells (16 vs 15, 18 vs 17).
 
+On the card each mode's kernel runs the POA kernels' row design (the row
+before in registers, one barrier a row, the graph in shared memory, only
+the last row written to global memory; csrc/dp_cost_probe.cu). With
+``--baseline SRC.cu`` (another tree's csrc/dp_cost_probe.cu with the same
+C interface) that source is built into ``_build/baseline/`` and timed in
+the same call, in turns with this build (this, baseline, baseline, this:
+each mode's best warm call of each build), and each mode's ``out`` and
+``steps`` must be equal; it prints one JSON line a mode and the sums.
+
 Usage: python -m racon_tpu_torch.tools.dp_cost_probe [R] [B] [reps]
-           [--device cuda|cpu]
+           [--device cuda|cpu] [--baseline SRC.cu]
        python -m racon_tpu_torch.tools.dp_cost_probe --gate [--device ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
+import json
+import os
+import subprocess
 import sys
 import time
 from typing import Dict, List, Tuple
@@ -244,17 +257,47 @@ def probe_plain(mode: int, R: int, seed: torch.Tensor, rows: bool = False):
 _LIB = None
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.rt_probe_scratch_words.restype = ctypes.c_longlong
+    lib.rt_probe_scratch_words.argtypes = [ci, ci]
+    lib.rt_probe_launch.restype = ci
+    lib.rt_probe_launch.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp]
+    return lib
+
+
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = cuda_lib.load("dp_cost_probe")
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.rt_probe_scratch_words.restype = ctypes.c_longlong
-        lib.rt_probe_scratch_words.argtypes = [ci, ci]
-        lib.rt_probe_launch.restype = ci
-        lib.rt_probe_launch.argtypes = [ci, ci, vp, vp, vp, vp, ci, vp]
-        _LIB = lib
+        _LIB = _bind(cuda_lib.load("dp_cost_probe"))
     return _LIB
+
+
+def build_baseline(src: str) -> ctypes.CDLL:
+    """Another tree's csrc/dp_cost_probe.cu, built into
+    ``_build/baseline/`` with this tree's nvcc flags (needs the card's
+    toolkit)."""
+    out_dir = os.path.join(cuda_lib.BUILD, "baseline")
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "libdp_cost_probe.so")
+    log = subprocess.run([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", out,
+                          os.path.abspath(src)], capture_output=True,
+                         text=True)
+    if log.returncode:
+        raise RuntimeError(f"baseline probe build failed:\n{log.stdout}"
+                           f"{log.stderr}")
+    return _bind(ctypes.CDLL(out))
+
+
+@contextlib.contextmanager
+def using(lib: ctypes.CDLL):
+    """probe() on the card launches `lib`'s kernels inside the block."""
+    global _LIB
+    saved, _LIB = _lib(), lib
+    try:
+        yield
+    finally:
+        _LIB = saved
 
 
 def _check(mode, R, seed):
@@ -267,22 +310,12 @@ def _check(mode, R, seed):
         raise ValueError("seed must be a 1-D int32 tensor")
 
 
-def _last_row_at(mode: int, R: int) -> int:
-    """Where the kernel's scratch holds the last row (or ring row)."""
-    if mode in (9, 10, 12):
-        return (R % RING) * ROW_WIDTH[mode]
-    if mode in (17, 18):
-        return (R % RING2) * ROW_WIDTH[mode]
-    if mode in (13, 14, 15, 16):
-        return 0
-    return R * ROW_WIDTH[mode]        # row R of H (mode 8: both rows)
-
-
 def probe(mode: int, R: int, seed: torch.Tensor, rows: bool = False):
     """Run `mode` for R ranks, one program per seed: (out i32[B], steps
     i32[B]) on the seed's device, and with `rows` each program's last DP
-    row (or ring row) i32[B, ROW_WIDTH[mode]]. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel, or this raises."""
+    row (or ring row) i32[B, ROW_WIDTH[mode]], the first words of its
+    scratch. A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel, or this raises."""
     if seed.device.type == "cpu":
         return probe_plain(mode, R, seed, rows)
     _check(mode, R, seed)
@@ -301,8 +334,7 @@ def probe(mode: int, R: int, seed: torch.Tensor, rows: bool = False):
         cuda_lib.LAUNCHES["dp_cost_probe"] += 1
     if not rows:
         return out, steps
-    at = _last_row_at(mode, R)
-    return out, steps, scratch[:, at:at + ROW_WIDTH[mode]].clone()
+    return out, steps, scratch[:, :ROW_WIDTH[mode]].clone()
 
 
 # ---------------------------------------------------------------- gate, table
@@ -355,7 +387,10 @@ def time_modes(R: int = 800, B: int = 16, reps: int = 3,
                device="cuda") -> List[Dict]:
     """Each mode's first call (host clock), best warm call (CUDA events on
     the card), per-node microseconds (warm time over R x B x rows per
-    rank), its counts, DP cells and outputs for seeds 0 and 7."""
+    rank), nanoseconds a rank step (warm time over R: the programs run
+    side by side, each a chain of R steps), picoseconds a DP cell (warm
+    time over the cells all programs score), its counts, DP cells and
+    outputs for seeds 0 and 7."""
     device = torch.device(device)
     res = []
     for mode in range(N_MODES):
@@ -370,12 +405,53 @@ def time_modes(R: int = 800, B: int = 16, reps: int = 3,
         best = min(_time_s(lambda: probe(mode, R, seed + i + 1), device)
                    for i in range(reps))
         rows = R * B * ROWS_PER_RANK.get(mode, 1)
+        cells = R * B * COLUMNS[mode]
         res.append(dict(mode=mode, first_s=first, warm_s=best,
-                        per_node_us=best / rows * 1e6, steps=st,
-                        cells=R * B * COLUMNS[mode],
+                        per_node_us=best / rows * 1e6,
+                        ns_per_step=best / R * 1e9,
+                        ps_per_cell=best / cells * 1e12, steps=st,
+                        cells=cells,
                         ops=R * B * COLUMNS[mode] * OPS_PER_CELL[mode],
                         out_seed0=o1, out_seed7=o2))
     return res
+
+
+def compare_baseline(src: str, R: int = 800, B: int = 16, reps: int = 3,
+                     device="cuda") -> Dict:
+    """This build against another tree's probe source `src`, in one call:
+    each mode timed in turns (this, baseline, baseline, this; each turn
+    ``time_modes``' best warm call of `reps`), the better of each build's
+    two turns kept, and both builds' out and steps for seeds 0 and 7
+    required equal. Returns {"modes": [...], "ms", "baseline_ms"}."""
+    base = build_baseline(src)
+    turns = []
+    for lib in (None, base, base, None):
+        with (using(lib) if lib is not None else contextlib.nullcontext()):
+            turns.append(time_modes(R, B, reps, device))
+    rows = []
+    for mode in range(N_MODES):
+        new = [turns[0][mode], turns[3][mode]]
+        old = [turns[1][mode], turns[2][mode]]
+        for a in new + old:
+            if (a["out_seed0"], a["out_seed7"], a["steps"]) != (
+                    new[0]["out_seed0"], new[0]["out_seed7"],
+                    new[0]["steps"]):
+                raise RuntimeError(f"probe mode {mode}: the baseline build "
+                                   "and this one disagree")
+        ms = min(a["warm_s"] for a in new) * 1e3
+        bms = min(a["warm_s"] for a in old) * 1e3
+        cells = new[0]["cells"]
+        rows.append({"mode": mode, "ms": ms, "baseline_ms": bms,
+                     "ms_turns": [a["warm_s"] * 1e3 for a in new],
+                     "baseline_ms_turns": [a["warm_s"] * 1e3 for a in old],
+                     "ns_per_step": ms * 1e6 / R,
+                     "baseline_ns_per_step": bms * 1e6 / R,
+                     "ps_per_cell": ms * 1e9 / cells,
+                     "baseline_ps_per_cell": bms * 1e9 / cells,
+                     "cells": cells, "steps": new[0]["steps"]})
+    return {"R": R, "B": B, "modes": rows,
+            "ms": sum(r["ms"] for r in rows),
+            "baseline_ms": sum(r["baseline_ms"] for r in rows)}
 
 
 def print_table(rows: List[Dict]) -> None:
@@ -385,6 +461,7 @@ def print_table(rows: List[Dict]) -> None:
                   if r["out_seed0"] == r["out_seed7"] else "")
         print(f"mode={r['mode']} first={r['first_s']:.2f}s "
               f"warm={r['warm_s']:.4f}s per_node={r['per_node_us']:.3f}us "
+              f"step={r['ns_per_step']:.1f}ns cell={r['ps_per_cell']:.2f}ps "
               f"delta={r['per_node_us'] - prev:+.3f}us steps={r['steps']} "
               f"out(seed0)={r['out_seed0']} out(seed7)={r['out_seed7']}"
               f"{folded}")
@@ -407,10 +484,22 @@ def main(argv=None) -> int:
     p.add_argument("reps", type=int, nargs="?", default=3)
     p.add_argument("--gate", action="store_true")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--baseline", help="another tree's csrc/dp_cost_probe.cu,"
+                   " timed in the same call")
     args = p.parse_args(argv)
     dev = _device(args.device)
     if args.gate:
         return 0 if gate(device=dev) else 1
+    if args.baseline:
+        if dev.type != "cuda":
+            raise SystemExit("dp_cost_probe: --baseline needs the card")
+        res = compare_baseline(args.baseline, args.R, args.B, args.reps, dev)
+        for r in res["modes"]:
+            print(json.dumps(r))
+        print(json.dumps({"R": res["R"], "B": res["B"], "ms": res["ms"],
+                          "baseline_ms": res["baseline_ms"],
+                          "device": torch.cuda.get_device_name(dev)}))
+        return 0
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu (plain versions)")
     print(f"device={name} R={args.R} B={args.B}")

@@ -94,12 +94,14 @@ def _build_baseline(src: str) -> ctypes.CDLL:
 def _swapped(lib):
     """The v2 wrapper calls `lib` (None: this tree's library); the wrapper's
     up-front plan check is skipped, since the baseline's plan export may
-    take other arguments (its launch plans for itself)."""
+    take other arguments (its launch plans for itself; the main cell's
+    geometries take no global build)."""
     if lib is None:
         yield
         return
     saved = poa_v2_cuda._LIB, poa_v2_cuda.plan
-    poa_v2_cuda._LIB, poa_v2_cuda.plan = lib, lambda cfg, band=False: None
+    poa_v2_cuda._LIB, poa_v2_cuda.plan = lib, lambda cfg, band=False: {
+        "global_build": False}
     try:
         yield
     finally:

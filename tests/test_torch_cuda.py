@@ -159,28 +159,46 @@ def test_poa_v2_equals_plain_on_a_full_depth_200_batch(card):
                                           f"{colstep}")
 
 
-#: Geometries beyond -w 500 and the v2 shared-memory plan each gets on an
+#: Geometries beyond -w 500 and the v2 flat build's plan each gets on an
 #: H100 (227 KiB a block): (config, window, ring rows, sources in shared
-#: memory). -w 1280 is the largest window of the usual build (max_len + 1
-#: <= 2048); -w 1500 and -w 2000 (their window classes' geometries,
-#: max_len 2304 and 3072) run the wide build, 2000 the largest class both
-#: kernels take; "n6144" is a graph too large to keep its in-edge sources
-#: on chip.
+#: memory, global build). -w 1280 is the largest window of the usual build
+#: (max_len + 1 <= 2048); -w 1500 and -w 2000 (their window classes'
+#: geometries, max_len 2304 and 3072) run the wide build; "n6144" is a
+#: graph too large to keep its in-edge sources on chip; from class 2176
+#: (-w 2176) up no shared-memory layout of the ls kernel fits, from 2432
+#: none of v2's flat build, and the global build runs: classes 2176 (ls
+#: only), 3072, 4096 and 10,880, the node-id limit (max_nodes 32,640,
+#: max_len 16,384).
 LARGE = {
-    "w1000": (poa_driver.make_config(1000, 32, 5, -4, -8), 1000, 8, 1),
-    "w1200": (poa_driver.make_config(1200, 32, 5, -4, -8), 1200, 4, 1),
-    "w1280": (poa_driver.make_config(1280, 200, 5, -4, -8), 1280, 2, 1),
-    "w1500": (poa_driver.make_config(1536, 32, 5, -4, -8), 1500, 8, 0),
-    "w2000": (poa_driver.make_config(2048, 32, 5, -4, -8), 2000, 4, 0),
+    "w1000": (poa_driver.make_config(1000, 32, 5, -4, -8), 1000, 8, 1, 0),
+    "w1200": (poa_driver.make_config(1200, 32, 5, -4, -8), 1200, 4, 1, 0),
+    "w1280": (poa_driver.make_config(1280, 200, 5, -4, -8), 1280, 2, 1, 0),
+    "w1500": (poa_driver.make_config(1536, 32, 5, -4, -8), 1500, 8, 0, 0),
+    "w2000": (poa_driver.make_config(2048, 32, 5, -4, -8), 2000, 4, 0, 0),
     "n6144": (CFG._replace(max_nodes=6144, max_len=1024, max_backbone=512,
-                           depth=16), 500, 8, 0),
+                           depth=16), 500, 8, 0, 0),
+    "w2176": (poa_driver.make_config(2176, 8, 5, -4, -8), 2176, 2, 0, 0),
+    "w3072": (poa_driver.make_config(3072, 8, 5, -4, -8), 3072, 0, 0, 1),
+    "w4096": (poa_driver.make_config(4096, 8, 5, -4, -8), 4096, 0, 0, 1),
+    "w10880": (poa_driver.make_config(10880, 8, 5, -4, -8), 10880, 0, 0, 1),
 }
+#: The global builds' geometries: (windows, layers) of their batches,
+#: kept small, since the plain version runs them on the host.
+GLOBAL_BATCH = {"w2176": (3, (2, 4)), "w3072": (3, (2, 4)),
+                "w4096": (2, (2, 3)), "w10880": (1, (2, 2))}
+
+
+@functools.lru_cache(maxsize=None)
+def _large_batch(name):
+    cfg, window = LARGE[name][:2]
+    B, layers = GLOBAL_BATCH.get(name, (8, (6, 16)))
+    return batches.poa_batch(cfg, B, 21, window, layers=layers)
 
 
 @functools.lru_cache(maxsize=None)
 def _large_case(name):
-    cfg, window = LARGE[name][:2]
-    packed = batches.poa_batch(cfg, 8, 21, window, layers=(6, 16))
+    cfg = LARGE[name][0]
+    packed = _large_batch(name)
     st = {}
     want = poa_v2_cuda.poa_consensus_v2(
         cfg, *poa.batch_to_tensors(packed, "cpu"), stats=st)
@@ -191,20 +209,31 @@ def _large_case(name):
 @pytest.mark.parametrize("name", sorted(LARGE))
 def test_poa_kernels_equal_plain_at_large_geometries(card, kernel, name):
     """Both POA kernels launch and equal the plain version at every
-    window size the driver takes; v2 with the shared-memory plan each
-    geometry should get."""
-    cfg, _, ring, src_in_shared = LARGE[name]
+    window size poa_driver takes, up to the node-id limit; v2 with the
+    plan each geometry should get, and each kernel's global build where
+    no shared-memory layout fits (its own launch count)."""
+    cfg, _, ring, src_in_shared, glob = LARGE[name]
     packed, want, want_st = _large_case(name)
     dev_in = poa.batch_to_tensors(packed, card)
     st = {}
+    mod = poa_v2_cuda if kernel == "v2" else poa_cuda
+    plan = mod.plan(cfg)
     if kernel == "v2":
-        assert poa_v2_cuda.plan(cfg) == {
+        assert plan == {
             "ring": ring, "src_in_shared": src_in_shared,
-            "shared_bytes": poa_v2_cuda.occupancy(cfg)["shared_bytes"]}
+            "shared_bytes": poa_v2_cuda.occupancy(cfg)["shared_bytes"],
+            "global_build": bool(glob)}
+    elif name == "w2176":
+        assert plan["global_build"]
+    base = "poa_consensus_v2" if kernel == "v2" else "poa_consensus"
+    name_run = poa_cuda.launch_name(base, False, plan["global_build"])
+    n0 = cuda_lib.LAUNCHES[name_run]
+    if kernel == "v2":
         got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, stats=st)
     else:
         got = poa_cuda.poa_consensus(cfg, *dev_in, stats=st)
     torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[name_run] == n0 + 1
     assert st["cells"] == want_st["cells"] > 0
     if kernel == "v2":
         assert st["steps"] == want_st["steps"]
@@ -213,14 +242,77 @@ def test_poa_kernels_equal_plain_at_large_geometries(card, kernel, name):
                                       err_msg=f"output {k}")
 
 
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+@pytest.mark.parametrize("name", sorted(GLOBAL_BATCH))
+def test_poa_global_band_builds_equal_plain(card, kernel, name):
+    """Each kernel's banded build at the global builds' geometries (the
+    global build wherever no shared-memory layout fits the banded build)
+    against the plain version with that kernel's banded semantics: a
+    narrow half band, a wide one and wband 0 (the flat outputs)."""
+    cfg = LARGE[name][0]
+    packed = _large_batch(name)
+    B = packed[0].shape[0]
+    mod = poa_v2_cuda if kernel == "v2" else poa_cuda
+    assert mod.plan(cfg, True)["global_build"] or name == "w2176"
+    _assert_band_build_equal(card, cfg, packed, [24, 400, 0][:B], kernel)
+    if B == 1:
+        _assert_band_build_equal(card, cfg, packed, [0], kernel)
+
+
 def test_poa_v2_raises_where_the_graph_does_not_fit(card):
-    """A graph too large for the card's shared memory a block even with
-    its in-edge sources in global memory: the wrapper raises."""
-    cfg = CFG._replace(max_nodes=12288, max_len=1024, max_backbone=512)
+    """A graph beyond the int16 node ids of both kernels (max_nodes
+    32,768, one past the limit): the wrapper raises, naming the limit,
+    before any launch."""
+    cfg = CFG._replace(max_nodes=32768, max_len=1024, max_backbone=512)
     packed = batches.poa_batch(cfg, 1, 22, 100)
-    with pytest.raises(ValueError, match="does not fit"):
+    with pytest.raises(ValueError, match="int16 node ids"):
         poa_v2_cuda.poa_consensus_v2(cfg,
                                      *poa.batch_to_tensors(packed, card))
+
+
+@pytest.mark.parametrize("window", [500, 2048, 3072, 10880])
+def test_poa_scratch_words_match_the_kernels(card, window):
+    """poa_cuda.scratch_words, the pure function the batch cap reads,
+    equals both kernels' own scratch layout, with and without the global
+    build's graph."""
+    cfg = poa_driver.make_config(window, 8, 5, -4, -8)
+    for glob in (False, True):
+        for lib in (poa_cuda._lib().rt_poa_scratch_words,
+                    poa_v2_cuda._lib().rt_poa_v2_scratch_words):
+            assert lib(cfg.max_nodes, cfg.max_len, cfg.max_edges,
+                       int(glob)) == poa_cuda.scratch_words(cfg, glob)
+
+
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+def test_poa_batches_split_by_the_memory_cap(card, kernel, monkeypatch):
+    """A class-4096 bucket of five windows on a card whose free memory
+    (as poa_driver reads it) holds two windows and the margin: the
+    consensus phase runs three batches through the global build, and
+    every window gets the consensus the CPU run (plain version, one
+    batch) gives."""
+    cfg = poa_driver.make_config(4096, 8, 5, -4, -8)
+    packed = batches.poa_batch(cfg, 5, 24, 4080, layers=(2, 3),
+                               shortest=4000)
+    assert all(poa_driver.window_class(int(n)) == 4096 for n in packed[2])
+    per = poa_driver.window_bytes(cfg)
+    fixed, share = poa_driver.MEMORY_MARGIN
+    free = int((2.5 * per) / (1 - share)) + fixed
+    assert poa_driver.batch_cap(cfg, free) == 2
+    monkeypatch.setattr(poa_driver, "free_device_bytes", lambda dev: free)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        ws = batches.WindowSet(packed)
+        cuda_lib.reset_launches()
+        st = poa_driver.run_consensus_phase(
+            ws, match=5, mismatch=-4, gap=-8, trim=True, device=dev,
+            poa_kernel=kernel)
+        runs[dev] = (ws.consensus, st, dict(cuda_lib.LAUNCHES))
+    (want, wst, _), (got, gst, launches) = runs["cpu"], runs["cuda"]
+    assert wst["batches"] == 1 and gst["batches"] == 3
+    assert gst["device"] == wst["device"] == 5
+    base = "poa_consensus_v2" if kernel == "v2" else "poa_consensus"
+    assert launches[base + "_global"] == 3
+    assert got == want
 
 
 def _max_sm_mhz():
@@ -339,10 +431,14 @@ BAND_BUILDS = {"v2": (poa_v2_cuda.poa_consensus_v2, "poa_consensus_v2_band"),
 
 
 def _assert_band_build_equal(card, cfg, packed, wband, kernel="v2"):
-    """A kernel's banded build against the plain version with its banded
-    semantics (all six outputs and the band cells; v2 also its serial
-    steps); at wband 0 against the flat build as well."""
+    """A kernel's banded build (its global build where the plan says so)
+    against the plain version with its banded semantics (all six outputs
+    and the band cells; v2 also its serial steps); at wband 0 against the
+    flat build as well."""
     fn, name = BAND_BUILDS[kernel]
+    mod = poa_v2_cuda if kernel == "v2" else poa_cuda
+    if mod.plan(cfg, True)["global_build"]:
+        name += "_global"
     wb = torch.as_tensor(np.asarray(wband), dtype=torch.int32)
     want_st, got_st = {}, {}
     want = fn(cfg, *poa.batch_to_tensors(packed, "cpu"), wband=wb,

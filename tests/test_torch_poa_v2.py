@@ -517,33 +517,30 @@ def test_banded_build_counts_one_row_a_step():
 @pytest.mark.parametrize("wrapper", ["ls", "v2"])
 def test_wrappers_take_wide_geometries(window, wrapper):
     """Both wrappers' argument check takes make_config's geometries at -w
-    1500 and -w 2000 (max_len 2304 and 3072: the wide build) and refuses
-    max_len + 1 > 4096 with a message that names the limit."""
+    1500 and -w 2000 (max_len 2304 and 3072: the wide build) and any
+    max_len beyond (the global build), and refuses max_nodes above the
+    int16 node ids with a message that names the limit."""
     mod = poa_cuda if wrapper == "ls" else poa_v2_cuda
     cfg = poa_driver.make_config(poa_driver.window_class(window), 8, 5, -4,
                                  -8)
     assert cfg.max_len + 1 > 2048
     t = poa.batch_to_tensors(batches.poa_batch(cfg, 2, 44, 60), "cpu")
     assert mod.check_inputs(cfg, t, torch.device("cpu")) == 2
-    wide = cfg._replace(max_len=4096)
+    wide = cfg._replace(max_len=16384)
     t = poa.batch_to_tensors(batches.poa_batch(wide, 1, 44, 60), "cpu")
-    with pytest.raises(ValueError, match="max_len \\+ 1 <= 4096"):
-        mod.check_inputs(wide, t, torch.device("cpu"))
+    assert mod.check_inputs(wide, t, torch.device("cpu")) == 1
+    big = cfg._replace(max_nodes=32768)
+    t = poa.batch_to_tensors(batches.poa_batch(big, 1, 44, 60), "cpu")
+    with pytest.raises(ValueError, match="max_nodes <= 32767"):
+        mod.check_inputs(big, t, torch.device("cpu"))
 
 
-def test_consensus_phase_checks_every_geometry_before_any_window(
-        monkeypatch):
-    """On the card, run_consensus_phase plans every bucket's geometry
-    before it exports a window, and where one does not fit raises one
-    ValueError that names the largest -w the kernel takes (here a card
-    whose shared memory holds backbone classes up to 1024)."""
-    calls = []
-
-    def plan(cfg, band=False):
-        calls.append((cfg.max_backbone, band))
-        if cfg.max_backbone > 1024:
-            raise ValueError("does not fit")
-        return {}
+def test_consensus_phase_checks_every_geometry_before_any_window():
+    """On the card, run_consensus_phase checks every bucket's geometry
+    before it exports a window, and where one is beyond the int16 node
+    ids (a window of 11,000 bases: class 11,008, max_nodes 33,024) raises
+    one ValueError that names the limit and the largest -w the kernels
+    take; the classes below it, up to 10,880, pass."""
 
     class Windows:
         exported = 0
@@ -552,16 +549,14 @@ def test_consensus_phase_checks_every_geometry_before_any_window(
             return 3
 
         def window_info(self, i):
-            return (9, (400, 900, 1500)[i], 0, True, 0, 0)
+            return (9, (400, 10880, 11000)[i], 0, True, 0, 0)
 
         def export_window(self, i):
             Windows.exported += 1
             raise AssertionError("a window ran before the geometry check")
 
-    monkeypatch.setattr(poa_cuda, "plan", plan)
-    with pytest.raises(ValueError, match="-w 1024$"):
+    with pytest.raises(ValueError, match="int16 node-id limit.*-w 10880$"):
         poa_driver.run_consensus_phase(Windows(), match=5, mismatch=-4,
                                        gap=-8, trim=True, device="cuda",
                                        band=True)
     assert Windows.exported == 0
-    assert (1536, True) in calls and (512, True) in calls
