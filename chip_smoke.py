@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the native host library and the CUDA kernels from this checkout,
-then, each phase printing one JSON line:
+then, each phase printing one JSON line (with t_s, the seconds since the
+smoke started):
 
 * main: polishes a simulated 1.0 Mbp genome (30x ONT-like reads, PAF
   overlaps, -w 500 -m 5 -x -4 -g -8) on the card with the default POA
@@ -66,7 +67,9 @@ then, each phase printing one JSON line:
   to the same bytes; parity_band and parity_ls_band: the same set on the
   banded path (slack 8) with each POA kernel, on the card and on the CPU,
   the same bytes and ladder counts (the three CPU polishes run in worker
-  processes while the phases above run);
+  processes from the start; the parity and host lines come after
+  wide_11008's, since the banded CPU polishes are the smoke's longest
+  path);
 * wide: a small set at -w 1500 (window class 1536, max_len 2304: both POA
   kernels' wide builds, 16 columns a thread) polished on the card with
   each POA kernel, recorded as the main run is (device ms and bound from
@@ -85,6 +88,26 @@ then, each phase printing one JSON line:
   largest launch (kernel_check lines, the banded ones as the other banded
   builds are), and an occupancy line for each global build at classes
   3072, 4096 and 10,880;
+* wide_11008: a set of one window at -w 11008 (window class 11,008:
+  max_nodes 33,024, above the int16 node ids, so both POA kernels run
+  their global build with int32 node ids) polished the same way, flat and
+  banded, on the card, and flat on the CPU: the same bytes; each int32
+  build then held against the plain version (on the host) on its
+  smallest launch, batches.wide_id_batch (two windows of class 11,008,
+  one whose graph passes node id 32,767), flat and banded, and an
+  occupancy line at classes 11,008 and 22,016;
+* host: the host backend (create_polisher(backend="host"), the native
+  pipeline alone) on the parity set: its wall and its edit distance to
+  the truth (below the draft's); whether its bytes equal the card's is
+  printed, not required;
+* chunked: the main cell's scale and reads in four contigs
+  (simulate.generate(contigs=4)), polished on the card sequentially, with
+  pipelined phases, and pipelined and streamed under a memory budget that
+  does not bind: the same FASTA; a line a mode with the wall by phase,
+  the consensus feeder's pack and kernel wall, the seconds in which
+  alignment (and the whole of a chunk's parse, alignment and windows)
+  overlapped consensus, the process's peak RSS and the chunk count
+  (three: handoff_depth 1 + 2);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -92,12 +115,14 @@ then, each phase printing one JSON line:
 
 Each path (main, main_<other kernel>, main_band, main_ls_band, lowerr,
 lowerr_band, wide_ls, wide_v2, wide_3000_<kernel>, wide_3000_<kernel>_band,
-probe) runs with the launch counts set to 0 just before it and read just
-after; every kernel of the path must have launched (the banded paths:
-their POA kernel's banded build and the K = 128 edge build, and on
-lowerr_band the K = 128 base case; on main_band and main_ls_band the flat
-aligner builds as the ladder's floor; on the -w 3000 paths the kernel's
-global build), and no other POA kernel's build.
+wide_11008_<kernel>, wide_11008_<kernel>_band, chunked_<mode>, probe) runs
+with the launch counts set to 0 just before it and read just after; every
+kernel of the path must have launched (the banded paths: their POA
+kernel's banded build and the K = 128 edge build, and on lowerr_band the
+K = 128 base case; on main_band and main_ls_band the flat aligner builds
+as the ladder's floor; on the -w 3000 paths the kernel's global build, on
+the -w 11008 paths its int32 global build), and no other POA kernel's
+build.
 
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
@@ -131,7 +156,8 @@ BASE_OPS_PER_CELL = 7   # the edge cell, a compare for each move bit, their pack
 MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
 # The parity set: small, because its CPU polish runs the plain versions,
 # one window and one DP row at a time in Python (its two banded polishes,
-# ≈12 minutes at 0.02 Mbp, were the smoke's longest path).
+# ≈12 minutes at 0.02 Mbp and 9.5–11 at 0.015, are the smoke's longest
+# path).
 PARITY_MBP = 0.015
 PARITY_SLACK = 8          # the banded parity run's slack
 # The wide set: windows of 1,500 bases (the POA kernels' wide builds); its
@@ -142,12 +168,38 @@ WIDE_WINDOW = 1500
 # builds) and the draft's last bases; its CPU polish runs beside the rest.
 WIDE3_MBP = 0.006
 WIDE3_WINDOW = 3000
+# The -w 11008 set: one window of class 11,008 (max_nodes 33,024, above the
+# int16 node ids: both POA kernels' global builds with int32 ids); its CPU
+# polish runs beside the rest.
+WIDE11_MBP = 0.011
+WIDE11_WINDOW = 11008
+WIDE11_COVERAGE = 10
+CHUNK_PHASES = ("parse", "align", "windows", "consensus", "stitch")
+# The chunked cell: the main cell's scale, reads and width in four contigs,
+# polished on the card sequentially and by two chunked modes. The
+# streamed-only mode runs in the CPU tests and
+# tests/test_torch_cuda_chunked.py, not here: the smoke's time.
+CHUNKED = dict(mbp=1.0, coverage=30, seed=11, contigs=4)
+NO_BINDING_BUDGET_MB = 1 << 20   # 1 TiB: arms streaming, never binds
+CHUNKED_MODES = {
+    "sequential": {},
+    "pipelined": dict(pipeline_phases=True),
+    "pipelined_streamed_budget": dict(
+        pipeline_phases=True, stream_input=True,
+        memory_budget_mb=NO_BINDING_BUDGET_MB)}
 # The low-error cell: PacBio-HiFi-like reads, about 1% error.
 LOWERR = dict(mbp=0.5, coverage=30, mean_read=8000, sub=0.005, ins=0.0025,
               dele=0.0025, seed=11)
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also gets the seconds since the smoke
+    started (t_s)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -214,6 +266,22 @@ def max_abs_err(want, got) -> int:
 
 def nbytes(ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
+
+
+def poa_bytes(dev_in, outs, wband=None) -> int:
+    """Bytes a POA launch must move, whatever its padding: each window's
+    backbone (a code and an int32 weight a base), its kept layers' bases
+    and weights, their lengths, begins and ends, and the window's
+    scalars; the consensus it writes (base and coverage, int32, up to its
+    length) and the per-window outputs; the half bands."""
+    bb_len, n_layers, lens = dev_in[2], dev_in[3], dev_in[6]
+    kept = (lens.new_tensor(list(range(lens.shape[1])))[None, :]
+            < n_layers[:, None])
+    n_in = (5 * int(bb_len.sum()) + 5 * int(lens[kept].sum())
+            + 12 * int(kept.sum()) + 8 * bb_len.numel())
+    cons_len = outs[2]
+    n_out = 8 * int(cons_len.sum()) + nbytes(outs[2:])
+    return n_in + n_out + (0 if wband is None else nbytes((wband,)))
 
 
 def band_cells(scal, K: int, backward: bool = False) -> int:
@@ -307,7 +375,8 @@ class MainPathRecorder:
             wband = kw.get("wband")
             # the build the wrapper launches, as its plan picks it
             mod = poa_cuda if name == "poa_consensus" else poa_v2_cuda
-            glob = mod.plan(cfg, wband is not None)["global_build"]
+            build = poa_cuda.build_name(mod.plan, name, cfg,
+                                        wband is not None)[1]
 
             def cells_of(out):
                 self.steps += st.get("steps", 0)
@@ -316,8 +385,7 @@ class MainPathRecorder:
             # a banded build: the largest launch of each depth bucket with
             # band hits, and the largest without
             return self._call(
-                poa_cuda.launch_name(name, wband is not None, glob),
-                (cfg.depth,) if wband is None else
+                build, (cfg.depth,) if wband is None else
                 (lambda out: (cfg.depth, bool(out[5].any()))),
                 POA_OPS_PER_CELL,
                 lambda: fn(cfg, *args, stats=st, **kw), cells_of,
@@ -463,7 +531,7 @@ def check_poa(torch, poa_cuda, rec):
         phases = phase_ms(poa_cuda.PHASES, kst, dev_in[0].shape[0], mhz)
         print_phases(f"ls POA phases, depth {cfg.depth}, "
                      f"{dev_in[0].shape[0]} windows, flat", phases, ms)
-        n_bytes = nbytes(dev_in) + nbytes(got)
+        n_bytes = poa_bytes(dev_in, got)
         n_ops = POA_OPS_PER_CELL * cells
         b_ms, b_by = bound(n_bytes, n_ops)
         line = {"phase": "kernel_check", "kernel": "poa_consensus",
@@ -523,7 +591,7 @@ def check_poa_v2(torch, poa_v2_cuda, checked):
             print_phases(f"v2 POA phases, depth {cfg.depth}, "
                          f"{dev_in[0].shape[0]} windows, {key}", phases, ms)
         line["step_ratio"] = line["steps_flat"] / line["steps_colstep"]
-        n_bytes = nbytes(dev_in) + nbytes(want)
+        n_bytes = poa_bytes(dev_in, want)
         n_ops = POA_OPS_PER_CELL * pst["cells"]
         b_ms, b_by = bound(n_bytes, n_ops)
         line.update({"max_abs_err": max(line["max_abs_err_colstep"],
@@ -621,7 +689,7 @@ def check_poa_band(torch, fn, kernel, rec, procs, run, name=None):
         print_phases(f"{kernel} POA phases, depth {cfg.depth}, "
                      f"{dev_in[0].shape[0]} windows, banded, "
                      f"{int(got[5].sum())} band hits", phases, ms)
-        n_bytes = nbytes(dev_in) + nbytes((wband,)) + nbytes(got)
+        n_bytes = poa_bytes(dev_in, got, wband)
         n_ops = POA_OPS_PER_CELL * kst["cells"]
         b_ms, b_by = bound(n_bytes, n_ops)
         line = {"phase": "kernel_check", "kernel": name,
@@ -773,11 +841,15 @@ def polish(racon_tpu_torch, d, device, poa_kernel="ls", band=None,
     """One polish of data set `d`; `band`, when given, is the banded
     path's slack (band=True)."""
     kw = {} if band is None else dict(band=True, band_slack=band)
+    return polish_with(racon_tpu_torch, d, device, poa_kernel=poa_kernel,
+                       **{**MAIN, "window_length": window_length}, **kw)
+
+
+def polish_with(racon_tpu_torch, d, device, **kw):
+    """One polish of data set `d` with TorchPolisher's keyword arguments
+    `kw` (MAIN's by default): (FASTA records, stats, seconds)."""
     p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
-                                      device=device, poa_kernel=poa_kernel,
-                                      **{**MAIN,
-                                         "window_length": window_length},
-                                      **kw)
+                                      device=device, **{**MAIN, **kw})
     t0 = time.perf_counter()
     p.initialize()
     out = p.polish(True)
@@ -981,30 +1053,34 @@ GLOBAL_NAME = {k: v + "_global" for k, v in POA_NAME.items()}
 GLOBAL_BAND_NAME = {k: v + "_global" for k, v in BAND_NAME.items()}
 
 
-def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
-                cpu_run, procs):
-    """The -w 3000 set (window class 3072: both POA kernels' global
-    builds) on the card with each POA kernel, flat and banded (slack
+# ... and of their global builds with int32 node ids (classes above 10,880).
+GLOBAL32_NAME = {k: v + "32" for k, v in GLOBAL_NAME.items()}
+GLOBAL32_BAND_NAME = {k: v + "32" for k, v in GLOBAL_BAND_NAME.items()}
+
+
+def global_runs(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+                cpu_run, phase, window, mbp, flat_names, band_names,
+                lower_ed=True):
+    """A set at a window of `window` bases through both POA kernels'
+    global builds (`flat_names`, `band_names`: the launch names of each
+    kernel's flat and banded one) on the card, flat and banded (slack
     PARITY_SLACK), each polish recorded with the launch counts set to 0
     just before it and read just after: each path launched its kernel's
     global build (banded on the banded paths), no other kernel's POA
     build, and sent no window to the host; the flat FASTAs equal the CPU
-    polish's (`cpu_run`, plain versions); whether each banded FASTA equals
-    the flat one is printed. Then each global build on its path's largest
-    launch against the plain version (check_global, check_poa_band), and
-    an occupancy line per global geometry. Returns (kernel-check rows,
-    path of each global build: (launches, summary))."""
-    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
-
+    polish's (`cpu_run`, plain versions), and (`lower_ed`) the polish
+    lowers the edit distance to the truth; whether each banded FASTA
+    equals the flat one is printed (the `phase` line). Returns the runs by
+    path."""
     runs = {}
     for kernel in ("ls", "v2"):
         for band in (None, PARITY_SLACK):
-            path = f"wide_3000_{kernel}" + ("_band" if band else "")
+            path = f"{phase}_{kernel}" + ("_band" if band else "")
             r = recorded_polish(torch, racon_tpu_torch, ac, poa_driver,
-                                cuda_lib, d, kernel, WIDE3_WINDOW, band)
+                                cuda_lib, d, kernel, window, band)
             runs[path] = r
             launches = r[3]
-            own = (GLOBAL_BAND_NAME if band else GLOBAL_NAME)[kernel]
+            own = (band_names if band else flat_names)[kernel]
             need = (own, "hirschberg_edge") if band else (
                 own, "hirschberg_edge", "hirschberg_base")
             for name in need:   # a banded job's edge rows at K = 128 count
@@ -1015,7 +1091,8 @@ def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
             for other in ("ls", "v2"):
                 if other != kernel:
                     for n in (POA_NAME, BAND_NAME, GLOBAL_NAME,
-                              GLOBAL_BAND_NAME):
+                              GLOBAL_BAND_NAME, GLOBAL32_NAME,
+                              GLOBAL32_BAND_NAME):
                         require(launches[n[other]] == 0,
                                 f"{path} launched {n[other]}")
             co = r[1]["consensus"]
@@ -1023,19 +1100,20 @@ def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
                     co["failed"] == 0, f"{path}: windows went to the host "
                     f"({co})")
     cpu, cst, cpu_s = cpu_run.result()
-    flat = runs["wide_3000_ls"][0]
-    require(flat == runs["wide_3000_v2"][0] == cpu, "the -w 3000 set's "
+    flat = runs[f"{phase}_ls"][0]
+    require(flat == runs[f"{phase}_v2"][0] == cpu, f"the {phase} set's "
             "FASTAs differ between the POA kernels or between card and CPU")
     genome, draft = read_fasta(d["genome"]), read_fasta(d["draft"])
     polished = "".join(s for _, s in cpu).encode()
     ed = (native.edit_distance(draft, genome),
           native.edit_distance(polished, genome))
-    require(ed[1] < ed[0], "the -w 3000 polish did not lower the edit "
-            f"distance ({ed[0]} -> {ed[1]})")
+    require(ed[1] < ed[0] or not lower_ed, f"the {phase} polish did not "
+            f"lower the edit distance ({ed[0]} -> {ed[1]})")
     names = (*POA_NAME.values(), *BAND_NAME.values(),
-             *GLOBAL_NAME.values(), *GLOBAL_BAND_NAME.values())
-    emit({"phase": "wide_3000", "mbp": WIDE3_MBP,
-          "window_length": WIDE3_WINDOW, "identical": True,
+             *GLOBAL_NAME.values(), *GLOBAL_BAND_NAME.values(),
+             *GLOBAL32_NAME.values(), *GLOBAL32_BAND_NAME.values())
+    emit({"phase": phase, "mbp": mbp, "window_length": window,
+          "identical": True,
           "banded_equals_flat": {p: r[0] == flat for p, r in runs.items()
                                  if p.endswith("_band")},
           "cuda_s": {p: r[2] for p, r in runs.items()}, "cpu_s": cpu_s,
@@ -1046,7 +1124,32 @@ def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
               "device", "host_fallback", "backbone", "failed")}
               for p, r in runs.items()},
           "cpu_windows_device": cst["consensus"]["device"],
-          "edit_distance": {"draft": ed[0], "polished": ed[1]}})
+          "edit_distance": {"draft": ed[0], "polished": ed[1]},
+          "lengths": {"genome": len(genome), "polished": len(polished)}})
+    return runs
+
+
+def path_counts(runs, phase, flat_names, band_names):
+    """Each global build's path (launches, summary) from global_runs."""
+    path_of = {flat_names[k]: runs[f"{phase}_{k}"][3:5] for k in ("ls", "v2")}
+    path_of.update({band_names[k]: runs[f"{phase}_{k}_band"][3:5]
+                    for k in ("ls", "v2")})
+    return path_of
+
+
+def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+                cpu_run, procs):
+    """The -w 3000 set (window class 3072: both POA kernels' global
+    builds, int16 node ids) through global_runs; then each global build on
+    its path's largest launch against the plain version (check_global,
+    check_poa_band), and an occupancy line per global geometry. Returns
+    (kernel-check rows, path of each global build: (launches,
+    summary))."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+
+    runs = global_runs(torch, racon_tpu_torch, native, ac, poa_driver,
+                       cuda_lib, d, cpu_run, "wide_3000", WIDE3_WINDOW,
+                       WIDE3_MBP, GLOBAL_NAME, GLOBAL_BAND_NAME)
     rows = check_global(torch, runs["wide_3000_ls"][5], procs)
     for kernel in ("ls", "v2"):
         fn = (poa_cuda.poa_consensus if kernel == "ls"
@@ -1056,11 +1159,211 @@ def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
             f"wide_3000_{kernel}_band", GLOBAL_BAND_NAME[kernel])
     for wl in (3072, 4096, 10880):
         emit(occupancy_line(poa_driver, poa_cuda, poa_v2_cuda, wl, "global"))
-    path_of = {GLOBAL_NAME[k]: runs[f"wide_3000_{k}"][3:5]
-               for k in ("ls", "v2")}
-    path_of.update({GLOBAL_BAND_NAME[k]: runs[f"wide_3000_{k}_band"][3:5]
-                    for k in ("ls", "v2")})
-    return rows, path_of
+    return rows, path_counts(runs, "wide_3000", GLOBAL_NAME,
+                             GLOBAL_BAND_NAME)
+
+
+def wide11_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
+                 cpu_run, plain):
+    """The -w 11008 set (window class 11,008, above the int16 node ids:
+    both POA kernels' global builds with int32 ids) through global_runs;
+    then each int32 build on its smallest launch against the plain
+    version (check_global32, with `plain`), and an occupancy line at
+    classes 11,008 and 22,016. The set's one window spans its contig, so
+    racon's trim of the low-coverage ends (reads of ≈8 kb cover a
+    contig's first and last kilobases thinly) cuts ≈1.5 kb, and the
+    polish does not lower the edit distance to the truth: printed, not
+    required; the bytes must be the CPU's. Returns (kernel-check rows,
+    path of each int32 build)."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+
+    runs = global_runs(torch, racon_tpu_torch, native, ac, poa_driver,
+                       cuda_lib, d, cpu_run, "wide_11008", WIDE11_WINDOW,
+                       WIDE11_MBP, GLOBAL32_NAME, GLOBAL32_BAND_NAME,
+                       lower_ed=False)
+    rows = check_global32(torch, plain)
+    for wl in (11008, 22016):
+        emit(occupancy_line(poa_driver, poa_cuda, poa_v2_cuda, wl,
+                            "global32"))
+    return rows, path_counts(runs, "wide_11008", GLOBAL32_NAME,
+                             GLOBAL32_BAND_NAME)
+
+
+#: The int32 builds' check batch: batches.wide_id_batch at class 11,008,
+#: depth 200, and the banded builds' half bands.
+WIDE_ID_WBAND = (24, 0)
+
+
+def wide_id_config():
+    from racon_tpu_torch.ops import poa_driver
+
+    return poa_driver.make_config(WIDE11_WINDOW, 200, MAIN["match"],
+                                  MAIN["mismatch"], MAIN["gap"])
+
+
+def plain_wide_id(band_kernel=None):
+    """The plain version on the int32 builds' check batch, in a worker
+    process: flat, or under WIDE_ID_WBAND with `band_kernel`'s banded
+    semantics; (numpy outputs, stats, ms)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from racon_tpu_torch.ops import poa
+    from racon_tpu_torch.tools import batches
+
+    torch.set_num_threads(1)
+    cfg = wide_id_config()
+    wb = None if band_kernel is None else torch.tensor(WIDE_ID_WBAND,
+                                                       dtype=torch.int32)
+    st = {}
+    t0 = time.perf_counter()
+    outs = poa.poa_batch_plain(
+        cfg, *poa.batch_to_tensors(batches.wide_id_batch(cfg), "cpu"),
+        stats=st, wband=wb, kernel=band_kernel or "v2")
+    return [o.numpy() for o in outs], st, (time.perf_counter() - t0) * 1e3
+
+
+def check_global32(torch, plain):
+    """Each POA kernel's int32 global build, flat and banded
+    (WIDE_ID_WBAND), on its smallest launch: batches.wide_id_batch at
+    class 11,008, depth 200, two windows, one of whose graphs passes node
+    id 32,767 (32,890 nodes), held against the plain version on the host
+    (`plain`: futures of plain_wide_id, flat and for each kernel's banded
+    semantics), the DP cells equal; each timed (three calls) beside its
+    bound, with its phases line."""
+    from racon_tpu_torch.ops import poa, poa_cuda, poa_v2_cuda
+    from racon_tpu_torch.tools import batches
+
+    mhz = sm_clock_mhz()
+    cfg = wide_id_config()
+    dev_in = poa.batch_to_tensors(batches.wide_id_batch(cfg), "cuda")
+    wband = torch.tensor(WIDE_ID_WBAND, dtype=torch.int32, device="cuda")
+    runs = {k: f.result() for k, f in plain.items()}
+    flat_plain = runs[None][:2]
+    require(int(flat_plain[0][4][1]) == 32890,
+            "the wide-id batch's graph does not pass node id 32,767")
+    rows = {}
+    for kernel, mod in (("ls", poa_cuda), ("v2", poa_v2_cuda)):
+        fn = (mod.poa_consensus if kernel == "ls" else mod.poa_consensus_v2)
+        for band, (want, pst, plain_ms) in ((False, runs[None]),
+                                            (True, runs[kernel])):
+            want = [torch.from_numpy(w) for w in want]
+            kw = {"wband": wband} if band else {}
+            name = (GLOBAL32_BAND_NAME if band else GLOBAL32_NAME)[kernel]
+            require(poa_cuda.build_name(mod.plan, POA_NAME[kernel], cfg,
+                                        band)[1] == name,
+                    f"{kernel}: class 11,008 does not take {name}")
+            kst = {}
+            got = fn(cfg, *dev_in, stats=kst, **kw)
+            torch.cuda.synchronize()
+            err = max_abs_err(want, got)
+            require(err == 0, f"{name} differs from its plain version by "
+                    f"{err}")
+            require(kst["cells"] == pst["cells"], f"{name} cells: kernel "
+                    f"{kst['cells']}, plain {pst['cells']}")
+            ms = cuda_ms(torch, lambda: fn(cfg, *dev_in, **kw), 3)
+            phases = phase_ms(mod.PHASES, kst, 2, mhz)
+            print_phases(f"{kernel} POA phases, depth 200, 2 windows, int32 "
+                         "global build" + (", banded" if band else ""),
+                         phases, ms)
+            n_bytes = poa_bytes(dev_in, got, wband if band else None)
+            n_ops = POA_OPS_PER_CELL * pst["cells"]
+            b_ms, b_by = bound(n_bytes, n_ops)
+            line = {"phase": "kernel_check", "kernel": name,
+                    "input": "batches.wide_id_batch: 2 windows of class "
+                    "11,008, one with 32,890 nodes", "windows": 2,
+                    "depth": 200, "max_nodes": cfg.max_nodes,
+                    "max_len": cfg.max_len, "n_nodes": got[4].tolist(),
+                    "wband": wband.tolist() if band else None,
+                    "dp_cells": pst["cells"], "failed": int(got[3].sum()),
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "plain_on": "host, one process",
+                    "bound_ms": b_ms, "bound_by": b_by, "phases": phases,
+                    "sm_clock_mhz": mhz}
+            emit(line)
+            tot = Totals()
+            tot.add(line, n_bytes, n_ops)
+            rows[name] = tot.row()
+    return rows
+
+
+def chunked_phase(racon_tpu_torch, native, cuda_lib, d, gen_s):
+    """The chunked cell polished on the card in each CHUNKED_MODES mode,
+    each with the launch counts set to 0 just before it and read just
+    after: every mode's FASTA equal to the sequential one's, the edit
+    distance to the truth lowered, the ls kernel and both aligner kernels
+    launched in each; one line a mode with the wall by phase, the
+    consensus feeder's pack and kernel wall, the seconds in which
+    alignment (and the whole of a chunk's parse, alignment and windows)
+    overlapped consensus, the process's peak RSS (this smoke's, not the
+    polish's alone: the phases before it ran in this process) and the
+    chunk count."""
+    from racon_tpu_torch.resilience.budget import peak_rss_mb
+
+    runs = {}
+    for mode in CHUNKED_MODES:
+        cuda_lib.reset_launches()
+        out, st, wall = polish_with(racon_tpu_torch, d, "cuda",
+                                    **CHUNKED_MODES[mode])
+        runs[mode] = (out, st, wall, dict(cuda_lib.LAUNCHES), peak_rss_mb())
+    seq = runs["sequential"][0]
+    genome, draft = read_fasta(d["genome"]), read_fasta(d["draft"])
+    ed = (native.edit_distance(draft, genome), native.edit_distance(
+        "".join(s for _, s in seq).encode(), genome))
+    for mode, (out, st, wall, launches, rss) in runs.items():
+        co = st["consensus"]
+        emit({"phase": "chunked", "mode": mode, **CHUNKED_MODES[mode],
+              "mbp": CHUNKED["mbp"], "contigs": CHUNKED["contigs"],
+              "generate_s": gen_s, "wall_s": wall,
+              "phase_s": {k[:-2]: v for k, v in st.items()
+                          if k[:-2] in CHUNK_PHASES},
+              "pack_wall_s": co["pack_wall_s"],
+              "kernel_wall_s": co["kernel_wall_s"],
+              "overlap_s": st.get("overlap_s", 0.0),
+              "prep_overlap_s": st.get("prep_overlap_s", 0.0),
+              "peak_rss_mb": rss, "chunks": st.get("chunks", 1),
+              "chunk_s": st.get("chunk_s"),
+              "pressure_level": st.get("pressure_level"),
+              "quarantined": st.get("quarantined"),
+              "identical": out == seq,
+              "windows": {k: co[k] for k in ("device", "host_fallback",
+                                             "backbone", "failed",
+                                             "batches")},
+              "align_jobs": {k: st["align"][k] for k in ("device",
+                                                         "host")},
+              "launches": {k: v for k, v in launches.items() if v},
+              "edit_distance": {"draft": ed[0], "polished": ed[1]}})
+        require(out == seq, f"the chunked set's {mode} FASTA differs from "
+                "the sequential one's")
+        check_launches(f"chunked_{mode}", launches, "ls")
+        require(mode == "sequential" or st.get("chunks") == 3,
+                f"the {mode} polish did not run in three chunks (the "
+                "split's hint: handoff_depth 1 + 2)")
+    require(ed[1] < ed[0], "the chunked polish did not lower the edit "
+            f"distance ({ed[0]} -> {ed[1]})")
+
+
+def host_phase(racon_tpu_torch, native, d, gpu, procs):
+    """The host backend (create_polisher(backend="host"): the native
+    pipeline alone, consensus on `procs` threads) on the parity set: its
+    wall and its edit distance to the truth, which must be below the
+    draft's; whether its FASTA equals the card's (`gpu`) is printed, not
+    required (the host aligner may take another path of equal cost)."""
+    p = racon_tpu_torch.create_polisher(
+        d["reads"], d["overlaps"], d["draft"], backend="host", **MAIN,
+        num_threads=procs)
+    t0 = time.perf_counter()
+    p.initialize()
+    out = p.polish(True)
+    wall = time.perf_counter() - t0
+    genome, draft = read_fasta(d["genome"]), read_fasta(d["draft"])
+    ed = (native.edit_distance(draft, genome), native.edit_distance(
+        "".join(s for _, s in out).encode(), genome))
+    emit({"phase": "host", "mbp": PARITY_MBP, "threads": procs,
+          "wall_s": wall, "phase_s": p.stats, "equals_card": out == gpu,
+          "edit_distance": {"draft": ed[0], "polished": ed[1]}})
+    require(ed[1] < ed[0], "the host backend did not lower the edit "
+            f"distance ({ed[0]} -> {ed[1]})")
 
 
 def check_global(torch, rec, procs):
@@ -1101,7 +1404,7 @@ def check_global(torch, rec, procs):
             print_phases(f"{kernel} POA phases, depth {cfg.depth}, "
                          f"{dev_in[0].shape[0]} windows, global build",
                          phases, ms)
-            n_bytes = nbytes(dev_in) + nbytes(got)
+            n_bytes = poa_bytes(dev_in, got)
             n_ops = POA_OPS_PER_CELL * pst["cells"]
             b_ms, b_by = bound(n_bytes, n_ops)
             line = {"phase": "kernel_check", "kernel": GLOBAL_NAME[kernel],
@@ -1216,17 +1519,20 @@ def main() -> int:
           "cuda": torch.version.cuda})
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp, \
-            ProcessPoolExecutor(5, mp_context=multiprocessing.get_context(
+            ProcessPoolExecutor(6, mp_context=multiprocessing.get_context(
                 "spawn")) as cpu_pool:
         # the parity set's three CPU polishes (plain versions: flat, and
-        # banded with each POA kernel) and the two wide sets' run in their
-        # own processes through the phases below
+        # banded with each POA kernel) and the three wide sets' run in
+        # their own processes through the phases below
         d_par = simulate.generate(os.path.join(tmp, "parity"),
                                   mbp=PARITY_MBP, seed=11)
         d_wide = simulate.generate(os.path.join(tmp, "wide"), mbp=WIDE_MBP,
                                    seed=11)
         d_wide3 = simulate.generate(os.path.join(tmp, "wide3"),
                                     mbp=WIDE3_MBP, seed=11)
+        d_wide11 = simulate.generate(os.path.join(tmp, "wide11"),
+                                     mbp=WIDE11_MBP,
+                                     coverage=WIDE11_COVERAGE, seed=11)
         cpu_runs = {"flat": cpu_pool.submit(cpu_polish, d_par),
                     "band": cpu_pool.submit(cpu_polish, d_par, PARITY_SLACK),
                     "ls_band": cpu_pool.submit(cpu_polish, d_par,
@@ -1234,7 +1540,13 @@ def main() -> int:
                     "wide": cpu_pool.submit(cpu_polish, d_wide, None, "ls",
                                             WIDE_WINDOW),
                     "wide3": cpu_pool.submit(cpu_polish, d_wide3, None, "ls",
-                                             WIDE3_WINDOW)}
+                                             WIDE3_WINDOW),
+                    "wide11": cpu_pool.submit(cpu_polish, d_wide11, None,
+                                              "ls", WIDE11_WINDOW)}
+        # the plain version on the int32 builds' check batch, queued
+        # behind those
+        wide_id_plain = {k: cpu_pool.submit(plain_wide_id, k)
+                         for k in (None, "ls", "v2")}
 
         # main: 1.0 Mbp, 30x ONT-like reads, PAF overlaps, with the
         # default POA kernel; then the same polish with the other POA
@@ -1286,6 +1598,16 @@ def main() -> int:
         line["aligner_by_band"] = {"flat": low[1].per_band(),
                                    "band": low_band[1].per_band()}
         emit(line)
+
+        # chunked: the main cell's scale in four contigs, sequential and
+        # chunked, while the CPU polishes run in their six processes (as
+        # the main cell's polishes do): the smoke's serial tail is its
+        # longest stretch of idle cores
+        t0 = time.perf_counter()
+        d_chunked = simulate.generate(os.path.join(tmp, "chunked"),
+                                      **CHUNKED)
+        chunked_phase(racon_tpu_torch, native, cuda_lib, d_chunked,
+                      time.perf_counter() - t0)
 
         # kept launches: the POA checks take the ls run's (one plain pass
         # serves both POA kernels) and the banded runs' banded launches,
@@ -1348,8 +1670,22 @@ def main() -> int:
         del poa_plain
         emit(poa_decision(first, ls_ms, v2_ms))
 
+        # wide: -w 1500 through both POA kernels' wide builds
+        wide_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib,
+                   d_wide, cpu_runs["wide"])
+        # wide_3000: -w 3000 through both POA kernels' global builds
+        global_rows, global_paths = wide3_phase(
+            torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d_wide3,
+            cpu_runs["wide3"], procs)
+        checked.update(global_rows)
+        # wide_11008: -w 11008 through both POA kernels' int32 global builds
+        global32_rows, global32_paths = wide11_phase(
+            torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib,
+            d_wide11, cpu_runs["wide11"], wide_id_plain)
+        checked.update(global32_rows)
         # parity: the card, with each POA kernel and on the banded path,
-        # and the CPU give the same bytes
+        # and the CPU give the same bytes (last in the pool: its banded
+        # CPU polishes are the smoke's longest path)
         gpu, gstats, g_s = polish(racon_tpu_torch, d_par, "cuda", first)
         gpu_2, _, g2_s = polish(racon_tpu_torch, d_par, "cuda", second)
         gpu_b, bstats, gb_s = polish(racon_tpu_torch, d_par, "cuda", "v2",
@@ -1395,15 +1731,9 @@ def main() -> int:
                        "consensus": lbstats["consensus"]["band"]},
               "align_device": lbstats["align"]["device"],
               "windows_device": lbstats["consensus"]["device"]})
+        # host: the host backend on the parity set
+        host_phase(racon_tpu_torch, native, d_par, gpu, procs)
 
-        # wide: -w 1500 through both POA kernels' wide builds
-        wide_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib,
-                   d_wide, cpu_runs["wide"])
-        # wide_3000: -w 3000 through both POA kernels' global builds
-        global_rows, global_paths = wide3_phase(
-            torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d_wide3,
-            cpu_runs["wide3"], procs)
-        checked.update(global_rows)
 
     # the DP-cost probe's path
     launches_probe, checked["dp_cost_probe"] = probe_phase(torch, probe,
@@ -1441,6 +1771,18 @@ def main() -> int:
         dict(name="poa_consensus_v2_band_global", source=src + "poa_v2.cu",
              replaces="racon_tpu/ops/poa_pallas.py:73 (band=True, window "
              "classes above 2048)"),
+        dict(name="poa_consensus_global32", source=src + "poa.cu",
+             replaces="racon_tpu/ops/poa_pallas_ls.py:64 (window classes "
+             "above 10,880: int32 node ids)"),
+        dict(name="poa_consensus_band_global32", source=src + "poa.cu",
+             replaces="racon_tpu/ops/poa_pallas_ls.py:64 (band=True, window "
+             "classes above 10,880: int32 node ids)"),
+        dict(name="poa_consensus_v2_global32", source=src + "poa_v2.cu",
+             replaces="racon_tpu/ops/poa_pallas.py:73 (window classes above "
+             "10,880: int32 node ids)"),
+        dict(name="poa_consensus_v2_band_global32", source=src + "poa_v2.cu",
+             replaces="racon_tpu/ops/poa_pallas.py:73 (band=True, window "
+             "classes above 10,880: int32 node ids)"),
     ]
     # launches and path sums: each POA kernel from its own polish, the
     # banded POA builds from main_band and main_ls_band, the K = 128
@@ -1453,6 +1795,7 @@ def main() -> int:
         path_of[name] = (low_band[2], low_band[3])
     path_of["dp_cost_probe"] = (launches_probe, None)
     path_of.update(global_paths)
+    path_of.update(global32_paths)
     for k in kernels:
         k.update(checked[k["name"]])
         counts, summary = path_of.get(k["name"],

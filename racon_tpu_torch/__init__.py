@@ -9,9 +9,13 @@ and the POA consensus as CUDA kernels written for Hopper (``csrc/``).
     p = create_polisher("reads.fastq", "overlaps.paf", "draft.fasta")
     p.initialize()
     contigs = p.polish()
+
+``create_polisher(..., backend="host")`` runs the native host pipeline
+alone (``CpuPolisher``).
 """
 
 from . import native  # noqa: F401
-from .polisher import TorchPolisher, create_polisher  # noqa: F401
+from .polisher import (CpuPolisher, TorchPolisher,  # noqa: F401
+                       create_polisher)
 
-__all__ = ["TorchPolisher", "create_polisher", "native"]
+__all__ = ["CpuPolisher", "TorchPolisher", "create_polisher", "native"]

@@ -11,6 +11,7 @@ import sys
 
 from .native import NativeError
 from .ops import band as _band
+from .ops.batch_exec import DEFAULT_DEPTH
 from .ops.poa_driver import DEFAULT_POA_KERNEL, POA_KERNELS
 from .polisher import create_polisher
 
@@ -51,7 +52,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("-g", "--gap", type=int, default=-4,
                    help="gap penalty, must be negative (default -4)")
     p.add_argument("-t", "--threads", type=int, default=1,
-                   help="number of host threads (default 1)")
+                   help="number of host threads (default 1; the host "
+                   "backend's consensus threads)")
+    p.add_argument("--host", action="store_true",
+                   help="polish on the host alone (the native pipeline, "
+                   "the JAX package's default backend); without it the "
+                   "kernels run on the card")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the kernels run (default cuda; cpu runs "
                    "their plain PyTorch versions)")
@@ -71,24 +77,51 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    default=_band.DEFAULT_MAX_WIDENINGS,
                    help="band doublings before a job runs flat (default "
                    f"{_band.DEFAULT_MAX_WIDENINGS})")
+    p.add_argument("--pipeline-phases", action="store_true",
+                   help="split a multi-contig FASTA target into chunks and "
+                   "align chunk N+1 while chunk N runs consensus (same "
+                   "output)")
+    p.add_argument("--handoff-depth", type=int, default=1,
+                   help="aligned chunks queued for consensus (default 1; "
+                   "the target is split into this plus 2 chunks)")
+    p.add_argument("--stream-input", action="store_true",
+                   help="each chunk parses only its own byte ranges of "
+                   "the reads and overlaps (PAF, SAM), so memory grows "
+                   "with the chunk, not the genome (same output)")
+    p.add_argument("--memory-budget-mb", type=int, default=0,
+                   help="RSS budget in MiB (default 0: none); above 0 it "
+                   "arms --stream-input, parks working sets on disk at "
+                   "80%% of it and collapses the pipelines at 95%%")
+    p.add_argument("--pipeline-depth", type=int, default=DEFAULT_DEPTH,
+                   help="consensus batches in flight on the card (default "
+                   f"{DEFAULT_DEPTH})")
     return p
 
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
+    racon = dict(fragment_correction=args.fragment_correction,
+                 window_length=args.window_length,
+                 quality_threshold=args.quality_threshold,
+                 error_threshold=args.error_threshold,
+                 trim=not args.no_trimming, match=args.match,
+                 mismatch=args.mismatch, gap=args.gap,
+                 num_threads=args.threads)
+    card = dict(device=args.device, poa_kernel=args.poa_kernel,
+                band=args.band, band_slack=args.band_slack,
+                band_max_widenings=args.band_max_widenings,
+                pipeline_phases=args.pipeline_phases,
+                handoff_depth=args.handoff_depth,
+                stream_input=args.stream_input,
+                memory_budget_mb=args.memory_budget_mb,
+                pipeline_depth=args.pipeline_depth)
     try:
-        polisher = create_polisher(
-            args.sequences, args.overlaps, args.targets, device=args.device,
-            poa_kernel=args.poa_kernel, band=args.band,
-            band_slack=args.band_slack,
-            band_max_widenings=args.band_max_widenings,
-            fragment_correction=args.fragment_correction,
-            window_length=args.window_length,
-            quality_threshold=args.quality_threshold,
-            error_threshold=args.error_threshold,
-            trim=not args.no_trimming,
-            match=args.match, mismatch=args.mismatch, gap=args.gap,
-            num_threads=args.threads)
+        if args.host:
+            polisher = create_polisher(args.sequences, args.overlaps,
+                                       args.targets, backend="host", **racon)
+        else:
+            polisher = create_polisher(args.sequences, args.overlaps,
+                                       args.targets, **card, **racon)
         polisher.initialize()
         for name, data in polisher.polish(not args.include_unpolished):
             sys.stdout.write(f">{name}\n{data}\n")

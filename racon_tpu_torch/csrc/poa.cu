@@ -99,7 +99,11 @@
 // global H and every predecessor row is read from there (L1 and L2 hold the
 // recent ones), since a row of 16,384 columns does not fit the registers.
 // The cells, records, walk, update and consensus are the other builds',
-// bit for bit. Node ids stay int16: N <= 32767, backbone class 10,880.
+// bit for bit. Node ids stay int16 up to N = 32,767 (backbone class
+// 10,880); above it the global build takes int32 ids (IdT), the one
+// build whose graph lives in global memory, so the wider arrays cost
+// scratch bytes and leave every other build's registers and shared bytes
+// as they are.
 //
 // The banded build (template BAND; the wrapper's wband argument) replaces
 // the Pallas kernel's band=True build: a per-window half band wband in, a
@@ -165,13 +169,18 @@ using poa_common::find_old;
 using poa_common::merge_new;
 using poa_common::scratch_layout;
 using poa_common::wide_build;
+using poa_common::wide_ids;
 
 struct Cfg {
   int N, ML, MB, E, ES, D, ma, mm, gp;
   int ring;  // DP rows in the shared ring: 8, 4 or 2
 };
 
-struct Shared {
+// Node ids (src, order, rank_of, path, found) are IdT: int16 in every
+// build but the global build above INT16_NODES node slots (int32).
+template <typename IdT>
+struct ShT {
+  using Id = IdT;
   long long* ph;     // [NPHASE] thread 0's cycles per phase
   unsigned long long* desc;  // [N] by rank: the DP row's descriptor (D_*)
   int* ring;         // [ring][ML + 1] the last DP rows, slot rank % ring
@@ -192,12 +201,12 @@ struct Shared {
   int* left;         // [n_tiles][NT] (global build): the row just
                      // finished at the cell left of each thread's first
                      // column of each tile
-  int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
+  IdT* src;          // [N][ES] in-edge sources by slot, -1 empty (shared
                      // memory, or the global scratch with GSRC)
-  int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
-  int16_t* rank_of;  // [N] rank by node id (layers); pred (consensus)
-  int16_t* path;     // [N] consensus path; the merged order (update)
-  int16_t* found;    // [ML] each position's matched old node, or -1
+  IdT* order;        // [N] node id by rank; [0, n) sorted by (key, id)
+  IdT* rank_of;      // [N] rank by node id (layers); pred (consensus)
+  IdT* path;         // [N] consensus path; the merged order (update)
+  IdT* found;        // [ML] each position's matched old node, or -1
                      // (in the ring's bytes)
   uint8_t* base;     // [N]
   uint8_t* seq;      // [ML]
@@ -205,6 +214,7 @@ struct Shared {
   uint8_t* far;      // [N] by rank: a later row reads this row of H from
                      // the global scratch (not from the ring)
 };
+using Shared = ShT<int16_t>;  // the shared-memory builds'
 
 // The carve below, as byte offsets, for a ring of `ring` rows and the
 // in-edge sources in shared memory unless gsrc; returns the total.
@@ -271,9 +281,10 @@ __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
 // The global build's carve: the phase cycles, reductions, scan buffers and
 // misc in shared memory (GLOBAL_SHARED bytes), everything else in the
 // window's global scratch (poa_common::carve_graph).
-__device__ inline Shared carve_global(char* base, char* g, int N, int ML,
-                                      int16_t* gsrc) {
-  Shared s;
+template <typename IdT>
+__device__ inline ShT<IdT> carve_global(char* base, char* g, int N, int ML,
+                                        IdT* gsrc) {
+  ShT<IdT> s;
   char* p = base;
   s.ph = (long long*)p; p += NPHASE * 8;
   s.red_v = (int*)p; p += NWARP * 4;
@@ -540,8 +551,8 @@ __device__ __forceinline__ void dp_layer_ch(const Shared& s, const Cfg& c,
 // cells it wrote itself, and the cell left of its first column is that
 // row's running max there, which it kept in left[t][tid] (masked as the
 // row was).
-template <bool BAND>
-__device__ void dp_layer_tiled(const Shared& s, const Cfg& c, const Win& w,
+template <bool BAND, class Sh>
+__device__ void dp_layer_tiled(const Sh& s, const Cfg& c, const Win& w,
                                int r_lo, int r_hi, int L, int hw,
                                int begin) {
   constexpr int CHM = CHMAX;
@@ -736,7 +747,8 @@ __device__ void dp_layer_tiled(const Shared& s, const Cfg& c, const Win& w,
 // cell, else left; col0 (the banded walk): column 0 has a diagonal where
 // the cell is NEG + mismatch. *next gets the predecessor, -1 for the
 // virtual row.
-__device__ int rederive(const Shared& s, const Cfg& c, const Win& w, int u,
+template <class Sh>
+__device__ int rederive(const Sh& s, const Cfg& c, const Win& w, int u,
                         int j, int r_lo, int r_hi, bool col0, int* next) {
   const int HS = c.ML + 1;
   const int cur = w.H[(size_t)(u + 1) * HS + j];
@@ -779,7 +791,8 @@ struct Walk {
 // byte a lane: lane e the diagonal through slot e, lane 15 + e up through
 // slot e, lane 30 left; with more slots lane e holds slot e's diagonal
 // and up records (bytes 0 and 1) and every lane the left one (byte 2).
-__device__ __forceinline__ int fetch(const Shared& s, const Cfg& c,
+template <class Sh>
+__device__ __forceinline__ int fetch(const Sh& s, const Cfg& c,
                                      const Win& w, const Walk& k, int lane,
                                      int* got) {
   const int HS = c.ML + 1;
@@ -821,7 +834,8 @@ __device__ __forceinline__ int pick(const Cfg& c, int got, int at) {
 // up move the predecessor in *prd (-1: the virtual row); in *at the walk
 // code of the cell the move leads to, or -1 where no fetch holds it (a
 // re-derived move, the virtual row).
-__device__ __forceinline__ int decide(const Shared& s, const Cfg& c,
+template <class Sh>
+__device__ __forceinline__ int decide(const Sh& s, const Cfg& c,
                                       const Win& w, const Walk& k, int rec,
                                       int r_lo, int r_hi, bool col0,
                                       int* prd, int* at) {
@@ -842,7 +856,8 @@ __device__ __forceinline__ int decide(const Shared& s, const Cfg& c,
 }
 
 // Lane 0 writes position j's next matched key and remaining run.
-__device__ __forceinline__ void mark(const Shared& s, const Walk& k,
+template <class Sh>
+__device__ __forceinline__ void mark(const Sh& s, const Walk& k,
                                      int lane) {
   if (lane == 0) { s.nkey[k.j] = k.nk; s.runrem[k.j] = k.run; }
 }
@@ -852,7 +867,8 @@ __device__ __forceinline__ void mark(const Shared& s, const Walk& k,
 // column 0; the walk fails where it runs off column 0 or out of steps, or
 // where the subgraph is empty. Writes each position's next matched key and
 // remaining run. Two steps a trip to memory.
-__device__ void walk_flat(const Shared& s, const Cfg& c, const Win& w,
+template <class Sh>
+__device__ void walk_flat(const Sh& s, const Cfg& c, const Win& w,
                           int start_u, int L, int n_sub, int r_lo,
                           int r_hi) {
   const int lane = threadIdx.x & 31;
@@ -915,7 +931,8 @@ __device__ void walk_flat(const Shared& s, const Cfg& c, const Win& w,
 // left are insertions. Sets the band hit where a node the walk left had a
 // visited cell within one cell of the band edge, and the failed flag where
 // the walk fails. Two steps a trip to memory.
-__device__ void walk_band(const Shared& s, const Cfg& c, const Win& w,
+template <class Sh>
+__device__ void walk_band(const Sh& s, const Cfg& c, const Win& w,
                           int start_u, int L, int r_lo, int r_hi, int hw,
                           int begin) {
   const int lane = threadIdx.x & 31;
@@ -981,14 +998,15 @@ __device__ void walk_band(const Shared& s, const Cfg& c, const Win& w,
 // nodes, by the block: each matched position's old node in parallel, then
 // warp 0 walks the positions in order, giving new nodes their ids and
 // adding each edge with weight w[j-1] + w[j].
-__device__ void update(const Shared& s, const Cfg& c, const Win& w, int n,
+template <class Sh>
+__device__ void update(const Sh& s, const Cfg& c, const Win& w, int n,
                        int L, const int* wq) {
   const int tid = threadIdx.x, lane = tid & 31;
   for (int jj = tid; jj < L; jj += NT) {
     s.wts[jj] = wq[jj];
-    s.found[jj] = (int16_t)(s.runrem[jj] == 0
-                                ? find_old(s, n, s.nkey[jj], s.seq[jj])
-                                : -1);
+    s.found[jj] = (typename Sh::Id)(s.runrem[jj] == 0
+                                        ? find_old(s, n, s.nkey[jj], s.seq[jj])
+                                        : -1);
   }
   __syncthreads();
   if (tid >= 32) return;
@@ -1049,8 +1067,10 @@ __device__ void update(const Shared& s, const Cfg& c, const Win& w, int n,
 // build, which takes each window's half band (wband_a; 0 runs the flat
 // code) and writes its band hit (band_hit_out). CX: the most columns a
 // thread owns, CHMAX or, in the wide build, CHWIDE; CHGLOBAL is the global
-// build (the graph in the global scratch, rows in tiles; GSRC).
-template <bool GSRC, bool BAND, int CX>
+// build (the graph in the global scratch, rows in tiles; GSRC). IdT: the
+// node ids' type, int32 only in the global build above INT16_NODES node
+// slots (poa_common::wide_ids).
+template <bool GSRC, bool BAND, int CX, typename IdT = int16_t>
 __global__ void __launch_bounds__(NT, CX == CHWIDE ? 1 : 2)
 poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
            const int* __restrict__ bb_len_a, const int* __restrict__ n_layers_a,
@@ -1068,13 +1088,18 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
   const int win = blockIdx.x;
   const int tid = threadIdx.x, wid = tid >> 5;
   constexpr bool GLB = CX == CHGLOBAL;
+  static_assert(GLB || sizeof(IdT) == 2, "int32 ids: the global build only");
   size_t so[5];
   scratch_layout(N, ML, ES, GLB, so);
   int* const wbase = scratch + (size_t)win * scratch_per;
-  Shared s = GLB ? carve_global(smem, (char*)(wbase + so[3]), N, ML,
-                                (int16_t*)(wbase + so[1]))
-                 : carve(smem, N, ML, ES, c.ring,
-                         GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  ShT<IdT> s = [&] {
+    if constexpr (GLB)
+      return carve_global(smem, (char*)(wbase + so[3]), N, ML,
+                          (IdT*)(wbase + so[1]));
+    else
+      return carve(smem, N, ML, ES, c.ring,
+                   GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  }();
   const poa_common::Red red{s.red_v, s.red_w, s.red_i};
   // Thread 0 adds the cycles since the last mark to phase k's sum.
   long long tmark = clock64();
@@ -1100,14 +1125,14 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     const bool used = i < bb_len;
     s.base[i] = used ? bbp[i] : 0xff;
     s.key[i] = used ? (float)i : INFINITY;
-    s.order[i] = (int16_t)i;
+    s.order[i] = (IdT)i;
     s.cov[i] = used ? 1 : 0;
     for (int e = 0; e < ES; ++e) {
       s.src[(size_t)i * ES + e] = -1;
       w.ew[(size_t)i * ES + e] = 0;
     }
     if (used && i > 0) {
-      s.src[(size_t)i * ES] = (int16_t)(i - 1);
+      s.src[(size_t)i * ES] = (IdT)(i - 1);
       w.ew[(size_t)i * ES] = bbwp[i - 1] + bbwp[i];
     }
   }
@@ -1136,7 +1161,7 @@ poa_kernel(Cfg c, const uint8_t* __restrict__ bb, const int* __restrict__ bbw,
     const int* wq = ws + ((size_t)win * c.D + li) * ML;
     for (int j = tid; j < ML; j += NT) s.seq[j] = j < L ? sq[j] : 0;
     for (int r = tid; r < n; r += NT) {
-      s.rank_of[s.order[r]] = (int16_t)r;
+      s.rank_of[s.order[r]] = (IdT)r;
       s.has_out[r] = 0;
       s.far[r] = 0;
     }
@@ -1267,11 +1292,15 @@ cudaError_t plan(int N, int ML, int ES, int* ring, bool* gsrc, bool* glob,
 using Kernel = decltype(&poa_kernel<false, false, CHMAX>);
 
 // The kernel instantiation a plan launches (the banded build where band;
-// the global build where glob, else the wide one where wide, which the
-// plan gives gsrc), with its shared-memory limit raised to sm.
+// the global build where glob, with int32 node ids where ids32, else the
+// wide one where wide, which the plan gives gsrc), with its shared-memory
+// limit raised to sm.
 cudaError_t planned_kernel(bool gsrc, bool band, bool wide, bool glob,
-                           size_t sm, Kernel* fn) {
-  if (glob)
+                           bool ids32, size_t sm, Kernel* fn) {
+  if (glob && ids32)
+    *fn = band ? &poa_kernel<true, true, CHGLOBAL, int32_t>
+               : &poa_kernel<true, false, CHGLOBAL, int32_t>;
+  else if (glob)
     *fn = band ? &poa_kernel<true, true, CHGLOBAL>
                : &poa_kernel<true, false, CHGLOBAL>;
   else if (wide)
@@ -1329,7 +1358,7 @@ int rt_poa_plan(int N, int ML, int E, int band, int* out) {
 // DP, end-node pick, traceback, graph update, rank-order merge and
 // consensus, as thread 0 sees them.
 // scratch i32[B, rt_poa_scratch_words(..., the plan's global build)].
-// Node ids are int16: N <= 32767.
+// Node ids are int16, int32 in the global build above INT16_NODES.
 int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                   int gp, const void* bb, const void* bbw, const void* bb_len,
                   const void* n_layers, const void* seqs, const void* ws,
@@ -1338,7 +1367,7 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                   void* cons_len, void* failed, void* n_nodes, void* band_hit,
                   void* cells, void* phases, void* scratch, int B,
                   void* stream) {
-  if (E > 32 || N > 32767) return (int)cudaErrorInvalidValue;
+  if (E > 32) return (int)cudaErrorInvalidValue;
   const int ES = edge_stride(E);
   int ring = 0;
   bool gsrc = false, glob = false;
@@ -1346,8 +1375,8 @@ int rt_poa_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
   cudaError_t err = plan(N, ML, ES, &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, wband != nullptr, wide_build(ML), glob, sm,
-                         &fn);
+    err = planned_kernel(gsrc, wband != nullptr, wide_build(ML), glob,
+                         wide_ids(N, glob), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, ring};
   const size_t per = (size_t)rt_poa_scratch_words(N, ML, E, glob);
@@ -1373,7 +1402,8 @@ int rt_poa_occupancy(int N, int ML, int band, int* out) {
   cudaError_t err = plan(N, ML, edge_stride(12), &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, band != 0, wide_build(ML), glob, sm, &fn);
+    err = planned_kernel(gsrc, band != 0, wide_build(ML), glob,
+                         wide_ids(N, glob), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

@@ -7,9 +7,11 @@
 //
 // The graph's arrays live where each kernel keeps them (its Shared
 // struct), so the helpers are templates on their types: both kernels pass
-// int16 node ids, uint8 bases and int16 in-edge sources, in shared memory
-// or, where the graph is too large, in the global scratch. A node's
-// in-edge slots are E of a row of ES (ES >= E).
+// uint8 bases and node ids (in-edge sources included) of type Sh::Id, in
+// shared memory or, where the graph is too large, in the global scratch.
+// The ids are int16 in every build but the global build at max_nodes
+// above INT16_NODES, which takes int32 ids (wide_ids). A node's in-edge
+// slots are E of a row of ES (ES >= E).
 
 #pragma once
 
@@ -34,6 +36,11 @@
 // Shared bytes of the global build: the phase cycles, the reductions, the
 // scan's two buffers of warp totals and misc, rounded up.
 #define GLOBAL_SHARED 512
+// The most node ids an int16 id takes. Above it (make_config's window
+// classes above 10,880) the global build, the only build such a geometry
+// plans, takes int32 ids: in that build the graph lives in the window's
+// global scratch, so the wider ids cost scratch bytes, not occupancy.
+#define INT16_NODES 32767
 
 namespace poa_common {
 
@@ -41,13 +48,16 @@ __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~(size_t)15;
 }
 
+// Whether a build takes int32 node ids: the global build (glob) above
+// INT16_NODES node slots; every other build int16.
+__host__ __device__ inline bool wide_ids(int N, bool glob) {
+  return glob && N > INT16_NODES;
+}
+
 // How an edge weight (global memory) grows and is read: nothing waits for
 // the weight, so the add is a fire-and-forget atomic, performed in L2, and
 // the consensus reads the weights from L2.
-template <typename SrcT>
-struct EdgeSpace;
-template <>
-struct EdgeSpace<int16_t> {
+struct EdgeSpace {
   static __device__ __forceinline__ void add(int* p, int v) {
     atomicAdd(p, v);
   }
@@ -111,7 +121,7 @@ __device__ inline bool add_edge(SrcT* src, int* ew, int E, int ES, int nid,
   const unsigned mempty = __ballot_sync(0xffffffffu, sv == -1);
   if (msame) {
     if (lane == __ffs(msame) - 1)
-      EdgeSpace<SrcT>::add(&ew[(size_t)nid * ES + lane], wadd);
+      EdgeSpace::add(&ew[(size_t)nid * ES + lane], wadd);
   } else if (mempty) {
     if (lane == __ffs(mempty) - 1) {
       ew[(size_t)nid * ES + lane] = wadd;
@@ -149,7 +159,7 @@ __device__ inline int consensus(const IdT* order, const BaseT* base, int n,
       if (lane < E) {
         sv = src[(size_t)u * ES + lane];
         if (sv >= 0) {
-          wv = EdgeSpace<SrcT>::load(&ew[(size_t)u * ES + lane]);
+          wv = EdgeSpace::load(&ew[(size_t)u * ES + lane]);
           ps = score[sv];
         }
       }
@@ -209,7 +219,7 @@ __device__ inline int consensus(const IdT* order, const BaseT* base, int n,
       int wvv = NEG_;
       for (int e = 0; e < E; ++e)
         if (src[(size_t)v * ES + e] == u)
-          wvv = max(wvv, EdgeSpace<SrcT>::load(&ew[(size_t)v * ES + e]));
+          wvv = max(wvv, EdgeSpace::load(&ew[(size_t)v * ES + e]));
       if (wvv > NEG_ && (idx < 0 || better(wvv, score[v], v, a, b2, idx))) {
         a = wvv; b2 = score[v]; idx = v;
       }
@@ -245,7 +255,10 @@ __host__ __device__ inline int edge_stride(int E) { return (E + 3) & ~3; }
 // the start of their part of the scratch (G_* name each array; both
 // kernels' arrays, each 16-byte aligned); off[G_END] is the total. left
 // holds, for each tile of a DP row and thread, the running max of the row
-// just finished at the cell left of the thread's first column.
+// just finished at the cell left of the thread's first column. The node-id
+// arrays (order, rank_of, path, found) and v2's band starts (bstart, a
+// column that passes 32,767 where max_len does) take 2 bytes an entry, 4
+// with wide_ids.
 enum {
   G_DESC, G_KEY, G_ESC, G_COV, G_NKEY, G_RUNREM, G_WTS, G_LEFT, G_ORDER,
   G_RANK, G_PATH, G_BSTART, G_FOUND, G_BASE, G_SEQ, G_HASOUT, G_STEP, G_FAR,
@@ -256,11 +269,11 @@ enum {
 __host__ __device__ inline int n_tiles(int ML) { return (ML + TW) / TW; }
 
 __host__ __device__ inline void graph_layout(int N, int ML, size_t* off) {
-  const size_t n = N, ml = ML;
+  const size_t n = N, ml = ML, idb = wide_ids(N, true) ? 4 : 2;
   const size_t sz[G_END] = {
       n * 8, n * 4, n * 4, n * 4, ml * 4, ml * 4, ml * 4,
-      (size_t)n_tiles(ML) * NT * 4, n * 2, n * 2, n * 2, n * 2, ml * 2, n,
-      ml, n, n, n};
+      (size_t)n_tiles(ML) * NT * 4, n * idb, n * idb, n * idb, n * idb,
+      ml * idb, n, ml, n, n, n};
   size_t p = 0;
   for (int i = 0; i < G_END; ++i) {
     off[i] = p;
@@ -270,17 +283,18 @@ __host__ __device__ inline void graph_layout(int N, int ML, size_t* off) {
 }
 
 // A window's global scratch, as int32 word offsets: H [N + 1][ML + 1],
-// the edge weights [N][ES], the in-edge sources (int16 [N][ES], used with
-// GSRC), the move records [N + 1][ML + 1], and in the global build (glob)
-// the graph (graph_layout) from off[3]; off[4] is the total, a multiple of
-// 4 words so that every window's sources and graph are 16-byte aligned.
+// the edge weights [N][ES], the in-edge sources ([N][ES] ids, int16 or,
+// with wide_ids, int32; used with GSRC), the move records [N + 1][ML + 1],
+// and in the global build (glob) the graph (graph_layout) from off[3];
+// off[4] is the total, a multiple of 4 words so that every window's
+// sources and graph are 16-byte aligned.
 __host__ __device__ inline void scratch_layout(int N, int ML, int ES,
                                                bool glob, size_t* off) {
   const size_t cells = (size_t)(N + 1) * (ML + 1);
   const size_t edges = (size_t)N * ES;
   off[0] = cells;
   off[1] = (cells + edges + 3) & ~(size_t)3;
-  off[2] = off[1] + edges / 2;
+  off[2] = off[1] + (wide_ids(N, glob) ? edges : edges / 2);
   off[3] = (off[2] + (cells + 3) / 4 + 3) & ~(size_t)3;
   size_t g[G_END + 1];
   graph_layout(N, ML, g);
@@ -288,12 +302,14 @@ __host__ __device__ inline void scratch_layout(int N, int ML, int ES,
 }
 
 // The global build's carve of a kernel's Shared struct (template Sh, both
-// kernels' fields): the graph and the per-position arrays from g in the
-// window's global scratch (graph_layout), the in-edge sources at gsrc; no
-// ring. Each kernel carves its shared-memory fields and its own extras.
+// kernels' fields, ids of type Sh::Id): the graph and the per-position
+// arrays from g in the window's global scratch (graph_layout), the in-edge
+// sources at gsrc; no ring. Each kernel carves its shared-memory fields
+// and its own extras.
 template <class Sh>
 __device__ inline void carve_graph(Sh& s, char* g, int N, int ML,
-                                   int16_t* gsrc) {
+                                   typename Sh::Id* gsrc) {
+  using Id = typename Sh::Id;
   size_t off[G_END + 1];
   graph_layout(N, ML, off);
   s.desc = (unsigned long long*)(g + off[G_DESC]);
@@ -306,10 +322,10 @@ __device__ inline void carve_graph(Sh& s, char* g, int N, int ML,
   s.wts = (int*)(g + off[G_WTS]);
   s.left = (int*)(g + off[G_LEFT]);
   s.src = gsrc;
-  s.order = (int16_t*)(g + off[G_ORDER]);
-  s.rank_of = (int16_t*)(g + off[G_RANK]);
-  s.path = (int16_t*)(g + off[G_PATH]);
-  s.found = (int16_t*)(g + off[G_FOUND]);
+  s.order = (Id*)(g + off[G_ORDER]);
+  s.rank_of = (Id*)(g + off[G_RANK]);
+  s.path = (Id*)(g + off[G_PATH]);
+  s.found = (Id*)(g + off[G_FOUND]);
   s.base = (uint8_t*)(g + off[G_BASE]);
   s.seq = (uint8_t*)(g + off[G_SEQ]);
   s.has_out = (uint8_t*)(g + off[G_HASOUT]);
@@ -386,7 +402,7 @@ __device__ void merge_new(const Sh& s, int n, int nn) {
     } else {
       for (int m = 0; m < M; ++m) below += s.key[n + m] < k;
     }
-    s.path[i + below] = (int16_t)o;
+    s.path[i + below] = (typename Sh::Id)o;
   }
   for (int m = tid; m < M; m += NT) {    // new: its place among the new
     const float k = s.key[n + m];        // plus old keys <= its key
@@ -398,7 +414,7 @@ __device__ void merge_new(const Sh& s, int n, int nn) {
         before += kq < k || (kq == k && q < m);
       }
     }
-    s.path[before + count_keys(s, n, k, true)] = (int16_t)(n + m);
+    s.path[before + count_keys(s, n, k, true)] = (typename Sh::Id)(n + m);
   }
   __syncthreads();
   for (int i = tid; i < nn; i += NT) s.order[i] = s.path[i];
@@ -418,8 +434,9 @@ __host__ __device__ inline bool wide_build(int ML) {
 // global scratch: at its geometries (N >= 4224) they take 100 KB or more,
 // and only that instantiation of it is built. Where no layout fits, or
 // max_len + 1 exceeds the wide build's NT * CHWIDE columns, the global
-// build (*glob; no ring, GLOBAL_SHARED bytes): chosen by geometry, before
-// any launch.
+// build (*glob; no ring, GLOBAL_SHARED bytes), as also above INT16_NODES
+// node slots, where only it takes the ids (int32): chosen by geometry,
+// before any launch.
 inline cudaError_t plan(int N, int ML, int ES, int max_ring,
                         size_t (*bytes)(int, int, int, int, bool), int* ring,
                         bool* gsrc, bool* glob, size_t* sm) {
@@ -430,7 +447,7 @@ inline cudaError_t plan(int N, int ML, int ES, int max_ring,
         &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return err;
   *glob = false;
-  if (ML + 1 <= NT * CHWIDE)
+  if (ML + 1 <= NT * CHWIDE && N <= INT16_NODES)
     for (int g = wide_build(ML) ? 1 : 0; g < 2; ++g)
       for (int rg = max_ring; rg >= 2; rg >>= 1) {
         const size_t b = bytes(N, ML, ES, rg, g != 0);

@@ -125,8 +125,9 @@
 // barrier a tile, every row written to the global H and every predecessor
 // row read from there, so max_len has no limit. Same-column pairs do not
 // run; the flat build still counts colstep's serial steps (a pair is one
-// step), found in the descriptor pass. Node ids stay int16: N <= 32767,
-// backbone class 10,880.
+// step), found in the descriptor pass. Node ids and band starts stay int16
+// up to N = 32,767 (backbone class 10,880); above it the global build
+// takes them as int32 (IdT), which costs scratch bytes, not occupancy.
 //
 // Thread 0 of each block counts clock64() cycles per phase (NPHASE) for the
 // optional phases output.
@@ -165,6 +166,7 @@ using poa_common::find_old;
 using poa_common::merge_new;
 using poa_common::scratch_layout;
 using poa_common::wide_build;
+using poa_common::wide_ids;
 
 struct Cfg {
   int N, ML, MB, E, ES, D, ma, mm, gp, colstep;
@@ -174,7 +176,12 @@ struct Cfg {
 // The banded build (BAND) keeps desc, scan and bstart, has no step, and
 // lays nkey, runrem, wts and found over the ring's bytes (dead after the
 // DP).
-struct Shared {
+// Node ids (src, order, rank_of, path, found) and band starts are IdT:
+// int16 in every build but the global build above INT16_NODES node slots
+// (int32).
+template <typename IdT>
+struct ShT {
+  using Id = IdT;
   long long* ph;     // [NPHASE] thread 0's cycles per phase
   unsigned long long* desc;  // [N] by rank: the DP row's descriptor (D_*)
   int* ring;         // [ring][ML + 1] the last DP rows, slot rank % ring
@@ -195,14 +202,14 @@ struct Shared {
   int* left;         // [n_tiles][NT] (global build): the row just
                      // finished at the cell left of each thread's first
                      // column of each tile
-  int16_t* src;      // [N][ES] in-edge sources by slot, -1 empty (shared
+  IdT* src;          // [N][ES] in-edge sources by slot, -1 empty (shared
                      // memory, or the global scratch with GSRC)
-  int16_t* order;    // [N] node id by rank; [0, n) sorted by (key, id)
-  int16_t* rank_of;  // [N] rank by node id (layers); pred (consensus)
-  int16_t* path;     // [N] consensus path; the merged order (update)
-  int16_t* bstart;   // [N] by rank: the banded DP row's band start,
+  IdT* order;        // [N] node id by rank; [0, n) sorted by (key, id)
+  IdT* rank_of;      // [N] rank by node id (layers); pred (consensus)
+  IdT* path;         // [N] consensus path; the merged order (update)
+  IdT* bstart;       // [N] by rank: the banded DP row's band start,
                      // cexp - wband (path's bytes, unused in the DP)
-  int16_t* found;    // [ML] each position's matched old node, or -1
+  IdT* found;        // [ML] each position's matched old node, or -1
   uint8_t* base;     // [N]
   uint8_t* seq;      // [ML]
   uint8_t* has_out;  // [N] node has an out-edge inside the subgraph
@@ -210,6 +217,7 @@ struct Shared {
   uint8_t* far;      // [N] by rank: a later row reads this row of H from
                      // the global scratch (not from the ring)
 };
+using Shared = ShT<int16_t>;  // the shared-memory builds'
 
 // The carve below, as byte offsets, for a ring of `ring` rows and the
 // in-edge sources in shared memory unless gsrc; returns the total.
@@ -305,10 +313,11 @@ __device__ inline Shared carve(char* base, int N, int ML, int ES, int ring,
 // misc in shared memory (GLOBAL_SHARED bytes), everything else in the
 // window's global scratch (poa_common::carve_graph), the band starts and
 // step codes in arrays of their own.
-__device__ inline Shared carve_global(char* base, char* g, int N, int ML,
-                                      int16_t* gsrc) {
+template <typename IdT>
+__device__ inline ShT<IdT> carve_global(char* base, char* g, int N, int ML,
+                                        IdT* gsrc) {
   using namespace poa_common;
-  Shared s;
+  ShT<IdT> s;
   char* p = base;
   s.ph = (long long*)p; p += NPHASE * 8;
   s.red_v = (int*)p; p += NWARP * 4;
@@ -319,7 +328,7 @@ __device__ inline Shared carve_global(char* base, char* g, int N, int ML,
   carve_graph(s, g, N, ML, gsrc);
   size_t off[G_END + 1];
   graph_layout(N, ML, off);
-  s.bstart = (int16_t*)(g + off[G_BSTART]);
+  s.bstart = (IdT*)(g + off[G_BSTART]);
   s.step = (uint8_t*)(g + off[G_STEP]);
   return s;
 }
@@ -670,7 +679,8 @@ __device__ __forceinline__ void dp_layer_band_ch(const Shared& s,
 // just finished are cells it wrote itself, and the cell left of its first
 // column is that row's running max there, which it kept in left[t][tid]
 // (masked as the row was).
-__device__ void dp_layer_tiled(const Shared& s, const Cfg& c, const Win& w,
+template <class Sh>
+__device__ void dp_layer_tiled(const Sh& s, const Cfg& c, const Win& w,
                                int r_lo, int r_hi, int L, int hw) {
   constexpr int CHM = CHMAX;
   const int HS = c.ML + 1, gp = c.gp;
@@ -819,7 +829,8 @@ __device__ __forceinline__ bool has_src(const Shared& s, const Cfg& c, int b,
 // The plain version's move at (u, j), re-derived from the finished rows of
 // H: diagonal before up, each through the first slot whose row attains the
 // cell, else left. *next gets the predecessor, -1 for the virtual row.
-__device__ int rederive(const Shared& s, const Cfg& c, const Win& w, int u,
+template <class Sh>
+__device__ int rederive(const Sh& s, const Cfg& c, const Win& w, int u,
                         int j, int r_lo, int r_hi, int* next) {
   const int HS = c.ML + 1;
   const int cur = w.H[(size_t)(u + 1) * HS + j];
@@ -859,8 +870,8 @@ struct Walk {
 // warp 0 the same; lane 0 writes the position records). Returns the lane
 // of traceback()'s fetch that holds the next cell's move byte, or -1 where
 // none does (a re-derived move, or the virtual row).
-template <bool BAND>
-__device__ __forceinline__ int tb_step(const Shared& s, const Cfg& c,
+template <bool BAND, class Sh>
+__device__ __forceinline__ int tb_step(const Sh& s, const Cfg& c,
                                        const Win& w, Walk& k, int mv,
                                        int r_lo, int r_hi, int lane, int hw,
                                        int begin) {
@@ -907,8 +918,8 @@ __device__ __forceinline__ int tb_step(const Shared& s, const Cfg& c,
 // 31) together with those of every cell a move from it can reach (lane e:
 // the diagonal through slot e, lane 15 + e: up through slot e, lane 30:
 // left), so the step after the next needs no other load.
-template <bool BAND>
-__device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
+template <bool BAND, class Sh>
+__device__ void traceback(const Sh& s, const Cfg& c, const Win& w,
                           int start_u, int L, int n_sub, int r_lo,
                           int r_hi, int hw, int begin) {
   const int HS = c.ML + 1, lane = threadIdx.x & 31;
@@ -958,8 +969,9 @@ __device__ void traceback(const Shared& s, const Cfg& c, const Win& w,
 // the most columns a thread owns, CHMAX or, in the wide build, CHWIDE;
 // CHGLOBAL is the global build (the graph in the global scratch, the
 // banded build's rows in tiles; GSRC), flat (BAND false: wband 0, colstep's
-// steps counted) or banded.
-template <bool GSRC, bool BAND, int CX>
+// steps counted) or banded. IdT: the node ids' type, int32 only in the
+// global build above INT16_NODES node slots (poa_common::wide_ids).
+template <bool GSRC, bool BAND, int CX, typename IdT = int16_t>
 __global__ void __launch_bounds__(NT, CX == CHWIDE ? 1 : 2)
 poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
               const int* __restrict__ bbw, const int* __restrict__ bb_len_a,
@@ -980,13 +992,18 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
   const int win = blockIdx.x;
   const int tid = threadIdx.x, lane = tid & 31, wid = tid >> 5;
   constexpr bool GLB = CX == CHGLOBAL;
+  static_assert(GLB || sizeof(IdT) == 2, "int32 ids: the global build only");
   size_t so[5];
   scratch_layout(N, ML, ES, GLB, so);
   int* const wbase = scratch + (size_t)win * scratch_per;
-  Shared s = GLB ? carve_global(smem, (char*)(wbase + so[3]), N, ML,
-                                (int16_t*)(wbase + so[1]))
-                 : carve<BAND>(smem, N, ML, ES, c.ring,
-                               GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  ShT<IdT> s = [&] {
+    if constexpr (GLB)
+      return carve_global(smem, (char*)(wbase + so[3]), N, ML,
+                          (IdT*)(wbase + so[1]));
+    else
+      return carve<BAND>(smem, N, ML, ES, c.ring,
+                         GSRC ? (int16_t*)(wbase + so[1]) : nullptr);
+  }();
   const poa_common::Red red{s.red_v, s.red_w, s.red_i};
   // Thread 0 adds the cycles since the last mark to phase k's sum.
   long long tmark = clock64();
@@ -1012,14 +1029,14 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     const bool used = i < bb_len;
     s.base[i] = used ? bbp[i] : 0xff;
     s.key[i] = used ? (float)i : INFINITY;
-    s.order[i] = (int16_t)i;
+    s.order[i] = (IdT)i;
     s.cov[i] = used ? 1 : 0;
     for (int e = 0; e < ES; ++e) {
       s.src[(size_t)i * ES + e] = -1;
       w.ew[(size_t)i * ES + e] = 0;
     }
     if (used && i > 0) {
-      s.src[(size_t)i * ES] = (int16_t)(i - 1);
+      s.src[(size_t)i * ES] = (IdT)(i - 1);
       w.ew[(size_t)i * ES] = bbwp[i - 1] + bbwp[i];
     }
   }
@@ -1051,7 +1068,7 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
       if (!BAND) s.wts[j] = j < L ? wq[j] : 0;  // BAND: in the update
     }
     for (int r = tid; r < n; r += NT) {
-      s.rank_of[s.order[r]] = (int16_t)r;
+      s.rank_of[s.order[r]] = (IdT)r;
       s.has_out[r] = 0;
       s.far[r] = 0;
     }
@@ -1085,7 +1102,9 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
         if (banded) {  // the columns of [0, L] the row's band admits
           const int ce = (int)(s.key[u0] + 0.5f) - begin;
           band_cells += max(0, min(L, ce + hw) - max(0, ce - hw) + 1);
-          s.bstart[r] = (int16_t)max(ce - min(hw, 16384), -32768);
+          s.bstart[r] = sizeof(IdT) == 2
+                            ? (IdT)max(ce - min(hw, 16384), -32768)
+                            : (IdT)(ce - hw);
         }
         unsigned long long dsc = 0;
         int np = 0;
@@ -1209,9 +1228,9 @@ poa_v2_kernel(Cfg c, const uint8_t* __restrict__ bb,
     // nodes, one thread per position, in the frozen order.
     for (int jj = tid; jj < L; jj += NT) {
       if (BAND) s.wts[jj] = wq[jj];  // in the ring's bytes: loaded here
-      s.found[jj] = (int16_t)(s.runrem[jj] == 0
-                                  ? find_old(s, n, s.nkey[jj], s.seq[jj])
-                                  : -1);
+      s.found[jj] = (IdT)(s.runrem[jj] == 0
+                              ? find_old(s, n, s.nkey[jj], s.seq[jj])
+                              : -1);
     }
     __syncthreads();
     if (wid == 0) {                // the walk (warp 0)
@@ -1306,11 +1325,15 @@ cudaError_t plan(int N, int ML, int ES, bool band, int* ring, bool* gsrc,
 using Kernel = decltype(&poa_v2_kernel<false, false, CHMAX>);
 
 // The kernel instantiation a plan launches (the banded build where band;
-// the global build where glob, else the wide one where wide, which the
-// plan gives gsrc), with its shared-memory limit raised to sm.
+// the global build where glob, with int32 node ids where ids32, else the
+// wide one where wide, which the plan gives gsrc), with its shared-memory
+// limit raised to sm.
 cudaError_t planned_kernel(bool gsrc, bool band, bool wide, bool glob,
-                           size_t sm, Kernel* fn) {
-  if (glob)
+                           bool ids32, size_t sm, Kernel* fn) {
+  if (glob && ids32)
+    *fn = band ? &poa_v2_kernel<true, true, CHGLOBAL, int32_t>
+               : &poa_v2_kernel<true, false, CHGLOBAL, int32_t>;
+  else if (glob)
     *fn = band ? &poa_v2_kernel<true, true, CHGLOBAL>
                : &poa_v2_kernel<true, false, CHGLOBAL>;
   else if (wide)
@@ -1368,7 +1391,7 @@ int rt_poa_v2_plan(int N, int ML, int E, int band, int* out) {
 // graph init and layer set-up, DP, end-node pick, traceback, graph update
 // and consensus, as thread 0 sees them.
 // scratch i32[B, rt_poa_v2_scratch_words(..., the plan's global build)].
-// Node ids are int16: N <= 32767.
+// Node ids are int16, int32 in the global build above INT16_NODES.
 int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      int gp, int colstep, const void* bb, const void* bbw,
                      const void* bb_len, const void* n_layers,
@@ -1378,7 +1401,7 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
                      void* cons_len, void* failed, void* n_nodes,
                      void* band_hit, void* cells, void* steps, void* phases,
                      void* scratch, int B, void* stream) {
-  if (E > VSLOT || N > 32767) return (int)cudaErrorInvalidValue;
+  if (E > VSLOT) return (int)cudaErrorInvalidValue;
   const int ES = edge_stride(E);
   const bool band = wband != nullptr;
   int ring = 0;
@@ -1387,7 +1410,8 @@ int rt_poa_v2_launch(int N, int ML, int MB, int E, int D, int ma, int mm,
   cudaError_t err = plan(N, ML, ES, band, &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, band, wide_build(ML), glob, sm, &fn);
+    err = planned_kernel(gsrc, band, wide_build(ML), glob, wide_ids(N, glob),
+                         sm, &fn);
   if (err != cudaSuccess) return (int)err;
   Cfg c{N, ML, MB, E, ES, D, ma, mm, gp, colstep ? 1 : 0, ring};
   const size_t per = (size_t)rt_poa_v2_scratch_words(N, ML, E, glob);
@@ -1415,7 +1439,8 @@ int rt_poa_v2_occupancy(int N, int ML, int band, int* out) {
       plan(N, ML, edge_stride(12), band != 0, &ring, &gsrc, &glob, &sm);
   Kernel fn = nullptr;
   if (err == cudaSuccess)
-    err = planned_kernel(gsrc, band != 0, wide_build(ML), glob, sm, &fn);
+    err = planned_kernel(gsrc, band != 0, wide_build(ML), glob,
+                         wide_ids(N, glob), sm, &fn);
   if (err != cudaSuccess) return (int)err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, (const void*)fn);

@@ -324,7 +324,7 @@ def edge_rows(scal, q, t, K: int, backward: bool,
                 None if cycles is None else cuda_lib.ptr(cycles), B, rcap,
                 K, rcap + K, int(backward), cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg edge kernel")
-        cuda_lib.LAUNCHES[name] += 1
+        cuda_lib.count_launch(name)
     return out
 
 
@@ -365,7 +365,7 @@ def base_case(scal, q, t, K: int, cycles=None):
                 None if cycles is None else cuda_lib.ptr(cycles), B, K,
                 BASE_ROWS + K, OPS, cuda_lib.stream_of(scal))
         cuda_lib.check(err, "hirschberg base kernel")
-        cuda_lib.LAUNCHES[name] += 1
+        cuda_lib.count_launch(name)
     return ops, cnt, ok, dist
 
 

@@ -10,9 +10,12 @@ division keep the POA kernels' float32 column keys bit-identical to the
 plain version's.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where
-it launches its kernel and nowhere else. ``LAUNCH_EVENTS``, when set to a
-list, collects two CUDA events around each polish-path launch call
-(``launch_events``), so that a caller can time the kernels alone.
+it launches its kernel and nowhere else (``count_launch``). ``LAUNCH_EVENTS``,
+when set to a list, collects two CUDA events around each polish-path
+launch call (``launch_events``), so that a caller can time the kernels
+alone. The pipelined polish launches from two threads (alignment on one,
+consensus on the other), so both are written under one lock, and each
+launch goes to the calling thread's current stream.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import fcntl
 import os
 import shutil
 import subprocess
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -42,6 +46,10 @@ LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_band": 0,
                             "poa_consensus_band_global": 0,
                             "poa_consensus_v2_global": 0,
                             "poa_consensus_v2_band_global": 0,
+                            "poa_consensus_global32": 0,
+                            "poa_consensus_band_global32": 0,
+                            "poa_consensus_v2_global32": 0,
+                            "poa_consensus_v2_band_global32": 0,
                             "hirschberg_edge": 0, "hirschberg_edge_k128": 0,
                             "hirschberg_base": 0, "hirschberg_base_k128": 0,
                             "dp_cost_probe": 0}
@@ -53,11 +61,20 @@ LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_band": 0,
 LAUNCH_EVENTS: Optional[List[tuple]] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """One launch of kernel `name`: what each wrapper calls where it
+    launches its kernel."""
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -119,15 +136,19 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+_LOAD_LOCK = threading.Lock()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, building all sources first
     if any is missing or stale."""
-    lib = _libs.get(name)
-    if lib is None:
-        if any(_stale(n) for n in SOURCES):
-            build_all()
-        lib = ctypes.CDLL(lib_path(name))
-        _libs[name] = lib
+    with _LOAD_LOCK:
+        lib = _libs.get(name)
+        if lib is None:
+            if any(_stale(n) for n in SOURCES):
+                build_all()
+            lib = ctypes.CDLL(lib_path(name))
+            _libs[name] = lib
     return lib
 
 
@@ -167,7 +188,8 @@ def launch_events(name: str, t):
     ev[0].record(stream)
     yield
     ev[1].record(stream)
-    events.append((name, ev[0], ev[1]))
+    with _COUNT_LOCK:
+        events.append((name, ev[0], ev[1]))
 
 
 def stream_of(t) -> ctypes.c_void_p:

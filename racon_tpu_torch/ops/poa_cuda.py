@@ -39,8 +39,12 @@ exceeds 2048 (make_config's classes above 1280) runs the kernel's wide
 build, 16 columns a thread. Where no shared-memory layout fits (backbone
 class 2176 and up), the plan picks the global build: the graph in the
 window's global scratch, each DP row in tiles of 2048 columns, so no
-limit on max_len. Node ids are int16 in every build, so the kernels take
-max_nodes <= 32767 (``MAX_NODES``): backbone class 10,880 (-w 10880).
+limit on max_len. Node ids are int16 in every build up to max_nodes
+32,767 (``INT16_NODES``, backbone class 10,880); above it the global build
+takes int32 ids (``wide_ids``; launch names ``*_global32``), which costs
+scratch bytes and leaves every other build as it was. So the kernels take
+any window length whose scratch fits the card
+(``poa_driver.check_memory``).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -56,7 +60,9 @@ import torch
 from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
 
-MAX_NODES = 32767  # node ids are int16 in both POA kernels
+#: The most node slots a build with int16 node ids takes; above it the
+#: global build takes int32 ids (csrc/poa_common.cuh INT16_NODES).
+INT16_NODES = 32767
 TILE_COLUMNS = 2048  # the global build's DP row tile: 256 threads x 8
 #: The kernel's timed phases, in the order of stats["phase_cycles"].
 PHASES = ("init", "dp", "end_pick", "traceback", "update", "order",
@@ -113,14 +119,22 @@ def plan(cfg: PoaConfig, band: bool = False) -> dict:
     return plan_with(_lib().rt_poa_plan, cfg, band, "POA kernel")
 
 
+def wide_ids(cfg: PoaConfig, global_build: bool) -> bool:
+    """Whether a build at cfg's geometry takes int32 node ids: the global
+    build above INT16_NODES node slots (csrc/poa_common.cuh wide_ids)."""
+    return global_build and cfg.max_nodes > INT16_NODES
+
+
 def scratch_words(cfg: PoaConfig, global_build: bool) -> int:
     """int32 words of one window's global scratch, as both kernels lay it
     out (csrc/poa_common.cuh scratch_layout and graph_layout): H and the
     move records over (max_nodes + 1) x (max_len + 1) cells, the edge
-    weights and in-edge sources, and in the global build the graph. A
-    pure function of the geometry."""
+    weights and in-edge sources, and in the global build the graph, whose
+    node-id and band-start arrays (and the sources) take 4 bytes an entry
+    with ``wide_ids``, else 2. A pure function of the geometry."""
     N, ML = cfg.max_nodes, cfg.max_len
     ES = (cfg.max_edges + 3) & ~3
+    idb = 4 if wide_ids(cfg, global_build) else 2
 
     def up4(x):
         return (x + 3) & ~3
@@ -129,13 +143,13 @@ def scratch_words(cfg: PoaConfig, global_build: bool) -> int:
         return (x + 15) & ~15
 
     cells, edges = (N + 1) * (ML + 1), N * ES
-    w = up4(up4(cells + edges) + edges // 2 + (cells + 3) // 4)
+    w = up4(up4(cells + edges) + edges * idb // 4 + (cells + 3) // 4)
     if not global_build:
         return w
     tiles = (ML + TILE_COLUMNS) // TILE_COLUMNS
     sizes = (N * 8, N * 4, N * 4, N * 4, ML * 4, ML * 4, ML * 4,
-             tiles * 256 * 4, N * 2, N * 2, N * 2, N * 2, ML * 2, N, ML, N,
-             N, N)
+             tiles * 256 * 4, N * idb, N * idb, N * idb, N * idb, ML * idb,
+             N, ML, N, N, N)
     return w + sum(align16(b) for b in sizes) // 4
 
 
@@ -152,20 +166,26 @@ def add_phase_cycles(stats: dict, names, cycles) -> None:
 
 
 def check_geometry(cfg: PoaConfig) -> None:
-    """Both POA kernels' limits on cfg's geometry: max_edges <= 32 and
-    max_nodes <= MAX_NODES (int16 node ids); any max_len (ValueError)."""
+    """Both POA kernels' limit on cfg's geometry: max_edges <= 32
+    (ValueError); any max_nodes and max_len."""
     if cfg.max_edges > 32:
         raise ValueError(f"POA kernel takes max_edges <= 32, got {cfg}")
-    if cfg.max_nodes > MAX_NODES:
-        raise ValueError(f"POA kernel takes max_nodes <= {MAX_NODES} "
-                         f"(int16 node ids), got {cfg.max_nodes}")
 
 
-def launch_name(kernel: str, band: bool, global_build: bool) -> str:
+def launch_name(kernel: str, band: bool, global_build: bool,
+                ids32: bool = False) -> str:
     """A POA build's launch-count name: the kernel's, then "_band" for
-    its banded build and "_global" for its global build."""
+    its banded build and "_global" for its global build, "_global32" for
+    the global build with int32 node ids (``wide_ids``)."""
     return kernel + ("_band" if band else "") + (
-        "_global" if global_build else "")
+        ("_global32" if ids32 else "_global") if global_build else "")
+
+
+def build_name(plan_fn, kernel: str, cfg: PoaConfig, band: bool):
+    """(global_build, launch name) of the build a POA wrapper launches at
+    cfg's geometry, as its kernel's plan (`plan_fn`) picks it."""
+    glob = plan_fn(cfg, band)["global_build"]
+    return glob, launch_name(kernel, band, glob, wide_ids(cfg, glob))
 
 
 def check_inputs(cfg: PoaConfig, args, dev) -> int:
@@ -199,7 +219,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     cycles (``PHASES``; thread 0 of each window's block reads
     ``clock64()``): summed over the windows ("phase_cycles") and the
     largest window's ("phase_cycles_max"). The launch counts under
-    ``launch_name``: the build the plan picks."""
+    ``launch_name``: the build the plan picks (``build_name``)."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats, wband=wband,
@@ -208,7 +228,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     B = check_inputs(cfg, args, dev)
     if wband is not None:
         cuda_lib.require(wband, "wband", torch.int32, (B,), dev)
-    glob = plan(cfg, wband is not None)["global_build"]
+    glob, name = build_name(plan, "poa_consensus", cfg, wband is not None)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -226,7 +246,6 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
     counts = None if stats is None else torch.empty(
         (1 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
-    name = launch_name("poa_consensus", wband is not None, glob)
     with cuda_lib.launch_events(name, bb):
         err = lib.rt_poa_launch(
             N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
@@ -238,7 +257,7 @@ def poa_consensus(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws, lens,
             None if counts is None else p(counts[1]), p(scratch), B,
             cuda_lib.stream_of(bb))
     cuda_lib.check(err, "POA consensus kernel")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     if counts is not None:
         stats["cells"] = stats.get("cells", 0) + int(counts[0].sum())
         add_phase_cycles(stats, PHASES, counts[1:])

@@ -10,17 +10,25 @@ on the card) or "v2" (ops/poa_v2_cuda.py); both compute one function,
 and neither steps down to the other. Both keep H in global memory and
 plan their shared memory per launch (``plan``), with a wide build of 16
 columns a thread where max_len + 1 > 2048 and a global build (the graph
-in global memory, DP rows in tiles) where no shared-memory layout fits,
-so that every window class up to the int16 node-id limit (-w 10880;
-max_nodes 32,640, max_len 16,384) runs on the card. Before any window
-runs, the phase checks every bucket's geometry (``check_geometries``)
-and raises one ValueError, naming that limit and the largest window
-length, where one is beyond it; no window is sent to the host for its
-size. A window's global scratch (H and the move records, about 5 bytes
-a DP cell) grows with N x max_len: about 95 MB at class 2048, 380 MB at
-4096, 2.7 GB at 10,880. So on the card each bucket's batches are capped
-by geometry (``batch_cap``): as many windows as the card's free memory
-holds, less a margin (``MEMORY_MARGIN``), and at most ``batch_windows``.
+in global memory, DP rows in tiles) where no shared-memory layout fits;
+above 32,767 node slots (classes above 10,880) the global build takes
+int32 node ids. A window's global scratch (H and the move records, about
+5 bytes a DP cell, about 22.5 x class^2 bytes) grows with N x max_len:
+about 95 MB at class 2048, 380 MB at 4096, 2.7 GB at 10,880, 6.0 GB at
+16,384. Before any window runs, the phase checks that one window of
+every bucket's geometry fits the card's free memory less a margin
+(``check_memory``) and raises one ValueError, naming the largest window
+length that fits, where one does not; no window is sent to the host for
+its size. Each bucket's batches are capped by geometry (``batch_cap``):
+as many windows as the card's free memory holds for every batch in
+flight, less the margin (``MEMORY_MARGIN``), and at most
+``batch_windows``.
+
+The batches go through the shared feeder (ops/batch_exec.py) with up to
+``pipeline_depth`` batches in flight (2, as the JAX package's
+``RACON_TPU_PIPELINE_DEPTH``): the host exports and packs batch N+1, into
+pinned buffers, while the card runs batch N; the bytes are the same at
+every depth.
 
 With ``band`` (the JAX package's ``RACON_TPU_BAND``) every batch runs the
 chosen kernel's banded build: each window gets the half band of its worst
@@ -45,6 +53,7 @@ import torch
 
 from . import band as _band
 from . import poa, poa_cuda
+from .batch_exec import DEFAULT_DEPTH, BatchExecutor
 from .encoding import decode, encode
 from .poa_cuda import poa_consensus
 from .poa_v2_cuda import poa_consensus_v2
@@ -54,9 +63,10 @@ DEPTH_BUCKETS = (8, 32, DEPTH_CAP)
 NODE_FACTOR = 3                    # max_nodes = 3 x window length
 POA_KERNELS = ("ls", "v2")
 DEFAULT_POA_KERNEL = "ls"
-#: What a batch leaves of the card's free memory: 1 GiB and a tenth of the
-#: rest, for the allocator's rounding, the phase's other tensors and
-#: whatever else runs on the card.
+#: What the consensus phase leaves of the card's free memory: 1 GiB and a
+#: tenth of the rest, for the allocator's rounding, the phase's other
+#: tensors and whatever else runs on the card (in a pipelined polish, the
+#: alignment of the next chunk).
 MEMORY_MARGIN = (1 << 30, 0.1)
 
 
@@ -103,29 +113,47 @@ def kernel_for(poa_kernel: str):
     return poa_consensus if poa_kernel == "ls" else poa_consensus_v2
 
 
-def largest_window() -> int:
-    """The largest window length (-w) whose window class both POA kernels
-    take: node ids are int16, so make_config's max_nodes <= 32767."""
-    wl = 128
-    while make_config(wl + 128, 1, 0, 0, 0).max_nodes <= poa_cuda.MAX_NODES:
-        wl += 128
-    return wl
+def memory_room(free_bytes: int) -> int:
+    """The bytes the consensus phase may take of `free_bytes`: all but
+    MEMORY_MARGIN."""
+    fixed, share = MEMORY_MARGIN
+    return free_bytes - fixed - int(share * max(0, free_bytes - fixed))
 
 
-def check_geometries(cfgs, poa_kernel: str) -> None:
+def largest_window(room: int, depth: int) -> int:
+    """The largest window length (-w, on the 128 grid of the window
+    classes) one window of which, at `depth`, fits `room` bytes
+    (``window_bytes``); 0 where none does."""
+    def fits(k):
+        return window_bytes(make_config(128 * k, depth, 0, 0, 0)) <= room
+
+    lo, hi = 0, 1
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return 128 * lo
+
+
+def check_memory(cfgs, free_bytes: int, poa_kernel: str) -> None:
     """Before any window runs on the card: both POA kernels take every
-    geometry whose node ids fit int16 (max_nodes <= 32767), flat or
-    banded, through their global build where no shared-memory layout
-    fits. Beyond that limit, raises one ValueError naming it and the
-    largest window length (-w) the kernels take."""
+    geometry, flat or banded (above class 10,880 through their global
+    build with int32 node ids), so the one limit is memory. Raises one
+    ValueError where a single window of some geometry does not fit
+    `free_bytes` less MEMORY_MARGIN, naming the largest window length
+    that fits."""
+    room = memory_room(free_bytes)
     for cfg in cfgs:
-        if cfg.max_nodes > poa_cuda.MAX_NODES:
+        need = window_bytes(cfg)
+        if need > room:
             raise ValueError(
                 f"the {poa_kernel} POA kernel does not take windows of "
-                f"backbone class {cfg.max_backbone}: max_nodes "
-                f"{cfg.max_nodes} is beyond the int16 node-id limit of "
-                f"{poa_cuda.MAX_NODES}; the largest window length it takes "
-                f"is -w {largest_window()}")
+                f"backbone class {cfg.max_backbone} on this card: one "
+                f"window needs {need} bytes of device memory and "
+                f"{max(0, room)} are free after the margin; the largest "
+                f"window length that fits is -w "
+                f"{largest_window(room, cfg.depth)}")
 
 
 def window_bytes(cfg: poa.PoaConfig) -> int:
@@ -138,13 +166,12 @@ def window_bytes(cfg: poa.PoaConfig) -> int:
     return 4 * poa_cuda.scratch_words(cfg, True) + inputs + outputs
 
 
-def batch_cap(cfg: poa.PoaConfig, free_bytes: int) -> int:
+def batch_cap(cfg: poa.PoaConfig, free_bytes: int, depth: int = 1) -> int:
     """How many windows of cfg's geometry a batch may hold on a card with
-    `free_bytes` free: the free bytes less MEMORY_MARGIN over
-    ``window_bytes``, at least 1."""
-    fixed, share = MEMORY_MARGIN
-    room = free_bytes - fixed - int(share * max(0, free_bytes - fixed))
-    return max(1, room // window_bytes(cfg))
+    `free_bytes` free while `depth` batches are in flight: the free bytes
+    less MEMORY_MARGIN over depth x ``window_bytes``, at least 1."""
+    return max(1, memory_room(free_bytes) //
+               (max(1, depth) * window_bytes(cfg)))
 
 
 def free_device_bytes(device) -> int:
@@ -172,19 +199,25 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
                         poa_kernel: str = DEFAULT_POA_KERNEL,
                         band: bool = False,
                         band_slack: int = _band.DEFAULT_SLACK,
-                        band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS
-                        ) -> dict:
+                        band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
+                        pipeline_depth: int = DEFAULT_DEPTH,
+                        budget=None) -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
     `poa_kernel` ("ls", the default, or "v2") picks the kernel; `band`
-    runs its banded build with the widening ladder (module note).
+    runs its banded build with the widening ladder (module note). The
+    batches go through ops/batch_exec.py with `pipeline_depth` of them in
+    flight; `budget` (resilience/budget.py), when given, collapses that
+    to 1 once its hard watermark latches.
 
     Returns {device, host_fallback, backbone, failed, layers_dropped,
-    batches, host_seconds, band}: windows served by the kernel,
-    re-polished on the host, passed through as backbone, flagged failed by
-    the kernel (at wband 0), layers dropped at admission, kernel batches
-    run (re-runs included), the wall time of the host re-polish, and the
-    ladder's counts (ops/band.py; all 0 without `band`)."""
+    batches, host_seconds, band, pack_wall_s, kernel_wall_s,
+    depth_collapsed}: windows served by the kernel, re-polished on the
+    host, passed through as backbone, flagged failed by the kernel (at
+    wband 0), layers dropped at admission, kernel batches run (re-runs
+    included), the wall time of the host re-polish, the ladder's counts
+    (ops/band.py; all 0 without `band`), the host's wall exporting and
+    packing and blocked on the card, and whether the depth collapsed."""
     device = torch.device(device)
     kernel_for(poa_kernel)
     n = pipeline.num_windows()
@@ -215,42 +248,24 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     cfgs = {key: make_config(key[1], key[0], match, mismatch, gap)
             for key in buckets}
     if device.type == "cuda":
-        check_geometries(cfgs.values(), poa_kernel)
+        check_memory(cfgs.values(), free_device_bytes(device), poa_kernel)
+    ops = _ConsensusOps(pipeline, device, poa_kernel, trim, stats, fallback,
+                        band, band_slack, band_max_widenings)
+    executor = BatchExecutor(ops, depth=pipeline_depth, budget=budget)
     for key, bucket_jobs in sorted(buckets.items()):
         cfg = cfgs[key]
         # depth- and length-homogeneous batches, as many as the card holds
         bucket_jobs.sort(key=lambda job: (job[1], job[2]))
         per_batch = batch_windows
         if device.type == "cuda":
-            per_batch = min(per_batch,
-                            batch_cap(cfg, free_device_bytes(device)))
+            per_batch = min(per_batch, batch_cap(
+                cfg, free_device_bytes(device), executor.depth))
         for off in range(0, len(bucket_jobs), per_batch):
-            idxs = [i for i, _, _ in bucket_jobs[off:off + per_batch]]
-            chunk = _export_chunk(pipeline, idxs, cfg, fallback, stats)
-            if not chunk:
-                continue
-            if not band:
-                outs = kernel_for(poa_kernel)(
-                    cfg, *poa.batch_to_tensors(_pack(chunk, cfg), device))
-                stats["batches"] += 1
-                _install(pipeline, chunk, _unpack(outs), trim, stats,
-                         fallback)
-                continue
-            states = {}
-            for i, wx, keep in chunk:
-                states[i] = _band.BandState(
-                    initial_poa_band(wx, keep, cfg, band_slack))
-                stats["band"]["jobs"] += bool(states[i].k)
-            while chunk:   # the ladder: re-run the hits until none is left
-                packed = _pack(chunk, cfg,
-                               [states[i].k or 0 for i, _, _ in chunk])
-                outs = kernel_for(poa_kernel)(
-                    cfg, *poa.batch_to_tensors(packed, device),
-                    wband=torch.from_numpy(packed[9]).to(device))
-                stats["batches"] += 1
-                chunk = _install(pipeline, chunk, _unpack(outs), trim, stats,
-                                 fallback, states, cfg.max_len // 2,
-                                 band_max_widenings)
+            executor.submit(cfg, [i for i, _, _ in
+                                  bucket_jobs[off:off + per_batch]])
+    executor.flush()
+    executor.stamp_walls(stats)
+    stats["depth_collapsed"] = executor.collapsed
 
     t0 = time.perf_counter()
     for i in fallback:
@@ -258,6 +273,93 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
         stats["host_fallback"] += 1
     stats["host_seconds"] = time.perf_counter() - t0
     return stats
+
+
+class _ConsensusOps:
+    """The consensus phase's hooks for the feeder (ops/batch_exec.py); the
+    context of each batch is its bucket's geometry (a PoaConfig). Windows
+    whose band hit (``band``) are kept by ``install`` and handed back by
+    ``widen``, to be re-run at their widened band."""
+
+    def __init__(self, pipeline, device, poa_kernel, trim, stats, fallback,
+                 band, band_slack, band_max_widenings):
+        self.pipeline, self.device = pipeline, device
+        self.kernel = kernel_for(poa_kernel)
+        self.trim, self.stats, self.fallback = trim, stats, fallback
+        self.band, self.band_slack = band, band_slack
+        self.band_max_widenings = band_max_widenings
+        self.states = {}   # window -> its BandState (ops/band.py)
+        self._retry = []   # windows whose band hit in the last install
+
+    def export(self, cfg, idxs):
+        chunk = _export_chunk(self.pipeline, idxs, cfg, self.fallback,
+                              self.stats)
+        if self.band:
+            for i, wx, keep in chunk:
+                self.states[i] = _band.BandState(
+                    initial_poa_band(wx, keep, cfg, self.band_slack))
+                self.stats["band"]["jobs"] += bool(self.states[i].k)
+        return chunk
+
+    def pack(self, cfg, chunk):
+        widths = ([self.states[i].k or 0 for i, _, _ in chunk]
+                  if self.band else None)
+        return _pack(chunk, cfg, widths, pin=self.device.type == "cuda")
+
+    def dispatch(self, cfg, packed, chunk):
+        """Launch the batch. On the card: the pinned inputs copied to the
+        device without blocking, the kernel, its outputs copied into
+        pinned host tensors without blocking and an event recorded, all
+        on the current stream: returns (host outputs, event). On the CPU
+        the outputs themselves."""
+        dev = self.device
+        self.stats["batches"] += 1
+        kw = {}
+        if dev.type == "cpu":
+            if self.band:
+                kw["wband"] = torch.from_numpy(packed[9])
+            return self.kernel(cfg, *poa.batch_to_tensors(packed, dev), **kw)
+        ins = [torch.from_numpy(a).to(dev, non_blocking=True)
+               for a in packed[:9]]
+        if self.band:
+            kw["wband"] = torch.from_numpy(packed[9]).to(dev,
+                                                          non_blocking=True)
+        outs = self.kernel(cfg, *ins, **kw)
+        host = []
+        for t in outs[:4] + outs[5:]:
+            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            h.copy_(t, non_blocking=True)
+            host.append(h)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        return host, ev
+
+    def unpack(self, cfg, handle):
+        """Host numpy (cons_base, cons_cov, cons_len, failed, and
+        band_hit from the banded build), waiting on the batch's event
+        alone."""
+        if self.device.type == "cpu":
+            return _unpack(handle)
+        host, ev = handle
+        ev.synchronize()
+        return tuple(h.numpy() for h in host)
+
+    def attempt(self, cfg, packed, chunk):
+        return self.unpack(cfg, self.dispatch(cfg, packed, chunk))
+
+    def install(self, cfg, chunk, results):
+        self._retry += _install(self.pipeline, chunk, results, self.trim,
+                                self.stats, self.fallback,
+                                self.states if self.band else None,
+                                cfg.max_len // 2, self.band_max_widenings)
+
+    def widen(self, cfg):
+        retry, self._retry = self._retry, []
+        return retry
+
+    def done(self, cfg, chunk):
+        for i, _, _ in chunk:
+            self.states.pop(i, None)
 
 
 def _export_chunk(pipeline, idxs, cfg, fallback, stats):
@@ -279,21 +381,35 @@ def _export_chunk(pipeline, idxs, cfg, fallback, stats):
     return chunk
 
 
-def _pack(chunk, cfg, widths=None):
+_TORCH_DTYPE = {np.uint8: torch.uint8, np.int32: torch.int32}
+
+
+def _zeros(shape, dtype, pin: bool) -> np.ndarray:
+    """A zeroed host array; with `pin`, a view of a pinned torch tensor
+    (the card copies from it without blocking)."""
+    if not pin:
+        return np.zeros(shape, dtype=dtype)
+    return torch.zeros(shape, dtype=_TORCH_DTYPE[dtype],
+                       pin_memory=True).numpy()
+
+
+def _pack(chunk, cfg, widths=None, pin: bool = False):
     """Numpy batch of the chunk's windows in the kernel's layout: the
     JAX package's 10-tuple, the trailing row each window's half band
-    (`widths`, else 0)."""
+    (`widths`, else 0). With `pin`, every array is a view of pinned host
+    memory."""
     B = len(chunk)
-    bb = np.zeros((B, cfg.max_backbone), dtype=np.uint8)
-    bbw = np.zeros((B, cfg.max_backbone), dtype=np.int32)
-    bb_len = np.ones(B, dtype=np.int32)   # padded windows: 1-base backbone
-    n_layers = np.zeros(B, dtype=np.int32)
-    seqs = np.zeros((B, cfg.depth, cfg.max_len), dtype=np.uint8)
-    ws = np.zeros((B, cfg.depth, cfg.max_len), dtype=np.int32)
-    lens = np.zeros((B, cfg.depth), dtype=np.int32)
-    begins = np.zeros((B, cfg.depth), dtype=np.int32)
-    ends = np.zeros((B, cfg.depth), dtype=np.int32)
-    wband = np.zeros(B, dtype=np.int32)
+    bb = _zeros((B, cfg.max_backbone), np.uint8, pin)
+    bbw = _zeros((B, cfg.max_backbone), np.int32, pin)
+    bb_len = _zeros(B, np.int32, pin)
+    bb_len[:] = 1                        # padded windows: 1-base backbone
+    n_layers = _zeros(B, np.int32, pin)
+    seqs = _zeros((B, cfg.depth, cfg.max_len), np.uint8, pin)
+    ws = _zeros((B, cfg.depth, cfg.max_len), np.int32, pin)
+    lens = _zeros((B, cfg.depth), np.int32, pin)
+    begins = _zeros((B, cfg.depth), np.int32, pin)
+    ends = _zeros((B, cfg.depth), np.int32, pin)
+    wband = _zeros(B, np.int32, pin)
     if widths is not None:
         wband[:] = widths
 

@@ -39,8 +39,9 @@ exceeds 2048 run the wide build (16 columns a thread). Where no
 shared-memory layout fits (backbone class 2176 and up; 2432 for the flat
 build), the plan picks the global build, flat or banded: the graph in the
 window's global scratch and the banded build's rows (wband 0 for the flat
-one) in tiles of 2048 columns, so no limit on max_len; node ids stay
-int16 (max_nodes <= 32767).
+one) in tiles of 2048 columns, so no limit on max_len; node ids and band
+starts are int16, and int32 in the global build above 32,767 node slots
+(``poa_cuda.wide_ids``; launch names ``*_global32``).
 
 A tensor on the CPU goes to the plain version; a tensor on the card goes
 to the kernel, or the wrapper raises.
@@ -55,7 +56,7 @@ import torch
 
 from . import cuda_lib
 from .poa import PoaConfig, poa_batch_plain
-from .poa_cuda import add_phase_cycles, check_inputs, launch_name, plan_with
+from .poa_cuda import add_phase_cycles, build_name, check_inputs, plan_with
 
 VSLOT = 15        # the move records' virtual-start slot: max_edges <= 15
 #: The kernel's timed phases, in the order of stats["phase_cycles"].
@@ -116,7 +117,7 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     thread 0 of each window's block reads ``clock64()``): summed over the
     windows ("phase_cycles") and the largest window's
     ("phase_cycles_max"). The launch counts under ``launch_name``: the
-    build the plan picks."""
+    build the plan picks (``poa_cuda.build_name``)."""
     args = (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends)
     if bb.device.type == "cpu":
         return poa_batch_plain(cfg, *args, stats=stats,
@@ -129,7 +130,7 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     if cfg.max_edges > VSLOT:
         raise ValueError(f"v2 POA kernel takes max_edges <= {VSLOT}, got "
                          f"{cfg.max_edges}")
-    glob = plan(cfg, wband is not None)["global_build"]
+    glob, name = build_name(plan, "poa_consensus_v2", cfg, wband is not None)
     N = cfg.max_nodes
     cons_base = torch.empty((B, N), dtype=torch.int32, device=dev)
     cons_cov = torch.empty((B, N), dtype=torch.int32, device=dev)
@@ -148,7 +149,6 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
     counts = None if stats is None else torch.empty(
         (2 + len(PHASES), B), dtype=torch.int64, device=dev)
     p = cuda_lib.ptr
-    name = launch_name("poa_consensus_v2", wband is not None, glob)
     with cuda_lib.launch_events(name, bb):
         err = lib.rt_poa_v2_launch(
             N, cfg.max_len, cfg.max_backbone, cfg.max_edges, cfg.depth,
@@ -161,7 +161,7 @@ def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,
             None if counts is None else p(counts[2]), p(scratch), B,
             cuda_lib.stream_of(bb))
     cuda_lib.check(err, "v2 POA consensus kernel")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     if counts is not None:
         stats["cells"] = stats.get("cells", 0) + int(counts[0].sum())
         stats["steps"] = stats.get("steps", 0) + int(counts[1].sum())

@@ -1,26 +1,126 @@
-"""TorchPolisher: the accelerated polishing path on a CUDA card.
+"""TorchPolisher: the accelerated polishing path on a CUDA card; CpuPolisher:
+the native host pipeline.
 
-Mirrors the JAX package's sequential TpuPolisher (racon_tpu/polisher.py):
+TorchPolisher mirrors the JAX package's TpuPolisher (racon_tpu/polisher.py):
 parse and filter natively, align CIGAR-less overlaps with the Hirschberg
 kernels, build windows natively, run POA consensus with the CUDA kernel,
 stitch natively. Per-item host paths are the algorithm's own: a job whose
 band does not fit or whose path escapes the band is aligned on the host,
 and a window the kernel flags failed is re-polished on the host. Both are
 counted in ``stats``.
+
+Its chunked modes split a multi-contig FASTA target into contiguous
+chunks (``_split_fasta``) and polish each with a pipeline of its own; the
+chunks' FASTA, concatenated in order, is the sequential run's, byte for
+byte:
+
+* **pipelined phases** (``pipeline_phases``): one worker thread parses,
+  aligns and windows chunk N+1 while the calling thread runs consensus
+  and stitches chunk N, through a FIFO queue of ``handoff_depth`` chunks.
+  Each thread launches on a CUDA stream of its own;
+* **streamed input** (``stream_input``, or any ``memory_budget_mb``):
+  each chunk parses only its own byte ranges of the reads and overlaps
+  files (streamio.py), so peak RSS grows with the chunk, not the genome;
+* the **memory budget** (``memory_budget_mb``; resilience/budget.py): at
+  the soft watermark a chunk's working set is parked on disk and the
+  worker stops running ahead; the hard watermark latches and collapses
+  the pipeline to sequential and the consensus feeder to depth 1.
+
+Where a chunked mode cannot run, a NOTE on stderr says so and the phases
+run sequentially: a target that is not FASTA, one contig, or MHAP
+overlaps. MHAP names reads and targets by their ordinals in the input
+files, which a chunk's own target file renumbers: the JAX package chunks
+MHAP input all the same (streaming falls back to the whole inputs there)
+and its chunked FASTA then differs from its sequential one, so the port
+keeps MHAP input sequential. These choose a host-side schedule; no work
+leaves the card.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
+import sys
+import tempfile
+import threading
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
 from .ops import band as _band
 from .ops.align_driver import run_alignment_phase
+from .ops.batch_exec import DEFAULT_DEPTH
 from .ops.poa_driver import (DEFAULT_POA_KERNEL, kernel_for,
                               run_consensus_phase)
 from .pipeline import Pipeline
+from .resilience.budget import MemoryBudget, at_least, peak_rss_mb
+
+#: Handoff-queue sentinel: the alignment worker is done.
+_DONE = object()
+#: The phases of a chunk, in order, as stats["chunk_s"] times them.
+CHUNK_PHASES = ("parse", "align", "windows", "consensus", "stitch")
+
+
+class _WorkerFailure:
+    """An exception raised on the alignment worker thread, re-raised on
+    the consumer, so that a pipelined polish fails as a sequential one
+    does (instead of waiting on the queue)."""
+
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def _split_fasta(target_path: str, n_chunks_hint: int, outdir: str):
+    """Split a multi-contig FASTA into up to `n_chunks_hint` contiguous,
+    roughly base-balanced chunk files (record text copied verbatim, so
+    each chunk parses to byte-identical contigs). Returns the chunk
+    paths, or None when the target is not splittable (one contig,
+    non-FASTA content): the caller runs the phases sequentially. The
+    chunks' polished output, concatenated in chunk order, is the
+    unchunked run's."""
+    import gzip
+
+    opener = gzip.open if target_path.lower().endswith(".gz") else open
+    records = []   # [bases, [raw lines]]
+    cur = None
+    try:
+        with opener(target_path, "rt") as f:
+            for line in f:
+                if line.startswith(">"):
+                    cur = [0, [line]]
+                    records.append(cur)
+                elif cur is None:
+                    return None   # leading non-FASTA content
+                else:
+                    cur[0] += len(line.strip())
+                    cur[1].append(line)
+    except (OSError, UnicodeDecodeError):
+        return None
+    if len(records) < 2:
+        return None
+    k = min(len(records), max(2, n_chunks_hint))
+    per_chunk = sum(r[0] for r in records) / k
+    paths = []
+    idx = 0
+    for ci in range(k):
+        must_leave = k - ci - 1   # later chunks each need >= 1 contig
+        group = [records[idx]]
+        acc = records[idx][0]
+        idx += 1
+        while (len(records) - idx > must_leave
+               and (ci == k - 1 or acc + records[idx][0] <= per_chunk)):
+            group.append(records[idx])
+            acc += records[idx][0]
+            idx += 1
+        path = os.path.join(outdir, f"chunk{ci:03d}.fasta")
+        with open(path, "w") as f:
+            for _, lines in group:
+                f.writelines(lines)
+        paths.append(path)
+    return paths
 
 
 def _resolve_device(device) -> torch.device:
@@ -34,6 +134,29 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _note(msg: str) -> None:
+    print(f"[racon_tpu_torch::polisher] {msg}", file=sys.stderr)
+
+
+def _add_counts(total: dict, part: dict) -> None:
+    """Sum a chunk's phase stats into the run's: numbers added, flags
+    or-ed, nested dicts (the ladder's counts) the same way."""
+    for k, v in part.items():
+        if isinstance(v, dict):
+            _add_counts(total.setdefault(k, {}), v)
+        elif isinstance(v, bool):
+            total[k] = total.get(k, False) or v
+        else:
+            total[k] = total.get(k, 0) + v
+
+
+def _overlap_s(a, b) -> float:
+    """Seconds in which an interval of `a` and one of `b` ([(start,
+    end)], each list disjoint) overlap."""
+    return sum(max(0.0, min(e1, e2) - max(s1, s2))
+               for s1, e1 in a for s2, e2 in b)
+
+
 class TorchPolisher:
     """Polish `target` with `sequences` and their `overlaps`.
 
@@ -45,64 +168,373 @@ class TorchPolisher:
     ``RACON_TPU_BAND``; ops/band.py): each job and window starts on the
     band of its length delta plus ``band_slack`` and widens at most
     ``band_max_widenings`` times before it runs flat, through the chosen
-    POA kernel's banded build; the output is the flat run's. The other keyword arguments are racon's (window_length,
-    quality_threshold, error_threshold, trim, match, mismatch, gap,
-    fragment_correction, num_threads).
+    POA kernel's banded build; the output is the flat run's.
+    ``pipeline_depth`` is the number of consensus batches in flight on
+    the card (ops/batch_exec.py).
+
+    The chunked modes (module note): ``pipeline_phases`` with
+    ``handoff_depth`` chunks queued between the threads (the target is
+    split into handoff_depth + 2 chunks), ``stream_input``, and
+    ``memory_budget_mb`` (above 0 it arms streaming; its watermarks at
+    80% and 95% of it, MemoryBudget's defaults) with its ``spill_dir``
+    (the run's work directory by default). These are the JAX package's
+    RACON_TPU_* knobs as arguments, with their defaults. The other
+    keyword arguments are racon's (window_length, quality_threshold,
+    error_threshold, trim, match, mismatch, gap, fragment_correction,
+    num_threads).
 
     After polish(), ``stats`` holds each phase's wall seconds and served
     counts, with the ladder's counts in ``stats["align"]["band"]`` and
-    ``stats["consensus"]["band"]``."""
+    ``stats["consensus"]["band"]`` and the consensus feeder's wall split
+    in ``stats["consensus"]["pack_wall_s"]`` and ``["kernel_wall_s"]``.
+    A chunked run sums the chunks' counts and seconds and adds "chunks",
+    "chunk_s" (each chunk's phase seconds), "overlap_s" (the seconds in
+    which one chunk's alignment and another's consensus ran at once),
+    "prep_overlap_s" (the same for its parse, alignment and windows),
+    "peak_rss_mb", "pressure_level", "quarantined" (chunks whose working
+    set a torn input degraded) and "collapsed" (the hard watermark
+    collapsed the pipeline)."""
 
     def __init__(self, sequences: str, overlaps: str, target: str, *,
                  device="cuda", batch_windows: int = 256,
                  poa_kernel: str = DEFAULT_POA_KERNEL, band: bool = False,
                  band_slack: int = _band.DEFAULT_SLACK,
                  band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
-                 **racon_kwargs):
+                 pipeline_phases: bool = False, handoff_depth: int = 1,
+                 stream_input: bool = False, memory_budget_mb: int = 0,
+                 spill_dir: Optional[str] = None,
+                 pipeline_depth: int = DEFAULT_DEPTH, **racon_kwargs):
         self.device = _resolve_device(device)
         kernel_for(poa_kernel)
         self.batch_windows = batch_windows
         self.poa_kernel = poa_kernel
         self.band = dict(band=band, band_slack=band_slack,
                          band_max_widenings=band_max_widenings)
+        self.pipeline_depth = pipeline_depth
+        self.handoff_depth = max(1, int(handoff_depth))
         self._kwargs = dict(racon_kwargs)
+        self._paths = (sequences, overlaps, target)
+        self.budget = MemoryBudget(memory_budget_mb, spill_dir=spill_dir)
+        self._pipelined = bool(pipeline_phases)
+        self._stream = bool(stream_input) or self.budget.enabled
+        # the chunked modes parse per chunk; the whole target's pipeline
+        # is built only where the run ends up sequential
+        self._pipeline = (None if (self._pipelined or self._stream) else
+                          Pipeline(sequences, overlaps, target,
+                                   **racon_kwargs))
+        self._chunks = None
+        self._tmpdir = None
+        self._stream_index = None
+        self._queue = None
+        self._worker = None
+        self._collapsed = False
+        self._quarantined: List[int] = []
+        self._align_spans: List[Tuple[float, float]] = []
+        self._prep_spans: List[Tuple[float, float]] = []
+        self.stats = {}
+
+    # -- the sequential path ----------------------------------------------
+    def _sync(self) -> None:
+        """Wait for this thread's work on the card (its current stream;
+        the other thread of a pipelined run keeps going)."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _timed(self, stats: dict, name: str, fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        self._sync()
+        stats[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    def _align(self, pl, stats: dict) -> None:
+        """Parse, align and window one pipeline, timing each phase into
+        `stats`."""
+        t_parse = time.perf_counter()
+        self._timed(stats, "parse", pl.prepare)
+        t0 = time.perf_counter()
+        stats["align"] = self._timed(
+            stats, "align", run_alignment_phase, pl, device=self.device,
+            **self.band)
+        self._align_spans.append((t0, time.perf_counter()))
+        self._timed(stats, "windows", pl.build_windows)
+        self._prep_spans.append((t_parse, time.perf_counter()))
+
+    def _consensus(self, pl, stats: dict, drop_unpolished: bool):
+        """Consensus and stitching of one pipeline, timed into `stats`."""
+        kw = self._kwargs
+        stats["consensus"] = self._timed(
+            stats, "consensus", run_consensus_phase, pl,
+            match=kw.get("match", 3), mismatch=kw.get("mismatch", -5),
+            gap=kw.get("gap", -4), trim=kw.get("trim", True),
+            device=self.device, batch_windows=self.batch_windows,
+            poa_kernel=self.poa_kernel, pipeline_depth=self.pipeline_depth,
+            budget=self.budget if self.budget.enabled else None,
+            **self.band)
+        return self._timed(stats, "stitch", pl.stitch, drop_unpolished)
+
+    def initialize(self) -> None:
+        """Parse and filter, align, and build windows; in a chunked mode,
+        split the target and (pipelined) start the alignment worker."""
+        self.budget.start()
+        if self._pipelined or self._stream:
+            chunks = self._split_target()
+            if chunks is not None:
+                self._chunks = chunks
+                if self._stream:
+                    self._arm_streaming(chunks)
+                if self._pipelined:
+                    self._start_phase_pipeline(chunks)
+                return
+            self._pipelined = self._stream = False
+        if self._pipeline is None:
+            self._pipeline = Pipeline(*self._paths, **self._kwargs)
+        self._align(self._pipeline, self.stats)
+
+    def polish(self, drop_unpolished: bool = True) -> List[Tuple[str, str]]:
+        """Consensus and stitching; returns [(name, sequence)]."""
+        try:
+            if self._chunks is None:
+                return self._consensus(self._pipeline, self.stats,
+                                       drop_unpolished)
+            return self._polish_chunks(drop_unpolished)
+        finally:
+            self.budget.stop()
+            if self._tmpdir is not None:
+                shutil.rmtree(self._tmpdir, ignore_errors=True)
+                self._tmpdir = None
+
+    # -- the chunked modes ------------------------------------------------
+    def _split_target(self):
+        """Chunk the target FASTA; None (with a NOTE) where it cannot be
+        split: the phases then run sequentially."""
+        target = self._paths[2]
+        if not target.lower().endswith((".fa", ".fasta", ".fa.gz",
+                                        ".fasta.gz")):
+            _note("NOTE: chunked polishing needs a FASTA target; running "
+                  "the phases sequentially")
+            return None
+        if self._paths[1].lower().endswith((".mhap", ".mhap.gz")):
+            _note("NOTE: MHAP overlaps name targets by ordinal, which "
+                  "chunking the target would renumber; running the phases "
+                  "sequentially")
+            return None
+        self._tmpdir = tempfile.mkdtemp(prefix="racon_tpu_torch_chunks.")
+        chunks = _split_fasta(target, self.handoff_depth + 2, self._tmpdir)
+        if chunks is None:
+            shutil.rmtree(self._tmpdir, ignore_errors=True)
+            self._tmpdir = None
+            _note("NOTE: target has fewer than two contigs; running the "
+                  "phases sequentially")
+        return chunks
+
+    def _arm_streaming(self, chunks) -> None:
+        """Index each chunk's byte ranges of the inputs (one pass over
+        each). MHAP and unreadable inputs fall back, with a NOTE, to chunk
+        pipelines that parse the whole inputs; the native parser gives
+        the verdict on them."""
+        from .streamio import TORN_ERRORS, StreamIndex, StreamUnsupported
+
+        try:
+            self._stream_index = StreamIndex(
+                self._paths[0], self._paths[1], chunks, self._tmpdir)
+        except StreamUnsupported as e:
+            _note(f"NOTE: streaming input disabled ({e}); chunk pipelines "
+                  "parse the full inputs")
+        except TORN_ERRORS as e:
+            _note(f"NOTE: streaming index failed ({type(e).__name__}: {e}); "
+                  "chunk pipelines parse the full inputs")
+
+    def _chunk_inputs(self, ci: int):
+        """(sequences, overlaps, subset paths) of chunk ci's pipeline: the
+        streamed working set where streaming is armed, else the whole
+        inputs. This is the per-chunk budget poll: under soft or worse
+        pressure the working set goes through the spill file. A torn
+        chunk is quarantined (recorded; the run goes on) and polishes
+        from what the index recovered before the tear."""
+        level = self.budget.poll()
+        idx = self._stream_index
+        if idx is None:
+            return self._paths[0], self._paths[1], None
+        torn = idx.torn(ci)
+        try:
+            ws = idx.materialize(ci)
+            if at_least(level, "soft"):
+                ws.park(self.budget.spill_dir_for(self._tmpdir))
+            paths = ws.realize(self._tmpdir)
+        except Exception as e:  # noqa: BLE001 - a degraded chunk, not a
+            # failed run: it polishes from the whole inputs
+            self._quarantine_chunk(ci, torn or e)
+            return self._paths[0], self._paths[1], None
+        if torn is not None:
+            self._quarantine_chunk(ci, torn)
+        return paths[0], paths[1], paths
+
+    def _quarantine_chunk(self, ci: int, exc: BaseException) -> None:
+        _note(f"WARNING: chunk {ci} working set degraded "
+              f"({type(exc).__name__}: {exc}); quarantining the chunk")
+        self._quarantined.append(ci)
+
+    @staticmethod
+    def _release_ws(ws_paths) -> None:
+        """Delete a chunk's subset files (its pipeline has parsed them by
+        the end of prepare())."""
+        for p in ws_paths or ():
+            try:
+                os.unlink(p)
+            except OSError:
+                pass
+
+    def _maybe_collapse(self) -> bool:
+        """The hard watermark's latch on the pipelined path: once crossed,
+        the worker no longer runs ahead of consensus."""
+        if not self.budget.hard_latched():
+            return False
+        self._collapsed = True
+        return True
+
+    def _prepare_chunk(self, ci: int, chunk_path: str):
+        """Chunk ci's pipeline, parsed, aligned and windowed, and its
+        stats."""
+        st = {}
+        seqs, ovls, ws_paths = self._chunk_inputs(ci)
+        pl = Pipeline(seqs, ovls, chunk_path, **self._kwargs)
+        try:
+            self._align(pl, st)
+        finally:
+            self._release_ws(ws_paths)
+        return pl, st
+
+    def _start_phase_pipeline(self, chunks) -> None:
+        """Build the kernels, then start the one alignment worker and its
+        FIFO queue of handoff_depth chunks: chunks reach consensus in
+        target order, so the stitched output is the sequential run's."""
+        import queue
+
+        if self.device.type == "cuda":
+            from .ops import cuda_lib
+
+            cuda_lib.build_all()
+        self._queue = q = queue.Queue(maxsize=self.handoff_depth)
+        dev = self.device
+
+        def worker():
+            try:
+                stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                          else None)
+                with torch.cuda.stream(stream):
+                    for ci, chunk_path in enumerate(chunks):
+                        # backpressure: under soft or worse pressure (or
+                        # once the hard watermark collapsed the pipeline)
+                        # wait until consensus drains the queue
+                        while ((self._maybe_collapse() or at_least(
+                                self.budget.level(), "soft"))
+                               and not q.empty()):
+                            time.sleep(0.02)
+                        pl, st = self._prepare_chunk(ci, chunk_path)
+                        q.put((ci, pl, st))
+                q.put(_DONE)
+            except BaseException as e:  # noqa: BLE001 - re-raised on the
+                # consuming thread
+                q.put(_WorkerFailure(e))
+
+        self._worker = threading.Thread(target=worker, name="align-worker",
+                                        daemon=True)
+        self._worker.start()
+
+    def _chunk_results(self):
+        """(ci, pipeline, stats) of each chunk in order: from the worker's
+        queue when pipelined, else prepared here one at a time."""
+        if not self._pipelined:
+            for ci, chunk_path in enumerate(self._chunks):
+                pl, st = self._prepare_chunk(ci, chunk_path)
+                yield ci, pl, st
+            return
+        while True:
+            item = self._queue.get()
+            if item is _DONE:
+                break
+            if isinstance(item, _WorkerFailure):
+                raise item.exc
+            yield item
+
+    def _polish_chunks(self, drop_unpolished: bool):
+        """Consensus and stitching of each chunk in order: pipelined, as
+        the worker hands it over, on this thread's own stream; streamed
+        without pipelining, one chunk at a time (working set, alignment,
+        consensus, release), so peak RSS is O(chunk). The JAX package's
+        _polish_pipelined and _polish_stream_sequential in one."""
+        out: List[Tuple[str, str]] = []
+        per_chunk, cons_spans = [], []
+        stream = (torch.cuda.Stream(self.device)
+                  if self._pipelined and self.device.type == "cuda"
+                  else None)
+        with torch.cuda.stream(stream):
+            for ci, pl, st in self._chunk_results():
+                t0 = time.perf_counter()
+                out.extend(self._consensus(pl, st, drop_unpolished))
+                cons_spans.append((t0, t0 + st["consensus_s"]))
+                per_chunk.append(st)
+                del pl   # the chunk's native working set goes here
+        if self._worker is not None:
+            self._worker.join()
+        total = {}
+        for st in per_chunk:
+            _add_counts(total, st)
+        total.update(
+            chunks=len(per_chunk),
+            chunk_s=[{p: st[f"{p}_s"] for p in CHUNK_PHASES}
+                     for st in per_chunk],
+            overlap_s=_overlap_s(self._align_spans, cons_spans),
+            prep_overlap_s=_overlap_s(self._prep_spans, cons_spans),
+            peak_rss_mb=peak_rss_mb(),
+            pressure_level=self.budget.level(),
+            quarantined=sorted(self._quarantined),
+            collapsed=self._collapsed,
+            streamed=self._stream_index is not None)
+        self.stats = total
+        return out
+
+
+class CpuPolisher:
+    """The native host pipeline (the JAX package's CpuPolisher, its
+    oracle): parse, align on the host and build windows in one native
+    call, host POA consensus for every window (``num_threads`` threads),
+    stitch. ``stats`` holds the wall seconds of "initialize", "consensus"
+    and "stitch"."""
+
+    def __init__(self, sequences: str, overlaps: str, target: str,
+                 **racon_kwargs):
         self._pipeline = Pipeline(sequences, overlaps, target,
                                   **racon_kwargs)
         self.stats = {}
 
-    def _timed(self, name: str, fn, *args, **kwargs):
+    def _timed(self, name: str, fn, *args):
         t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        out = fn(*args)
         self.stats[f"{name}_s"] = time.perf_counter() - t0
         return out
 
     def initialize(self) -> None:
-        """Parse and filter, align, and build windows."""
-        pl = self._pipeline
-        self._timed("parse", pl.prepare)
-        self.stats["align"] = self._timed(
-            "align", run_alignment_phase, pl, device=self.device,
-            **self.band)
-        self._timed("windows", pl.build_windows)
+        self._timed("initialize", self._pipeline.initialize)
 
     def polish(self, drop_unpolished: bool = True) -> List[Tuple[str, str]]:
-        """Consensus and stitching; returns [(name, sequence)]."""
-        kw = self._kwargs
-        self.stats["consensus"] = self._timed(
-            "consensus", run_consensus_phase, self._pipeline,
-            match=kw.get("match", 3), mismatch=kw.get("mismatch", -5),
-            gap=kw.get("gap", -4), trim=kw.get("trim", True),
-            device=self.device, batch_windows=self.batch_windows,
-            poa_kernel=self.poa_kernel, **self.band)
+        self._timed("consensus", self._pipeline.consensus_cpu_all)
         return self._timed("stitch", self._pipeline.stitch, drop_unpolished)
 
 
+BACKENDS = ("cuda", "host")
+
+
 def create_polisher(sequences: str, overlaps: str, target: str, *,
-                    device="cuda", poa_kernel: str = DEFAULT_POA_KERNEL,
-                    **kwargs) -> TorchPolisher:
-    """Factory, as the JAX package's create_polisher for its device
-    backend."""
-    return TorchPolisher(sequences, overlaps, target, device=device,
-                         poa_kernel=poa_kernel, **kwargs)
+                    backend: str = "cuda", **kwargs):
+    """Factory, as the JAX package's create_polisher: backend "cuda" (the
+    default) returns TorchPolisher with `kwargs`; "host" returns
+    CpuPolisher, the native host pipeline, with racon's keyword
+    arguments. It is not named "cpu": ``device="cpu"`` already means the
+    kernels' plain PyTorch versions."""
+    if backend == "cuda":
+        return TorchPolisher(sequences, overlaps, target, **kwargs)
+    if backend == "host":
+        return CpuPolisher(sequences, overlaps, target, **kwargs)
+    raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")

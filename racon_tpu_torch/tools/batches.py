@@ -80,6 +80,98 @@ def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
     return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
 
 
+#: wide_id_batch's backbone length and layer span.
+WIDE_ID_BACKBONE, WIDE_ID_SPAN = 11000, 110
+
+
+def wide_id_batch(cfg: PoaConfig, seed: int = 3):
+    """Two windows at a geometry above the int16 node ids (class 11,008:
+    max_nodes 33,024), the smallest launch of the POA kernels' int32
+    global builds: window 0 has three short mutated layers on a random
+    backbone; window 1 carries node ids past 32,767 with 199 short
+    layers. Its backbone is 11,000 A's; 100 layers of 110 C's tile it, 99
+    of 110 G's tile all but its last 110 bases, and every such base
+    aligns to its column as a mismatch, so each makes a node: 32,890
+    nodes. Needs cfg.depth >= 199 and cfg.max_backbone >= 11,000."""
+    rng = np.random.default_rng(seed)
+    D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
+    L, span = WIDE_ID_BACKBONE, WIDE_ID_SPAN
+    assert D >= 199 and MB >= L
+    bb = np.zeros((2, MB), np.uint8)
+    bbw = np.zeros((2, MB), np.int32)
+    seqs = np.zeros((2, D, ML), np.uint8)
+    ws = np.zeros((2, D, ML), np.int32)
+    lens = np.zeros((2, D), np.int32)
+    begins = np.zeros((2, D), np.int32)
+    ends = np.zeros((2, D), np.int32)
+    truth = rng.integers(0, 4, L).astype(np.uint8)
+    bb[0, :L] = mutate(rng, truth, 0.1)[:L]
+    bbw[:, :L] = rng.integers(1, 60, (2, L))
+    n_layers = np.array([3, 0], np.int32)
+    for li, beg in enumerate((100, 4000, 7500)):
+        lay = mutate(rng, truth[beg:beg + 300], 0.1)
+        seqs[0, li, :len(lay)] = lay
+        ws[0, li, :len(lay)] = rng.integers(1, 60, len(lay))
+        lens[0, li], begins[0, li], ends[0, li] = len(lay), beg, beg + 299
+    for code, stop in ((1, L), (2, L - span)):
+        for beg in range(0, stop, span):
+            li = n_layers[1]
+            seqs[1, li, :span] = code
+            ws[1, li, :span] = rng.integers(1, 60, span)
+            lens[1, li], begins[1, li], ends[1, li] = span, beg, beg + span - 1
+            n_layers[1] += 1
+    bb_len = np.full(2, L, np.int32)
+    return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
+
+
+def wide_column_batch(cfg: PoaConfig, seed: int = 5, span: int = 1000):
+    """Two windows whose layers pass column 32,767 at class 22,016
+    (max_len 33,024 above the int16 range, max_nodes 66,048): window 0 has
+    three short mutated layers on a random backbone of cfg.max_backbone -
+    16 bases; window 1's first layer is cfg.max_len - 124 bases (32,900
+    at that class) over a `span`-base stretch of its backbone, the
+    stretch's two halves around one long random insertion, so its graph
+    also passes node id 32,767; its second layer, a mutated copy of the
+    stretch, aligns through those inserted nodes. At a smaller class
+    `span` shrinks to a quarter of the backbone."""
+    rng = np.random.default_rng(seed)
+    D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
+    L = MB - 16
+    span = min(span, L // 4)
+    assert D >= 3 and ML - 124 > span
+    bb = np.zeros((2, MB), np.uint8)
+    bbw = np.zeros((2, MB), np.int32)
+    seqs = np.zeros((2, D, ML), np.uint8)
+    ws = np.zeros((2, D, ML), np.int32)
+    lens = np.zeros((2, D), np.int32)
+    begins = np.zeros((2, D), np.int32)
+    ends = np.zeros((2, D), np.int32)
+    bbw[:, :L] = rng.integers(1, 60, (2, L))
+
+    def put(w, li, lay, beg, end):
+        seqs[w, li, :len(lay)] = lay
+        ws[w, li, :len(lay)] = rng.integers(1, 60, len(lay))
+        lens[w, li], begins[w, li], ends[w, li] = len(lay), beg, end
+
+    truth = rng.integers(0, 4, L).astype(np.uint8)
+    bb[0, :L] = truth
+    short = min(300, L // 4)
+    for li, f in enumerate((0.01, 0.45, 0.9)):
+        beg = int(f * (L - short))
+        put(0, li, mutate(rng, truth[beg:beg + short], 0.1), beg,
+            beg + short - 1)
+    bb[1, :L] = rng.integers(0, 4, L)
+    beg, half = L // 40, span // 2
+    stretch = bb[1, beg:beg + span]
+    insert = rng.integers(0, 4, ML - 124 - span).astype(np.uint8)
+    put(1, 0, np.concatenate([stretch[:half], insert, stretch[half:]]), beg,
+        beg + span - 1)
+    put(1, 1, mutate(rng, stretch, 0.1), beg, beg + span - 1)
+    n_layers = np.array([3, 2], np.int32)
+    bb_len = np.full(2, L, np.int32)
+    return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
+
+
 #: (run length R, growing layers K, seed) of each equal_key_batch window.
 EQUAL_KEY_WINDOWS = ((5, 11, 0), (7, 12, 0), (7, 11, 0), (12, 10, 1),
                      (9, 12, 3), (7, 10, 0))

@@ -331,7 +331,7 @@ def probe(mode: int, R: int, seed: torch.Tensor, rows: bool = False):
         err = lib.rt_probe_launch(mode, R, p(seed), p(out), p(steps),
                                   p(scratch), B, cuda_lib.stream_of(seed))
         cuda_lib.check(err, f"DP-cost probe kernel (mode {mode})")
-        cuda_lib.LAUNCHES["dp_cost_probe"] += 1
+        cuda_lib.count_launch("dp_cost_probe")
     if not rows:
         return out, steps
     return out, steps, scratch[:, :ROW_WIDTH[mode]].clone()

@@ -260,14 +260,20 @@ def test_poa_global_band_builds_equal_plain(card, kernel, name):
 
 
 def test_poa_v2_raises_where_the_graph_does_not_fit(card):
-    """A graph beyond the int16 node ids of both kernels (max_nodes
-    32,768, one past the limit): the wrapper raises, naming the limit,
-    before any launch."""
-    cfg = CFG._replace(max_nodes=32768, max_len=1024, max_backbone=512)
-    packed = batches.poa_batch(cfg, 1, 22, 100)
-    with pytest.raises(ValueError, match="int16 node ids"):
-        poa_v2_cuda.poa_consensus_v2(cfg,
-                                     *poa.batch_to_tensors(packed, card))
+    """A graph whose scratch does not fit the card (max_nodes 200,000 by
+    max_len 200,000: about 200 GB a window): the wrapper raises on its
+    scratch allocation, before any launch."""
+    cfg = CFG._replace(max_nodes=200000, max_len=200000)
+    dev_in = list(poa.batch_to_tensors(batches.poa_batch(CFG, 1, 22, 100),
+                                       card))
+    dev_in[4] = torch.zeros((1, CFG.depth, cfg.max_len), dtype=torch.uint8,
+                            device=card)
+    dev_in[5] = torch.zeros((1, CFG.depth, cfg.max_len), dtype=torch.int32,
+                            device=card)
+    n0 = dict(cuda_lib.LAUNCHES)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        poa_v2_cuda.poa_consensus_v2(cfg, *dev_in)
+    assert cuda_lib.LAUNCHES == n0
 
 
 @pytest.mark.parametrize("window", [500, 2048, 3072, 10880])
@@ -287,9 +293,10 @@ def test_poa_scratch_words_match_the_kernels(card, window):
 def test_poa_batches_split_by_the_memory_cap(card, kernel, monkeypatch):
     """A class-4096 bucket of five windows on a card whose free memory
     (as poa_driver reads it) holds two windows and the margin: the
-    consensus phase runs three batches through the global build, and
-    every window gets the consensus the CPU run (plain version, one
-    batch) gives."""
+    consensus phase, one batch in flight, runs three batches through the
+    global build, and every window gets the consensus the CPU run (plain
+    version, one batch) gives; with two batches in flight (the default
+    depth) each holds one window."""
     cfg = poa_driver.make_config(4096, 8, 5, -4, -8)
     packed = batches.poa_batch(cfg, 5, 24, 4080, layers=(2, 3),
                                shortest=4000)
@@ -298,16 +305,19 @@ def test_poa_batches_split_by_the_memory_cap(card, kernel, monkeypatch):
     fixed, share = poa_driver.MEMORY_MARGIN
     free = int((2.5 * per) / (1 - share)) + fixed
     assert poa_driver.batch_cap(cfg, free) == 2
+    assert poa_driver.batch_cap(cfg, free, 2) == 1
     monkeypatch.setattr(poa_driver, "free_device_bytes", lambda dev: free)
     runs = {}
-    for dev in ("cpu", "cuda"):
+    for dev, depth in (("cpu", 1), ("cuda", 1), ("cuda2", 2)):
         ws = batches.WindowSet(packed)
         cuda_lib.reset_launches()
         st = poa_driver.run_consensus_phase(
-            ws, match=5, mismatch=-4, gap=-8, trim=True, device=dev,
-            poa_kernel=kernel)
+            ws, match=5, mismatch=-4, gap=-8, trim=True, device=dev[:4],
+            poa_kernel=kernel, pipeline_depth=depth)
         runs[dev] = (ws.consensus, st, dict(cuda_lib.LAUNCHES))
     (want, wst, _), (got, gst, launches) = runs["cpu"], runs["cuda"]
+    assert runs["cuda2"][1]["batches"] == 5
+    assert runs["cuda2"][0] == want
     assert wst["batches"] == 1 and gst["batches"] == 3
     assert gst["device"] == wst["device"] == 5
     base = "poa_consensus_v2" if kernel == "v2" else "poa_consensus"

@@ -53,29 +53,52 @@ def test_class_2560_batch_equals_jax_twin(class_2560, kernel):
 
 def test_largest_window_is_the_node_id_limit():
     """make_config's max_nodes (3 x the window class, on the 128 grid)
-    stays within int16 node ids up to -w 10,880."""
-    assert poa_driver.largest_window() == 10880
+    stays within int16 node ids up to -w 10,880; above it the global
+    build takes int32 ids, so the largest window is the one whose
+    scratch fits the card: about -w 55,000 on an 80 GB card, by memory
+    (about 22.5 x class^2 bytes a window)."""
     cfg = poa_driver.make_config(10880, 8, 5, -4, -8)
     assert (cfg.max_nodes, cfg.max_len) == (32640, 16384)
-    assert poa_driver.make_config(11008, 8, 5, -4, -8).max_nodes > \
-        poa_cuda.MAX_NODES
+    assert not poa_cuda.wide_ids(cfg, True)
+    big = poa_driver.make_config(11008, 8, 5, -4, -8)
+    assert big.max_nodes > poa_cuda.INT16_NODES
+    assert poa_cuda.wide_ids(big, True) and not poa_cuda.wide_ids(big, False)
+    room = poa_driver.memory_room(79 * 10**9)
+    wl = poa_driver.largest_window(room, 8)
+    assert 54000 < wl < 57000 and wl % 128 == 0
+    assert poa_driver.window_bytes(
+        poa_driver.make_config(wl, 8, 0, 0, 0)) <= room
+    assert poa_driver.window_bytes(
+        poa_driver.make_config(wl + 128, 8, 0, 0, 0)) > room
+    for c, gb in ((10880, 2.7), (16384, 6.0), (40064, 36.0)):
+        per = poa_driver.window_bytes(poa_driver.make_config(c, 8, 0, 0, 0))
+        assert abs(per / 1e9 - gb) < 0.1 * gb
+    assert poa_driver.largest_window(10**5, 8) == 0
 
 
 @pytest.mark.parametrize("kernel", ["ls", "v2"])
 def test_check_geometries_names_the_node_id_limit(kernel):
-    """check_geometries passes every class up to 10,880 and, above it,
-    raises one ValueError that names the cause (int16 node ids) and the
-    largest -w; it needs no card."""
+    """check_memory passes every class whose window fits the free memory
+    less the margin, above the int16 node ids (class 11,008 and up, the
+    int32 global build) too, and raises one ValueError only where a
+    single window does not fit, naming the largest -w that does; it
+    needs no card."""
+    free = 79 * 10**9
     ok = [poa_driver.make_config(wl, 32, 5, -4, -8)
-          for wl in (500, 2048, 2176, 4096, 10880)]
-    poa_driver.check_geometries(ok, kernel)
-    bad = poa_driver.make_config(11008, 8, 5, -4, -8)
+          for wl in (500, 2048, 2176, 4096, 10880, 11008, 40064)]
+    poa_driver.check_memory(ok, free, kernel)
+    bad = poa_driver.make_config(60032, 8, 5, -4, -8)
     with pytest.raises(ValueError) as e:
-        poa_driver.check_geometries(ok + [bad], kernel)
+        poa_driver.check_memory(ok + [bad], free, kernel)
     msg = str(e.value)
+    wl = poa_driver.largest_window(poa_driver.memory_room(free), 8)
     assert f"the {kernel} POA kernel" in msg
-    assert "max_nodes 33024" in msg and "int16 node-id limit of 32767" in msg
-    assert msg.endswith("the largest window length it takes is -w 10880")
+    assert "backbone class 60032" in msg
+    assert msg.endswith(f"the largest window length that fits is -w {wl}")
+    with pytest.raises(ValueError, match="-w 10880$"):
+        poa_driver.check_memory(
+            [bad], poa_driver.window_bytes(poa_driver.make_config(
+                10880, 8, 0, 0, 0)) * 10 // 9 + (1 << 30) + 1000, kernel)
 
 
 def test_scratch_words_grow_five_bytes_a_cell():
@@ -139,3 +162,4 @@ def test_window_set_exports_its_batch():
     for i in range(3):
         bases, polished = ws.consensus[i]
         assert polished and len(bases) == int(want[2][i])
+

@@ -517,9 +517,10 @@ def test_banded_build_counts_one_row_a_step():
 @pytest.mark.parametrize("wrapper", ["ls", "v2"])
 def test_wrappers_take_wide_geometries(window, wrapper):
     """Both wrappers' argument check takes make_config's geometries at -w
-    1500 and -w 2000 (max_len 2304 and 3072: the wide build) and any
-    max_len beyond (the global build), and refuses max_nodes above the
-    int16 node ids with a message that names the limit."""
+    1500 and -w 2000 (max_len 2304 and 3072: the wide build), any max_len
+    beyond and max_nodes above the int16 node ids (the global build, with
+    int32 ids there), and refuses more in-edge slots than the kernels
+    have, with a message that names the limit."""
     mod = poa_cuda if wrapper == "ls" else poa_v2_cuda
     cfg = poa_driver.make_config(poa_driver.window_class(window), 8, 5, -4,
                                  -8)
@@ -531,31 +532,40 @@ def test_wrappers_take_wide_geometries(window, wrapper):
     assert mod.check_inputs(wide, t, torch.device("cpu")) == 1
     big = cfg._replace(max_nodes=32768)
     t = poa.batch_to_tensors(batches.poa_batch(big, 1, 44, 60), "cpu")
-    with pytest.raises(ValueError, match="max_nodes <= 32767"):
-        mod.check_inputs(big, t, torch.device("cpu"))
+    assert mod.check_inputs(big, t, torch.device("cpu")) == 1
+    assert poa_cuda.wide_ids(big, True)
+    slots = cfg._replace(max_edges=33)
+    with pytest.raises(ValueError, match="max_edges <= 32"):
+        mod.check_inputs(slots, t, torch.device("cpu"))
 
 
-def test_consensus_phase_checks_every_geometry_before_any_window():
+def test_consensus_phase_checks_every_geometry_before_any_window(
+        monkeypatch):
     """On the card, run_consensus_phase checks every bucket's geometry
-    before it exports a window, and where one is beyond the int16 node
-    ids (a window of 11,000 bases: class 11,008, max_nodes 33,024) raises
-    one ValueError that names the limit and the largest -w the kernels
-    take; the classes below it, up to 10,880, pass."""
+    against the card's free memory before it exports a window, and where
+    one window does not fit (a window of 60,000 bases on an 80 GB card:
+    about 81 GB) raises one ValueError that names the largest -w that
+    fits; the classes below it pass, those above the int16 node ids
+    (11,000: class 11,008, max_nodes 33,024) too."""
 
     class Windows:
         exported = 0
 
         def num_windows(self):
-            return 3
+            return 4
 
         def window_info(self, i):
-            return (9, (400, 10880, 11000)[i], 0, True, 0, 0)
+            return (9, (400, 10880, 11000, 60000)[i], 0, True, 0, 0)
 
         def export_window(self, i):
             Windows.exported += 1
             raise AssertionError("a window ran before the geometry check")
 
-    with pytest.raises(ValueError, match="int16 node-id limit.*-w 10880$"):
+    free = 79 * 10**9
+    monkeypatch.setattr(poa_driver, "free_device_bytes", lambda dev: free)
+    wl = poa_driver.largest_window(poa_driver.memory_room(free), 8)
+    assert 11000 < wl < 60000
+    with pytest.raises(ValueError, match=f"class 60032 .*-w {wl}$"):
         poa_driver.run_consensus_phase(Windows(), match=5, mismatch=-4,
                                        gap=-8, trim=True, device="cuda",
                                        band=True)
