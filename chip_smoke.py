@@ -108,12 +108,33 @@ smoke started):
   alignment (and the whole of a chunk's parse, alignment and windows)
   overlapped consensus, the process's peak RSS and the chunk count
   (three: handoff_depth 1 + 2);
+* journal (after main_<other kernel>, on the main cell): a polish with no
+  journal, trace or recorder (the walls' baseline); (a) a journaled polish,
+  uninterrupted: its wall, the records (CIGARs and windows), the journal's
+  bytes and the seconds in fsync, and the wall of the same polish
+  journaled without fsync (journal_fsync=False); (b) a child process
+  ``python -m racon_tpu_torch.cli --journal J`` with RACON_TORCH_FAULT=
+  journal.append:batch=N:kill=1, N = (a)'s CIGAR records and half its
+  window records, which must die by SIGKILL; (c) ``--resume-journal J``
+  in this process: the main FASTA, fewer POA launches than main, and the
+  replayed CIGARs and windows under the report's "journal" tier;
+* trace: the main polish with trace_path and its report (a list in
+  cuda_lib.LAUNCH_EVENTS beside it): the main FASTA; the device track's
+  launches per kernel equal to the launch counts and its summed durations
+  within 1% of the LAUNCH_EVENTS sum; its wall, the phase walls from the
+  port's trace reader, the device's busy share of the polish, and the
+  host gaps between launches by their enclosing span (obs/__main__.py
+  device_track);
+* watchdog: the parity set on the card with RACON_TORCH_FAULT's
+  poa.run.ls:hang=60 (through faults.configure) and device_timeout_s=2:
+  WatchdogTimeout within 15 s of the polish's start;
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
   against its plain version run on the card.
 
-Each path (main, main_<other kernel>, main_band, main_ls_band, lowerr,
+Each path (main, main_<other kernel>, journal, journal_resume, trace,
+main_band, main_ls_band, lowerr,
 lowerr_band, wide_ls, wide_v2, wide_3000_<kernel>, wide_3000_<kernel>_band,
 wide_11008_<kernel>, wide_11008_<kernel>_band, chunked_<mode>, probe) runs
 with the launch counts set to 0 just before it and read just after; every
@@ -127,7 +148,8 @@ build.
 Then a line with every kernel's numbers, the card's name and power limit
 as nvidia-smi gives them, and last {"ok": true, "device": {...}}. Any
 failure raises and exits non-zero before the last line. Needs one CUDA
-card; fails without one.
+card; fails without one. ``--keep DIR`` copies the trace phase's trace and
+report into DIR.
 """
 
 from __future__ import annotations
@@ -135,6 +157,8 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -955,7 +979,7 @@ def run_main(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
     check_launches(path, launches, poa_kernel, band_names)
     require(ed_polished < ed_draft, "polishing did not lower the edit "
             f"distance ({ed_draft} -> {ed_polished})")
-    return out, rec, launches, on_main
+    return out, rec, launches, on_main, wall
 
 
 def recorded_polish(torch, racon_tpu_torch, ac, poa_driver, cuda_lib, d,
@@ -1494,7 +1518,212 @@ def probe_phase(torch, probe, cuda_lib):
                       "bound_by": "operations"}
 
 
+
+MAIN_CLI = ["-w", str(MAIN["window_length"]), "-m", str(MAIN["match"]),
+            "-x", str(MAIN["mismatch"]), "-g", str(MAIN["gap"])]
+
+
+def journal_records(path: str) -> dict:
+    """Record counts of a journal by kind."""
+    counts = {}
+    with open(path) as f:
+        for line in f:
+            kind = json.loads(line)["kind"]
+            counts[kind] = counts.get(kind, 0) + 1
+    return counts
+
+
+def poa_launches(launches: dict) -> int:
+    return sum(v for k, v in launches.items() if k.startswith("poa_"))
+
+
+def journal_phase(racon_tpu_torch, cuda_lib, d, main_run, tmp):
+    """The main cell without journal, trace or recorder (the baseline of
+    the walls), then journaled (a) and journaled without fsync, a CLI
+    child killed by SIGKILL at the journal append after all CIGARs and
+    half the windows (b), and its journal resumed here (c). Returns the
+    baseline's seconds."""
+    main_out, main_launches, main_wall = main_run[0], main_run[2], main_run[4]
+    cuda_lib.reset_launches()
+    plain, _, plain_s = polish_with(racon_tpu_torch, d, "cuda")
+    require(plain == main_out, "the plain polish's FASTA differs from main's")
+
+    ja = os.path.join(tmp, "a.journal")
+    cuda_lib.reset_launches()
+    p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
+                                      device="cuda", journal_path=ja, **MAIN)
+    t0 = time.perf_counter()
+    p.initialize()
+    out = p.polish(True)
+    wall_a = time.perf_counter() - t0
+    fsync_s = p.journal.fsync_s
+    launches_a = dict(cuda_lib.LAUNCHES)
+    check_launches("journal", launches_a, "ls")
+    require(out == main_out, "the journaled polish's FASTA differs from "
+            "main's")
+    recs = journal_records(ja)
+    cigars, windows = recs.get("cigar", 0), recs.get("window", 0)
+    require(cigars > 0 and windows > 1, f"journal records {recs}")
+    # the same without fsync: what the journal costs besides its fsyncs
+    cuda_lib.reset_launches()
+    nosync, _, nosync_s = polish_with(
+        racon_tpu_torch, d, "cuda",
+        journal_path=os.path.join(tmp, "n.journal"), journal_fsync=False)
+    require(nosync == main_out, "the journaled polish without fsync differs "
+            "from main's")
+
+    n = cigars + windows // 2
+    jb = os.path.join(tmp, "b.journal")
+    env = {**os.environ, "RACON_TORCH_FAULT":
+           f"journal.append:batch={n}:kill=1"}
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-m", "racon_tpu_torch.cli", *MAIN_CLI, "--journal",
+         jb, d["reads"], d["overlaps"], d["draft"]], cwd=ROOT, env=env,
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, timeout=900)
+    child_s = time.perf_counter() - t0
+    require(child.returncode == -signal.SIGKILL,
+            f"the journaled child exited {child.returncode}, not by "
+            f"SIGKILL: {child.stderr.decode()[-2000:]}")
+    recs_b = journal_records(jb)
+    require(recs_b.get("cigar") == cigars and
+            recs_b.get("window") == windows // 2,
+            f"the killed child left {recs_b}, expected {cigars} CIGARs and "
+            f"{windows // 2} windows")
+
+    cuda_lib.reset_launches()
+    p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
+                                      device="cuda", journal_path=jb,
+                                      resume_journal=True, **MAIN)
+    t0 = time.perf_counter()
+    p.initialize()
+    out = p.polish(True)
+    wall_c = time.perf_counter() - t0
+    launches_c = dict(cuda_lib.LAUNCHES)
+    phases = p.report.as_dict()["phases"]
+    require(out == main_out, "the resumed polish's FASTA differs from main's")
+    require(poa_launches(launches_c) < poa_launches(main_launches),
+            "the resumed polish did not launch fewer POA kernels than main "
+            f"({poa_launches(launches_c)} >= {poa_launches(main_launches)})")
+    require(phases["alignment"]["served"]["journal"] == cigars and
+            phases["consensus"]["served"]["journal"] == windows // 2,
+            f"the resumed report's journal counts: {phases}")
+    for name, ph in phases.items():
+        require(sum(ph["served"].values()) == ph["total"],
+                f"the resumed report's {name} served counts do not sum to "
+                "its total")
+    emit({"phase": "journal", "wall_s": wall_a, "plain_wall_s": plain_s,
+          "main_wall_s": main_wall, "records": {"cigar": cigars,
+                                                "window": windows},
+          "journal_bytes": os.path.getsize(ja),
+          "fsync_s": fsync_s, "no_fsync_wall_s": nosync_s,
+          "child_killed_at_record": n, "child_s": child_s,
+          "resume_wall_s": wall_c,
+          "resume_launches": {k: v for k, v in launches_c.items() if v},
+          "main_poa_launches": poa_launches(main_launches),
+          "resume_served": {k: v["served"] for k, v in phases.items()},
+          "identical": True})
+    return plain_s
+
+
+def trace_phase(torch, racon_tpu_torch, cuda_lib, d, main_run, plain_s, tmp,
+                keep):
+    """The main polish traced, with its report, and a LAUNCH_EVENTS list
+    of its own beside the trace's device track."""
+    from racon_tpu_torch.obs import __main__ as reader
+
+    main_out, main_wall = main_run[0], main_run[4]
+    tr = os.path.join(tmp, "main.trace.json")
+    cuda_lib.reset_launches()
+    cuda_lib.LAUNCH_EVENTS = events = []
+    try:
+        p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"],
+                                          d["draft"], device="cuda",
+                                          trace_path=tr, **MAIN)
+        t0 = time.perf_counter()
+        p.initialize()
+        out = p.polish(True)
+        wall = time.perf_counter() - t0
+    finally:
+        cuda_lib.LAUNCH_EVENTS = None
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    check_launches("trace", cuda_lib.LAUNCHES, "ls")
+    require(out == main_out, "the traced polish's FASTA differs from main's")
+    doc, errors = reader.load_trace(tr)
+    require(not errors, f"the trace has schema violations: {errors[:5]}")
+    track = reader.device_track(doc, top=8)
+    track_launches = {k: v["launches"] for k, v in track["kernels"].items()}
+    require(track_launches == launches, "the device track's launches "
+            f"{track_launches} differ from the launch counts {launches}")
+    torch.cuda.synchronize()
+    events_ms = sum(s.elapsed_time(e) for _, s, e in events)
+    track_ms = sum(v["busy_us"] for v in track["kernels"].values()) / 1e3
+    require(abs(track_ms - events_ms) <= 0.01 * events_ms,
+            f"the device track's {track_ms} ms differ from LAUNCH_EVENTS' "
+            f"{events_ms} ms by more than 1%")
+    report = p.report.as_dict()
+    for name, ph in report["phases"].items():
+        require(sum(ph["served"].values()) == ph["total"],
+                f"the traced report's {name} served counts do not sum")
+    require(all(v["ok"] for v in report["obs"]["served_sum"].values()),
+            "the report's served counts disagree with the metrics")
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+        shutil.copy(tr, os.path.join(keep, "main.trace.json"))
+        p.report.write(os.path.join(keep, "main.report.json"))
+    gaps = dict(list(track["gaps_by_span"].items())[:8])
+    emit({"phase": "trace", "wall_s": wall, "plain_wall_s": plain_s,
+          "main_wall_s": main_wall,
+          "phase_walls_ms": {k: v / 1e3 for k, v in
+                             reader.phase_walls_us(doc).items()},
+          "device_busy_share": track["busy_share"],
+          "device_busy_ms": track["busy_us"] / 1e3,
+          "polish_extent_ms": track["polish_us"] / 1e3,
+          "track_ms": track_ms, "launch_events_ms": events_ms,
+          "kernels": track["kernels"],
+          "host_gaps_by_span_ms": {
+              k: {"gaps": v["gaps"], "sum_ms": v["sum_us"] / 1e3,
+                  "max_ms": v["max_us"] / 1e3} for k, v in gaps.items()},
+          "top_gaps_ms": [{"span": g["span"], "gap_ms": g["gap_us"] / 1e3,
+                           "at_ms": g["start_us"] / 1e3}
+                          for g in track["top_gaps"]],
+          "served": {k: v["served"] for k, v in report["phases"].items()},
+          "trace_events": len(doc["traceEvents"]),
+          "dropped_events": doc["otherData"]["dropped_events"]})
+
+
+def watchdog_phase(racon_tpu_torch, d):
+    """The parity set on the card with every ls batch hung for 60 s and a
+    2 s device watchdog: WatchdogTimeout within 15 s."""
+    from racon_tpu_torch.resilience import faults
+    from racon_tpu_torch.resilience.watchdog import WatchdogTimeout
+
+    faults.configure("poa.run.ls:hang=60")
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        polish_with(racon_tpu_torch, d, "cuda", device_timeout_s=2.0)
+    except WatchdogTimeout as e:
+        raised = str(e)
+    finally:
+        faults.configure(None)
+    took = time.perf_counter() - t0
+    require(raised is not None, "the hung ls batch did not raise "
+            "WatchdogTimeout")
+    require(took < 15, f"WatchdogTimeout came after {took:.1f} s, not "
+            "within 15 s")
+    emit({"phase": "watchdog", "mbp": PARITY_MBP, "deadline_s": 2.0,
+          "hang_s": 60, "raised_after_s": took, "error": raised})
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="smoke run of racon_tpu_torch "
+                                 "on one CUDA card")
+    ap.add_argument("--keep", metavar="DIR", default=None,
+                    help="copy the trace phase's trace and report into DIR")
+    keep = ap.parse_args().keep
     import torch
 
     if not torch.cuda.is_available():
@@ -1566,6 +1795,13 @@ def main() -> int:
         require(runs[second][0] == runs[first][0], f"the {second} POA "
                 f"kernel's FASTA differs from the {first} kernel's")
         emit({"phase": f"main_{second}_vs_main", "identical": True})
+        # journal and resume, the traced polish and the watchdog, on the
+        # main cell (the watchdog on the parity set)
+        plain_s = journal_phase(racon_tpu_torch, cuda_lib, d, runs[first],
+                                tmp)
+        trace_phase(torch, racon_tpu_torch, cuda_lib, d, runs[first],
+                    plain_s, tmp, keep)
+        watchdog_phase(racon_tpu_torch, d_par)
         # main_band: the main cell on the banded path
         band_run = run_main(*mods, "v2", "main_band",
                             band=band.DEFAULT_SLACK,

@@ -14,8 +14,11 @@ and the POA consensus as CUDA kernels written for Hopper (``csrc/``).
 alone (``CpuPolisher``).
 """
 
+__version__ = "0.1.0"
+
 from . import native  # noqa: F401
 from .polisher import (CpuPolisher, TorchPolisher,  # noqa: F401
                        create_polisher)
 
-__all__ = ["CpuPolisher", "TorchPolisher", "create_polisher", "native"]
+__all__ = ["CpuPolisher", "TorchPolisher", "create_polisher", "native",
+           "__version__"]

@@ -2,6 +2,10 @@
 
 Usage: python -m racon_tpu_torch.cli [options] <sequences> <overlaps>
        <target sequences> > polished.fasta
+
+The fault spec (resilience/faults.py) is read from RACON_TORCH_FAULT and
+checked up front: a malformed one is one line on stderr and exit 1, as a
+journal that belongs to other inputs on --resume-journal is.
 """
 
 from __future__ import annotations
@@ -9,11 +13,14 @@ from __future__ import annotations
 import argparse
 import sys
 
+from . import __version__
 from .native import NativeError
 from .ops import band as _band
 from .ops.batch_exec import DEFAULT_DEPTH
 from .ops.poa_driver import DEFAULT_POA_KERNEL, POA_KERNELS
 from .polisher import create_polisher
+from .resilience import faults
+from .resilience.journal import JournalError
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -95,11 +102,43 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--pipeline-depth", type=int, default=DEFAULT_DEPTH,
                    help="consensus batches in flight on the card (default "
                    f"{DEFAULT_DEPTH})")
+    p.add_argument("--device-timeout", type=float, default=0.0,
+                   metavar="SECONDS",
+                   help="watchdog deadline on each wait for the card "
+                   "(default 0: none); on expiry the polish ends with "
+                   "WatchdogTimeout")
+    p.add_argument("--report", metavar="PATH", default=None,
+                   help="write a JSON run report (served counts by tier for "
+                   "each phase, wall seconds, the armed fault spec) to PATH")
+    p.add_argument("--trace", metavar="PATH", default=None,
+                   help="write a Chrome-trace JSON timeline of the run "
+                   "(phase spans, align cohorts, POA buckets and batches, "
+                   "on the card a device track of every launch; metrics "
+                   "embedded) to PATH; read it with `python -m "
+                   "racon_tpu_torch.obs PATH` or ui.perfetto.dev")
+    jr = p.add_mutually_exclusive_group()
+    jr.add_argument("--journal", metavar="PATH", default=None,
+                    help="append every served window and kernel CIGAR to a "
+                    "crash-safe journal at PATH (fsynced JSONL; overwrites "
+                    "an existing file), so that an interrupted run can be "
+                    "resumed")
+    jr.add_argument("--resume-journal", metavar="PATH", default=None,
+                    help="resume from the journal at PATH: replay what was "
+                    "served, compute only the rest and keep appending; the "
+                    "output is the uninterrupted run's (exit 1 where the "
+                    "journal belongs to other inputs or parameters; a "
+                    "missing PATH starts fresh)")
+    p.add_argument("--version", action="version", version=__version__)
     return p
 
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
+    try:
+        faults.validate()
+    except ValueError as e:
+        print(e, file=sys.stderr)
+        return 1
     racon = dict(fragment_correction=args.fragment_correction,
                  window_length=args.window_length,
                  quality_threshold=args.quality_threshold,
@@ -107,6 +146,9 @@ def main(argv=None) -> int:
                  trim=not args.no_trimming, match=args.match,
                  mismatch=args.mismatch, gap=args.gap,
                  num_threads=args.threads)
+    run = dict(journal_path=args.resume_journal or args.journal,
+               resume_journal=args.resume_journal is not None,
+               trace_path=args.trace)
     card = dict(device=args.device, poa_kernel=args.poa_kernel,
                 band=args.band, band_slack=args.band_slack,
                 band_max_widenings=args.band_max_widenings,
@@ -114,18 +156,22 @@ def main(argv=None) -> int:
                 handoff_depth=args.handoff_depth,
                 stream_input=args.stream_input,
                 memory_budget_mb=args.memory_budget_mb,
-                pipeline_depth=args.pipeline_depth)
+                pipeline_depth=args.pipeline_depth,
+                device_timeout_s=args.device_timeout)
     try:
         if args.host:
             polisher = create_polisher(args.sequences, args.overlaps,
-                                       args.targets, backend="host", **racon)
+                                       args.targets, backend="host", **run,
+                                       **racon)
         else:
             polisher = create_polisher(args.sequences, args.overlaps,
-                                       args.targets, **card, **racon)
+                                       args.targets, **card, **run, **racon)
         polisher.initialize()
         for name, data in polisher.polish(not args.include_unpolished):
             sys.stdout.write(f">{name}\n{data}\n")
-    except NativeError as e:
+        if args.report:
+            polisher.report.write(args.report)
+    except (JournalError, NativeError) as e:
         print(e, file=sys.stderr)
         return 1
     return 0

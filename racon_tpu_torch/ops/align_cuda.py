@@ -55,6 +55,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import obs
+from ..resilience import faults
+from ..resilience.watchdog import call_with_watchdog, wait_event
 from . import band as _band
 from . import cuda_lib
 from .align import ops_to_cigar
@@ -390,7 +393,19 @@ class _Task:
         self.pair, self.ia, self.ib, self.ja, self.jb = pair, ia, ib, ja, jb
 
 
-def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None):
+def _to_host(tensors, timeout_s: float, what: str):
+    """Numpy copies of `tensors`, the host's wait for the card under the
+    watchdog (resilience/watchdog.py)."""
+    ev = None
+    if tensors[0].device.type == "cuda":
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(tensors[0].device))
+    wait_event(ev, timeout_s, what)
+    return [t.cpu().numpy() for t in tensors]
+
+
+def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None,
+                timeout_s: float = 0.0):
     """pairs: [(q_codes, t_codes)] int numpy arrays -> [ops | None].
 
     ops are forward-ordered codes (0=M, 1=I, 2=D); None leaves the pair to
@@ -402,7 +417,10 @@ def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None):
     that every optimal and co-optimal path lies strictly inside the band,
     so that its ops equal the flat run's. A pair whose certificate fails
     is aborted at its first round, gets None, and its index is added to
-    `hits` for the caller's verify-and-widen ladder."""
+    `hits` for the caller's verify-and-widen ladder.
+
+    timeout_s: the watchdog's deadline on each wait for the card (0:
+    none)."""
     device = torch.device(device)
     results: List[Optional[np.ndarray]] = [None] * len(pairs)
     segments: Dict[int, list] = {}
@@ -433,10 +451,11 @@ def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None):
             break
         active = [t for t in active if (t.ib - t.ia) <= BASE_ROWS]
         active.extend(_split_round(pairs, big, bands, failed, device,
-                                   verify))
+                                   verify, timeout_s))
 
     base = [t for t in active if t.pair not in failed]
-    _solve_base(pairs, base, bands, segments, failed, device, verify)
+    _solve_base(pairs, base, bands, segments, failed, device, verify,
+                timeout_s)
 
     for idx, segs in segments.items():
         if idx in failed:
@@ -488,7 +507,7 @@ def _task_arrays(pairs, tasks, bands, rcap, K, backward):
     return scal, qs, ts
 
 
-def _split_round(pairs, tasks, bands, failed, device, verify):
+def _split_round(pairs, tasks, bands, failed, device, verify, timeout_s):
     """One Hirschberg round: split every oversized task at its midpoint.
     A banded pair's root task checks its certificate here: every path
     crosses the midpoint row, so the least F + B is the global distance."""
@@ -511,8 +530,10 @@ def _split_round(pairs, tasks, bands, failed, device, verify):
             *_task_arrays(pairs, f_tasks, bands, rcap, K, False), device)
         bwd = tasks_to_tensors(
             *_task_arrays(pairs, b_tasks, bands, rcap, K, True), device)
-        F = edge_rows(*fwd, K, False).cpu().numpy()
-        Bv = edge_rows(*bwd, K, True).cpu().numpy()
+        F, Bv = _to_host((edge_rows(*fwd, K, False),
+                          edge_rows(*bwd, K, True)), timeout_s,
+                         f"the edge kernel's round at K={K}, {len(group)} "
+                         "tasks")
         for gi, t in enumerate(group):
             imid = (t.ia + t.ib) // 2
             K_, gdmin = bands[t.pair]
@@ -538,7 +559,8 @@ def _split_round(pairs, tasks, bands, failed, device, verify):
     return out
 
 
-def _solve_base(pairs, tasks, bands, segments, failed, device, verify):
+def _solve_base(pairs, tasks, bands, segments, failed, device, verify,
+                timeout_s):
     """The base case of every task; a banded pair that is one base task
     checks its certificate on the kernel's terminal distance."""
     by_bucket = {}
@@ -560,8 +582,9 @@ def _solve_base(pairs, tasks, bands, segments, failed, device, verify):
                 scal[bi] = (R, S, gdmin + t.ia - t.ja, 0)
                 qs[bi, :R] = q[t.ia:t.ib]
                 ts[bi, :S] = tt[t.ja:t.jb]
-            ops, cnt, ok, dist = (x.cpu().numpy() for x in base_case(
-                *tasks_to_tensors(scal, qs, ts, device), K))
+            ops, cnt, ok, dist = _to_host(
+                base_case(*tasks_to_tensors(scal, qs, ts, device), K),
+                timeout_s, f"the base case at K={K}, {B} tasks")
             for bi, t in enumerate(part):
                 if not ok[bi] or not _root_certified(t, verify,
                                                      int(dist[bi])):
@@ -574,7 +597,7 @@ def _solve_base(pairs, tasks, bands, segments, failed, device, verify):
 def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
              band_slack: int = _band.DEFAULT_SLACK,
              band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
-             stats: Optional[dict] = None) -> int:
+             stats: Optional[dict] = None, timeout_s: float = 0.0) -> int:
     """Align pipeline jobs with the Hirschberg engine and install their
     CIGARs. Jobs are grouped by (band, first-round row bucket) into
     cohorts of at most COHORT jobs, so each cohort launches
@@ -587,7 +610,12 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
     whose certificate fails widens (at most `band_max_widenings` times)
     and is re-run with the cohort's other hits; a job past its last rung
     is re-run flat, through the same kernels. `stats`, when given, gets
-    the ladder's counts (``band.COUNTS``)."""
+    the ladder's counts (``band.COUNTS``).
+
+    Each ladder round of a cohort is an ``align.cohort`` span and checks
+    the ``align.run`` fault point (under the watchdog, as the waits for
+    the card are: `timeout_s`); a banded round checks ``band.hit``, whose
+    injected fault makes every banded job of the round a hit."""
     if stats is None:
         stats = _band.new_stats()
     states = {}          # job -> band.BandState of a banded job
@@ -605,7 +633,7 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
     stats["jobs"] += len(states)
 
     served = 0
-    for _, items in sorted(buckets.items()):
+    for (K, _), items in sorted(buckets.items()):
         for off in range(0, len(items), COHORT):
             group = items[off:off + COHORT]
             pairs = {}
@@ -613,12 +641,26 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
                 qa, ta = pipeline.align_job(job)
                 pairs[job] = (encode(qa), encode(ta))
             todo = group
+            rnd = 0
             while todo:
                 overrides = {bi: states[job].k for bi, job in enumerate(todo)
                              if job in states and states[job].k is not None}
                 hits = set()
-                res = align_pairs([pairs[job] for job in todo], device=device,
-                                  band_overrides=overrides, hits=hits)
+                with obs.span("align.cohort", tier="hirschberg",
+                              jobs=len(todo), band=K, rnd=rnd):
+                    call_with_watchdog(
+                        lambda: faults.check("align.run", todo), timeout_s,
+                        f"align.run ({len(todo)} jobs)")
+                    res = align_pairs([pairs[job] for job in todo],
+                                      device=device,
+                                      band_overrides=overrides, hits=hits,
+                                      timeout_s=timeout_s)
+                    if overrides:
+                        try:
+                            faults.check("band.hit", todo)
+                        except faults.InjectedFault:
+                            hits.update(overrides)
+                rnd += 1
                 retry = []
                 for bi, (job, ops) in enumerate(zip(todo, res)):
                     if bi in hits:

@@ -3,8 +3,8 @@ driver's hooks.
 
 A copy of the JAX package's shared executor (racon_tpu/ops/batch_exec.py)
 reduced to what the port runs: no degradation lattice (no retry, no
-bisection, no tier demotion: a launch that fails raises), no sharding and
-no spans. What it keeps:
+bisection, no tier demotion: a launch that fails raises) and no sharding.
+What it keeps:
 
 * **single-copy packing**: the driver's ``pack`` hook copies each
   window's bytes once into the batch's buffers (pinned host memory on the
@@ -15,7 +15,9 @@ no spans. What it keeps:
   dispatch copies the pinned inputs to the device without blocking, on
   the calling thread's current stream, launches the kernel, copies the
   outputs into pinned host tensors without blocking and records an
-  event; ``unpack`` waits on that event alone. Each batch in flight keeps
+  event; ``unpack`` waits on that event alone (the consensus driver's
+  wait runs under the watchdog, resilience/watchdog.py, with the
+  ``poa.run.<kernel>`` fault point inside it). Each batch in flight keeps
   its own pinned buffers, so none is rewritten while a copy from it may
   still run. On the CPU a dispatch computes inline;
 * the **widen loop**: after a batch is installed, the driver's ``widen``
@@ -26,6 +28,8 @@ no spans. What it keeps:
 * the **pack and kernel wall split**: ``pack_ns`` (host export and pack)
   and ``kernel_ns`` (host wall blocked waiting for the card, re-runs
   included), folded into a stats dict by ``stamp_walls``;
+* a ``poa.batch`` span per batch, from its wait to its last re-run
+  installed, with its windows, its pack seconds and its wait seconds;
 * the **hard-watermark collapse**: once the run's memory budget
   (resilience/budget.py) latches its hard watermark, depth drops to 1
   and every batch resolves as soon as it is dispatched. The bytes never
@@ -49,6 +53,8 @@ from __future__ import annotations
 import time
 from collections import deque
 
+from .. import obs
+
 #: Batches in flight on the card (the JAX package's RACON_TPU_PIPELINE_DEPTH
 #: default).
 DEFAULT_DEPTH = 2
@@ -62,7 +68,7 @@ class BatchExecutor:
         self.depth = max(1, int(depth))
         self.budget = budget
         self.collapsed = False
-        self._pending = deque()   # (ctx, items, packed, handle)
+        self._pending = deque()   # (ctx, items, packed, handle, pack ns)
         self.pack_ns = 0          # host wall: export and pack
         self.kernel_ns = 0        # host wall blocked on the card
 
@@ -88,9 +94,10 @@ class BatchExecutor:
             self.pack_ns += time.monotonic_ns() - t0
             return
         packed = ops.pack(ctx, items)
-        self.pack_ns += time.monotonic_ns() - t0
+        pack_ns = time.monotonic_ns() - t0
+        self.pack_ns += pack_ns
         handle = ops.dispatch(ctx, packed, items)
-        self._pending.append((ctx, items, packed, handle))
+        self._pending.append((ctx, items, packed, handle, pack_ns))
         if len(self._pending) >= self.depth:
             self._resolve(*self._pending.popleft())
 
@@ -99,14 +106,18 @@ class BatchExecutor:
         while self._pending:
             self._resolve(*self._pending.popleft())
 
-    def _resolve(self, ctx, items, packed, handle) -> None:
+    def _resolve(self, ctx, items, packed, handle, pack_ns) -> None:
         ops = self.ops
-        t0 = time.monotonic_ns()
-        results = ops.unpack(ctx, handle)
-        self.kernel_ns += time.monotonic_ns() - t0
-        del packed, handle   # the batch's buffers may go now
-        ops.install(ctx, items, results)
-        self._widen(ctx)
+        with obs.span("poa.batch", windows=len(items),
+                      pack_s=pack_ns / 1e9) as sp:
+            t0 = time.monotonic_ns()
+            results = ops.unpack(ctx, handle)
+            wait_ns = time.monotonic_ns() - t0
+            self.kernel_ns += wait_ns
+            sp.set(wait_s=wait_ns / 1e9)
+            del packed, handle   # the batch's buffers may go now
+            ops.install(ctx, items, results)
+            self._widen(ctx)
         done = getattr(ops, "done", None)
         if done is not None:
             done(ctx, items)

@@ -13,9 +13,11 @@ plain version's.
 it launches its kernel and nowhere else (``count_launch``). ``LAUNCH_EVENTS``,
 when set to a list, collects two CUDA events around each polish-path
 launch call (``launch_events``), so that a caller can time the kernels
-alone. The pipelined polish launches from two threads (alignment on one,
-consensus on the other), so both are written under one lock, and each
-launch goes to the calling thread's current stream.
+alone; ``TRACE_EVENTS`` is a second such sink, the trace's device track
+(obs/__init__.py), so that both see every launch. The pipelined polish
+launches from two threads (alignment on one, consensus on the other), so
+all are written under one lock, and each launch goes to the calling
+thread's current stream.
 """
 
 from __future__ import annotations
@@ -59,6 +61,10 @@ LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_band": 0,
 # on the launch's stream just before and just after the launch call, so
 # that they time the kernel and not the wrapper's checks and allocations.
 LAUNCH_EVENTS: Optional[List[tuple]] = None
+# The same for the trace's device track (obs.arm_device_track), apart
+# from LAUNCH_EVENTS so that arming a trace never takes over a caller's
+# list.
+TRACE_EVENTS: Optional[List[tuple]] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _COUNT_LOCK = threading.Lock()
@@ -68,6 +74,15 @@ def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
             LAUNCHES[k] = 0
+
+
+def take_trace_events() -> List[tuple]:
+    """The device track's launches recorded so far; the sink starts
+    afresh (obs.write_trace)."""
+    global TRACE_EVENTS
+    with _COUNT_LOCK:
+        events, TRACE_EVENTS = TRACE_EVENTS or [], []
+    return events
 
 
 def count_launch(name: str) -> None:
@@ -102,12 +117,16 @@ def _stale(name: str) -> bool:
 def build_all() -> float:
     """Compile every stale source in parallel; returns the seconds spent
     (0 when nothing was stale). Raises with nvcc's output on failure."""
+    from .. import obs
+
     os.makedirs(BUILD, exist_ok=True)
     t0 = time.perf_counter()
-    with open(os.path.join(BUILD, ".lock"), "w") as lock:
+    with obs.span("kernel.build") as sp, \
+            open(os.path.join(BUILD, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             todo = [n for n in SOURCES if _stale(n)]
+            sp.set(sources=todo)
             if todo:
                 nvcc = _nvcc()
                 procs = []
@@ -176,9 +195,10 @@ def occupancy(fn, args, keys, what: str) -> Dict[str, int]:
 @contextlib.contextmanager
 def launch_events(name: str, t):
     """Around a launch call on ``t``'s stream: records its two events into
-    ``LAUNCH_EVENTS`` when that is a list, else does nothing."""
-    events = LAUNCH_EVENTS
-    if events is None:
+    ``LAUNCH_EVENTS`` and ``TRACE_EVENTS``, each where it is a list, else
+    does nothing."""
+    sinks = [s for s in (LAUNCH_EVENTS, TRACE_EVENTS) if s is not None]
+    if not sinks:
         yield
         return
     import torch
@@ -189,7 +209,8 @@ def launch_events(name: str, t):
     yield
     ev[1].record(stream)
     with _COUNT_LOCK:
-        events.append((name, ev[0], ev[1]))
+        for events in sinks:
+            events.append((name, ev[0], ev[1]))
 
 
 def stream_of(t) -> ctypes.c_void_p:

@@ -34,10 +34,36 @@ MHAP input all the same (streaming falls back to the whole inputs there)
 and its chunked FASTA then differs from its sequential one, so the port
 keeps MHAP input sequential. These choose a host-side schedule; no work
 leaves the card.
+
+Both polishers take the JAX package's run-time surfaces as arguments
+(racon_tpu/polisher.py):
+
+* ``journal_path`` with ``resume_journal`` (resilience/journal.py): every
+  served window and kernel CIGAR is journaled as it is installed, and a
+  resumed run replays them and gives the same bytes. The journal needs
+  run-global window indices, so a journaled run sets the chunked modes
+  aside, with a NOTE, and runs sequentially (a memory budget still
+  collapses the consensus feeder). ``journal_fsync`` fsyncs each record;
+  ``self.journal`` is the run's Journal, or None;
+* ``trace_path`` (obs/): phase spans ``phase.parse``, ``phase.align``,
+  ``phase.window_assign``, ``phase.poa`` and ``phase.stitch`` around the
+  sequential path and each chunk (``chunk=ci``), the drivers' spans and
+  counters, and, on the card, a device track of every launch; written by
+  polish();
+* ``device_timeout_s`` (TorchPolisher; resilience/watchdog.py): the
+  deadline on each wait for the card; 0 turns it off;
+* ``self.report`` (resilience/report.py): served counts by tier for each
+  phase, finalized by polish().
+
+Each constructor first resets the fault schedule (resilience/faults.py),
+the obs state and the device track's launch sink. An injected fault at a
+run point ends the polish with its error: nothing falls back to a plain
+version or to the host.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
 import shutil
 import sys
@@ -48,13 +74,18 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from . import obs
 from .ops import band as _band
 from .ops.align_driver import run_alignment_phase
 from .ops.batch_exec import DEFAULT_DEPTH
 from .ops.poa_driver import (DEFAULT_POA_KERNEL, kernel_for,
                               run_consensus_phase)
 from .pipeline import Pipeline
+from .resilience import faults
 from .resilience.budget import MemoryBudget, at_least, peak_rss_mb
+from .resilience.journal import Journal, input_fingerprint, replay_windows
+from .resilience.report import (ALIGN_TIERS, PhaseReport, RunReport,
+                                consensus_tiers)
 
 #: Handoff-queue sentinel: the alignment worker is done.
 _DONE = object()
@@ -138,6 +169,48 @@ def _note(msg: str) -> None:
     print(f"[racon_tpu_torch::polisher] {msg}", file=sys.stderr)
 
 
+def _reset_run_state(trace_path: Optional[str]) -> None:
+    """Per-run reset of the process-wide state, first in each polisher
+    constructor: the fault schedule, the obs state and the device
+    track's sink start afresh (a caller's cuda_lib.LAUNCH_EVENTS list is
+    left as it is), then tracing is armed where a trace is asked for."""
+    faults.reset()
+    obs.reset()
+    obs.configure(trace_path=trace_path)
+
+
+def _racon_params(racon_kwargs: dict) -> dict:
+    """racon's parameters as the pipeline takes them: every one, with its
+    default where it was not given, as its default's type. So the
+    fingerprint is the same whether a caller passes a default or leaves
+    it out (the CLI passes them all; 10 and 10.0 are one threshold)."""
+    params = {}
+    for name, arg in inspect.signature(Pipeline).parameters.items():
+        if arg.kind is not arg.KEYWORD_ONLY:
+            continue
+        value = racon_kwargs.get(name, arg.default)
+        params[name] = type(arg.default)(value)
+    return params
+
+
+def _open_journal(paths, backend: str, journal_path: Optional[str],
+                  resume: bool, racon_kwargs: dict, fsync: bool):
+    """The run's journal, or None. An explicit resume of a journal with
+    another fingerprint raises JournalError; a missing file starts
+    fresh."""
+    if journal_path is None:
+        return None
+    fp = input_fingerprint(paths, _racon_params(racon_kwargs), backend)
+    return Journal(journal_path, fp, resume=resume, fsync=fsync)
+
+
+def _merge(total: Optional[PhaseReport], part: PhaseReport) -> PhaseReport:
+    if total is None:
+        return part
+    total.merge(part)
+    return total
+
+
 def _add_counts(total: dict, part: dict) -> None:
     """Sum a chunk's phase stats into the run's: numbers added, flags
     or-ed, nested dicts (the ladder's counts) the same way."""
@@ -193,7 +266,10 @@ class TorchPolisher:
     "prep_overlap_s" (the same for its parse, alignment and windows),
     "peak_rss_mb", "pressure_level", "quarantined" (chunks whose working
     set a torn input degraded) and "collapsed" (the hard watermark
-    collapsed the pipeline)."""
+    collapsed the pipeline).
+
+    ``journal_path``, ``resume_journal``, ``journal_fsync``,
+    ``trace_path`` and ``device_timeout_s``: the module note."""
 
     def __init__(self, sequences: str, overlaps: str, target: str, *,
                  device="cuda", batch_windows: int = 256,
@@ -203,8 +279,15 @@ class TorchPolisher:
                  pipeline_phases: bool = False, handoff_depth: int = 1,
                  stream_input: bool = False, memory_budget_mb: int = 0,
                  spill_dir: Optional[str] = None,
-                 pipeline_depth: int = DEFAULT_DEPTH, **racon_kwargs):
+                 pipeline_depth: int = DEFAULT_DEPTH,
+                 journal_path: Optional[str] = None,
+                 resume_journal: bool = False, journal_fsync: bool = True,
+                 trace_path: Optional[str] = None,
+                 device_timeout_s: float = 0.0, **racon_kwargs):
+        _reset_run_state(trace_path)
         self.device = _resolve_device(device)
+        if self.device.type == "cuda":
+            obs.arm_device_track(self.device)
         kernel_for(poa_kernel)
         self.batch_windows = batch_windows
         self.poa_kernel = poa_kernel
@@ -214,9 +297,18 @@ class TorchPolisher:
         self.handoff_depth = max(1, int(handoff_depth))
         self._kwargs = dict(racon_kwargs)
         self._paths = (sequences, overlaps, target)
+        self.device_timeout_s = float(device_timeout_s)
+        self.journal = _open_journal(self._paths, "torch", journal_path,
+                                      resume_journal, racon_kwargs,
+                                      journal_fsync)
         self.budget = MemoryBudget(memory_budget_mb, spill_dir=spill_dir)
         self._pipelined = bool(pipeline_phases)
         self._stream = bool(stream_input) or self.budget.enabled
+        if self.journal is not None and (self._pipelined or self._stream):
+            _note("NOTE: pipelined phases and streamed input set aside: the "
+                  "journal needs run-global window indices; running the "
+                  "phases sequentially")
+            self._pipelined = self._stream = False
         # the chunked modes parse per chunk; the whole target's pipeline
         # is built only where the run ends up sequential
         self._pipeline = (None if (self._pipelined or self._stream) else
@@ -232,6 +324,9 @@ class TorchPolisher:
         self._align_spans: List[Tuple[float, float]] = []
         self._prep_spans: List[Tuple[float, float]] = []
         self.stats = {}
+        self.report = RunReport()
+        self._align_rep: Optional[PhaseReport] = None
+        self._mem_rep = PhaseReport("memory", ())
 
     # -- the sequential path ----------------------------------------------
     def _sync(self) -> None:
@@ -247,31 +342,49 @@ class TorchPolisher:
         stats[f"{name}_s"] = time.perf_counter() - t0
         return out
 
-    def _align(self, pl, stats: dict) -> None:
+    def _align(self, pl, stats: dict, chunk=None) -> PhaseReport:
         """Parse, align and window one pipeline, timing each phase into
-        `stats`."""
+        `stats`; returns its alignment report."""
+        at = {} if chunk is None else {"chunk": chunk}
+        rep = PhaseReport("alignment", ALIGN_TIERS)
         t_parse = time.perf_counter()
-        self._timed(stats, "parse", pl.prepare)
+        with obs.span("phase.parse", **at):
+            self._timed(stats, "parse", pl.prepare)
         t0 = time.perf_counter()
-        stats["align"] = self._timed(
-            stats, "align", run_alignment_phase, pl, device=self.device,
-            **self.band)
+        with obs.span("phase.align", **at) as sp:
+            stats["align"] = self._timed(
+                stats, "align", run_alignment_phase, pl, device=self.device,
+                journal=self.journal, report=rep,
+                device_timeout_s=self.device_timeout_s, **self.band)
+            sp.set(device=stats["align"]["device"],
+                   host=stats["align"]["host"])
         self._align_spans.append((t0, time.perf_counter()))
-        self._timed(stats, "windows", pl.build_windows)
+        with obs.span("phase.window_assign", **at):
+            self._timed(stats, "windows", pl.build_windows)
         self._prep_spans.append((t_parse, time.perf_counter()))
+        return rep
 
-    def _consensus(self, pl, stats: dict, drop_unpolished: bool):
-        """Consensus and stitching of one pipeline, timed into `stats`."""
+    def _consensus(self, pl, stats: dict, drop_unpolished: bool,
+                   chunk=None):
+        """Consensus and stitching of one pipeline, timed into `stats`;
+        returns (FASTA records, its consensus report)."""
+        at = {} if chunk is None else {"chunk": chunk}
         kw = self._kwargs
-        stats["consensus"] = self._timed(
-            stats, "consensus", run_consensus_phase, pl,
-            match=kw.get("match", 3), mismatch=kw.get("mismatch", -5),
-            gap=kw.get("gap", -4), trim=kw.get("trim", True),
-            device=self.device, batch_windows=self.batch_windows,
-            poa_kernel=self.poa_kernel, pipeline_depth=self.pipeline_depth,
-            budget=self.budget if self.budget.enabled else None,
-            **self.band)
-        return self._timed(stats, "stitch", pl.stitch, drop_unpolished)
+        rep = PhaseReport("consensus", consensus_tiers(self.poa_kernel))
+        with obs.span("phase.poa", **at):
+            stats["consensus"] = self._timed(
+                stats, "consensus", run_consensus_phase, pl,
+                match=kw.get("match", 3), mismatch=kw.get("mismatch", -5),
+                gap=kw.get("gap", -4), trim=kw.get("trim", True),
+                device=self.device, batch_windows=self.batch_windows,
+                poa_kernel=self.poa_kernel,
+                pipeline_depth=self.pipeline_depth,
+                budget=self.budget if self.budget.enabled else None,
+                journal=self.journal, report=rep,
+                device_timeout_s=self.device_timeout_s, **self.band)
+        with obs.span("phase.stitch", **at):
+            out = self._timed(stats, "stitch", pl.stitch, drop_unpolished)
+        return out, rep
 
     def initialize(self) -> None:
         """Parse and filter, align, and build windows; in a chunked mode,
@@ -289,20 +402,29 @@ class TorchPolisher:
             self._pipelined = self._stream = False
         if self._pipeline is None:
             self._pipeline = Pipeline(*self._paths, **self._kwargs)
-        self._align(self._pipeline, self.stats)
+        self._align_rep = self._align(self._pipeline, self.stats)
 
     def polish(self, drop_unpolished: bool = True) -> List[Tuple[str, str]]:
-        """Consensus and stitching; returns [(name, sequence)]."""
+        """Consensus and stitching; returns [(name, sequence)]. Then the
+        report is finalized, the journal closed and the trace written."""
         try:
             if self._chunks is None:
-                return self._consensus(self._pipeline, self.stats,
-                                       drop_unpolished)
-            return self._polish_chunks(drop_unpolished)
+                out, cons_rep = self._consensus(self._pipeline, self.stats,
+                                                drop_unpolished)
+                self.report.attach(self._align_rep)
+                self.report.attach(cons_rep)
+            else:
+                out = self._polish_chunks(drop_unpolished)
         finally:
             self.budget.stop()
             if self._tmpdir is not None:
                 shutil.rmtree(self._tmpdir, ignore_errors=True)
                 self._tmpdir = None
+            if self.journal is not None:
+                self.journal.close()
+        self.report.finalize()
+        obs.write_trace()
+        return out
 
     # -- the chunked modes ------------------------------------------------
     def _split_target(self):
@@ -374,6 +496,7 @@ class TorchPolisher:
         _note(f"WARNING: chunk {ci} working set degraded "
               f"({type(exc).__name__}: {exc}); quarantining the chunk")
         self._quarantined.append(ci)
+        self._mem_rep.record_quarantine(ci, exc)
 
     @staticmethod
     def _release_ws(ws_paths) -> None:
@@ -390,20 +513,22 @@ class TorchPolisher:
         the worker no longer runs ahead of consensus."""
         if not self.budget.hard_latched():
             return False
+        if not self._collapsed:
+            self._mem_rep.record_degrade("pipelined", "sequential")
         self._collapsed = True
         return True
 
     def _prepare_chunk(self, ci: int, chunk_path: str):
-        """Chunk ci's pipeline, parsed, aligned and windowed, and its
-        stats."""
+        """Chunk ci's pipeline, parsed, aligned and windowed, its stats
+        and its alignment report."""
         st = {}
         seqs, ovls, ws_paths = self._chunk_inputs(ci)
         pl = Pipeline(seqs, ovls, chunk_path, **self._kwargs)
         try:
-            self._align(pl, st)
+            rep = self._align(pl, st, ci)
         finally:
             self._release_ws(ws_paths)
-        return pl, st
+        return pl, st, rep
 
     def _start_phase_pipeline(self, chunks) -> None:
         """Build the kernels, then start the one alignment worker and its
@@ -431,8 +556,7 @@ class TorchPolisher:
                                 self.budget.level(), "soft"))
                                and not q.empty()):
                             time.sleep(0.02)
-                        pl, st = self._prepare_chunk(ci, chunk_path)
-                        q.put((ci, pl, st))
+                        q.put((ci, *self._prepare_chunk(ci, chunk_path)))
                 q.put(_DONE)
             except BaseException as e:  # noqa: BLE001 - re-raised on the
                 # consuming thread
@@ -443,12 +567,12 @@ class TorchPolisher:
         self._worker.start()
 
     def _chunk_results(self):
-        """(ci, pipeline, stats) of each chunk in order: from the worker's
-        queue when pipelined, else prepared here one at a time."""
+        """(ci, pipeline, stats, alignment report) of each chunk in order:
+        from the worker's queue when pipelined, else prepared here one at
+        a time."""
         if not self._pipelined:
             for ci, chunk_path in enumerate(self._chunks):
-                pl, st = self._prepare_chunk(ci, chunk_path)
-                yield ci, pl, st
+                yield (ci, *self._prepare_chunk(ci, chunk_path))
             return
         while True:
             item = self._queue.get()
@@ -466,15 +590,19 @@ class TorchPolisher:
         _polish_pipelined and _polish_stream_sequential in one."""
         out: List[Tuple[str, str]] = []
         per_chunk, cons_spans = [], []
+        align_rep = cons_rep = None
         stream = (torch.cuda.Stream(self.device)
                   if self._pipelined and self.device.type == "cuda"
                   else None)
         with torch.cuda.stream(stream):
-            for ci, pl, st in self._chunk_results():
+            for ci, pl, st, arep in self._chunk_results():
                 t0 = time.perf_counter()
-                out.extend(self._consensus(pl, st, drop_unpolished))
+                part, crep = self._consensus(pl, st, drop_unpolished, ci)
+                out.extend(part)
                 cons_spans.append((t0, t0 + st["consensus_s"]))
                 per_chunk.append(st)
+                align_rep = _merge(align_rep, arep)
+                cons_rep = _merge(cons_rep, crep)
                 del pl   # the chunk's native working set goes here
         if self._worker is not None:
             self._worker.join()
@@ -493,6 +621,13 @@ class TorchPolisher:
             collapsed=self._collapsed,
             streamed=self._stream_index is not None)
         self.stats = total
+        self.report.attach(align_rep)
+        self.report.attach(cons_rep)
+        self._mem_rep.extra.update(
+            peak_rss_mb=round(total["peak_rss_mb"], 1),
+            budget_mb=self.budget.budget_mb, streamed=total["streamed"],
+            pressure_level=total["pressure_level"])
+        self.report.attach(self._mem_rep)
         return out
 
 
@@ -501,13 +636,23 @@ class CpuPolisher:
     oracle): parse, align on the host and build windows in one native
     call, host POA consensus for every window (``num_threads`` threads),
     stitch. ``stats`` holds the wall seconds of "initialize", "consensus"
-    and "stitch"."""
+    and "stitch". With a journal the consensus runs window by window, so
+    that each result is journaled as it exists, as the JAX package's
+    does; ``journal_path``, ``resume_journal``, ``journal_fsync`` and
+    ``trace_path`` are TorchPolisher's (module note)."""
 
-    def __init__(self, sequences: str, overlaps: str, target: str,
-                 **racon_kwargs):
+    def __init__(self, sequences: str, overlaps: str, target: str, *,
+                 journal_path: Optional[str] = None,
+                 resume_journal: bool = False, journal_fsync: bool = True,
+                 trace_path: Optional[str] = None, **racon_kwargs):
+        _reset_run_state(trace_path)
+        self.journal = _open_journal((sequences, overlaps, target), "host",
+                                      journal_path, resume_journal,
+                                      racon_kwargs, journal_fsync)
         self._pipeline = Pipeline(sequences, overlaps, target,
                                   **racon_kwargs)
         self.stats = {}
+        self.report = RunReport()
 
     def _timed(self, name: str, fn, *args):
         t0 = time.perf_counter()
@@ -516,11 +661,44 @@ class CpuPolisher:
         return out
 
     def initialize(self) -> None:
-        self._timed("initialize", self._pipeline.initialize)
+        # one native call parses, aligns and builds the windows: one span
+        with obs.span("phase.parse", fused="parse+align+window_assign"):
+            self._timed("initialize", self._pipeline.initialize)
 
     def polish(self, drop_unpolished: bool = True) -> List[Tuple[str, str]]:
-        self._timed("consensus", self._pipeline.consensus_cpu_all)
-        return self._timed("stitch", self._pipeline.stitch, drop_unpolished)
+        with obs.span("phase.poa", tier="host"):
+            self._timed("consensus", self._polish_consensus)
+        with obs.span("phase.stitch"):
+            out = self._timed("stitch", self._pipeline.stitch,
+                              drop_unpolished)
+        if self.journal is not None:
+            self.journal.close()
+        self.report.finalize()
+        obs.write_trace()
+        return out
+
+    def _polish_consensus(self) -> None:
+        pl, jr = self._pipeline, self.journal
+        n = pl.num_windows()
+        rep = PhaseReport("consensus", ("host",) if jr is None
+                          else ("journal", "host"))
+        rep.total = n
+        t0 = time.perf_counter()
+        if jr is None:
+            pl.consensus_cpu_all()
+            rep.record_served("host", n)
+        else:
+            replayed = replay_windows(pl, jr, n, rep)
+            for i in range(n):
+                if i in replayed:
+                    continue
+                polished = pl.consensus_cpu_one(i)
+                _, _, rank, _, _, tid = pl.window_info(i)
+                jr.append_window(i, tid, rank, "host", pl.get_consensus(i),
+                                 polished)
+            rep.record_served("host", n - len(replayed))
+        rep.add_wall("host", time.perf_counter() - t0)
+        self.report.attach(rep)
 
 
 BACKENDS = ("cuda", "host")

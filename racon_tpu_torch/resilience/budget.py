@@ -20,8 +20,13 @@ else ``resource.getrusage``) and classifies it::
   same: the edges change scheduling, never results.
 
 A watchdog thread samples in the background so pressure is seen between
-the synchronous polls (one per chunk). Left out, for later modules: the
-fault-injection seam, the flight recorder's dump and the obs counters.
+the synchronous polls (one per chunk). The synchronous polls check the
+``mem.pressure`` fault point (resilience/faults.py): an injected fault is
+a forced hard breach, the deterministic pressure drill; the watchdog
+thread does not check it, so the fault's invocation count stays on the
+synchronous schedule. ``mem.spill`` fires before each park, and an
+injected fault there aborts the park: the working set stays in memory.
+Left out, for later modules: the flight recorder's dump.
 """
 
 from __future__ import annotations
@@ -30,6 +35,9 @@ import json
 import os
 import threading
 from typing import Callable, List, Optional, Tuple
+
+from .. import obs
+from . import faults
 
 #: Pressure levels, in order; ``at_least`` compares by this order.
 LEVELS = ("ok", "soft", "hard")
@@ -98,21 +106,34 @@ class MemoryBudget:
     def enabled(self) -> bool:
         return self.budget_mb > 0
 
-    def poll(self) -> str:
+    def poll(self, fault_check: bool = True) -> str:
         """Sample RSS and classify it, latching the first crossing of the
-        hard watermark; returns the level ("ok" without a budget)."""
+        hard watermark; returns the level ("ok" without a budget). With
+        `fault_check` (the synchronous polls), an injected ``mem.pressure``
+        fault forces the hard watermark."""
         if not self.enabled:
             return "ok"
+        forced = False
+        if fault_check:
+            try:
+                faults.check("mem.pressure")
+            except Exception:  # noqa: BLE001 - injected: a forced breach
+                forced = True
         cur = float(self._rss())
-        if cur >= self.hard_mb:
+        if forced or cur >= self.hard_mb:
             level = "hard"
         elif cur >= self.soft_mb:
             level = "soft"
         else:
             level = "ok"
         with self._lock:
+            prev = self._level
             self._level = level
             self._hard_latched |= level == "hard"
+        if level != prev and at_least(level, "soft"):
+            obs.event("mem.pressure", level=level, rss_mb=round(cur, 1),
+                      budget_mb=self.budget_mb, forced=forced)
+            obs.count(f"mem.{level}_watermark")
         return level
 
     def level(self) -> str:
@@ -143,7 +164,7 @@ class MemoryBudget:
 
     def _watch(self, interval_s: float) -> None:
         while not self._stop.wait(interval_s):
-            self.poll()
+            self.poll(fault_check=False)
 
     def stop(self) -> None:
         self._stop.set()
@@ -157,8 +178,14 @@ def park_bytes(payloads: List[Tuple[str, bytes]], dir_path: str,
                tag: str) -> Optional[str]:
     """Park named byte buffers in one spill file; returns its path, or None
     where an I/O error aborted the park (the caller then keeps its
-    buffers). The file is a JSON header line of [name, length] pairs and
-    then the blobs."""
+    buffers), or where an injected ``mem.spill`` fault aborted it. The
+    file is a JSON header line of [name, length] pairs and then the
+    blobs."""
+    try:
+        faults.check("mem.spill")
+    except Exception:  # noqa: BLE001 - injected: an aborted park
+        obs.count("mem.spill_aborted")
+        return None
     path = os.path.join(dir_path, f"spill.{tag}.{os.getpid()}.bin")
     try:
         os.makedirs(dir_path, exist_ok=True)

@@ -108,7 +108,9 @@ def test_default_device_is_cuda():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, racon_tpu_torch, racon_tpu_torch.cli; "
+    code = ("import sys, racon_tpu_torch, racon_tpu_torch.cli, "
+            "racon_tpu_torch.obs.__main__, racon_tpu_torch.resilience.journal, "
+            "racon_tpu_torch.resilience.watchdog; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'racon_tpu.')) or m == 'racon_tpu']; "
             "print(bad); sys.exit(1 if bad else 0)")
@@ -129,6 +131,12 @@ def _port_files():
 def test_port_imports_nothing_of_jax():
     files = list(_port_files())
     assert len(files) > 10
+    pkg = os.path.join(ROOT, "racon_tpu_torch")
+    for rel in ("fingerprint.py", "obs/__init__.py", "obs/__main__.py",
+                "obs/tracer.py", "obs/metrics.py", "resilience/faults.py",
+                "resilience/journal.py", "resilience/report.py",
+                "resilience/watchdog.py"):
+        assert os.path.join(pkg, *rel.split("/")) in files, rel
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)
