@@ -128,6 +128,23 @@ smoke started):
 * watchdog: the parity set on the card with RACON_TORCH_FAULT's
   poa.run.ls:hang=60 (through faults.configure) and device_timeout_s=2:
   WatchdogTimeout within 15 s of the polish's start;
+* serve: the resident daemon (``python -m racon_tpu_torch.cli serve``, a
+  process of its own, started by
+  ``serve.loadtest.spawn_daemon``). A first daemon, started with
+  RACON_TORCH_FAULT="journal.append:batch=3:kill=1", dies by SIGKILL in
+  a parity-set job; a second one on the same state directory recovers
+  that job and resumes it to the card's bytes (journal_replayed >= 1)
+  while two clients submit main-cell jobs at once and a third a
+  parity-set job with window_budget=1: each main job's FASTA is main's,
+  its kernel_builds 0, its trace's device track main's launch counts of
+  the ls POA kernel, the edge kernel and the base case (the path's
+  launches, read from the daemon's own counts, reset per job); the
+  budget job runs on the host lane with the host backend's bytes; every
+  job ends done (a device-lane job that raises fails, and is never
+  re-run on the host lane). SIGTERM then ends the daemon with exit 0
+  within 30 s. Lines: the daemon's start to ready and warm-up wall, each
+  job's wall, queue wait and lane, the daemon's stats (SLO, ledger), and
+  the main jobs' walls against the plain main polish;
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -1716,6 +1733,163 @@ def watchdog_phase(racon_tpu_torch, d):
           "hang_s": 60, "raised_after_s": took, "error": raised})
 
 
+def serve_phase(torch, racon_tpu_torch, d, d_par, main_run, plain_s, tmp):
+    """The daemon on the card (module note): a daemon killed at a journal
+    record, then a second one on its state directory that resumes its
+    job beside two main-cell jobs from two clients at once and a
+    parity-set job over its window budget, ended by SIGTERM."""
+    import threading
+
+    from racon_tpu_torch.obs import __main__ as reader
+    from racon_tpu_torch.serve import ServeClient, loadtest
+
+    def fasta(records):
+        return "".join(f">{n}\n{s}\n" for n, s in records)
+
+    def read(path):
+        with open(path) as f:
+            return f.read()
+
+    main_fasta, main_launches = fasta(main_run[0]), main_run[2]
+    host = racon_tpu_torch.create_polisher(d_par["reads"], d_par["overlaps"],
+                                           d_par["draft"], backend="host",
+                                           **MAIN)
+    host.initialize()
+    host_fasta = fasta(host.polish(True))
+    par_fasta = fasta(polish(racon_tpu_torch, d_par, "cuda")[0])
+    args = dict(MAIN)
+    deadline = 900.0
+    # the daemon is a second process on the card: this one's cached
+    # blocks go back first
+    torch.cuda.empty_cache()
+
+    def spawn(state, env=None):
+        t0 = time.perf_counter()
+        proc = loadtest.spawn_daemon(state, "cuda", env=env, timeout=300)
+        return proc, time.perf_counter() - t0
+
+    def stop(proc):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # preemption first: a daemon killed at its job's third journal
+    # record; the daemon restarted on its state directory then recovers
+    # that job and serves the main-cell jobs beside it
+    state = os.path.join(tmp, "serve")
+    env = {**os.environ, "RACON_TORCH_FAULT":
+           "journal.append:batch=3:kill=1"}
+    proc, _ = spawn(state, env)
+    try:
+        with ServeClient.from_state_dir(state, timeout=60) as c:
+            jid = c.submit(d_par["reads"], d_par["overlaps"], d_par["draft"],
+                           args=args, job_id="prem")
+        rc = proc.wait(timeout=300)
+    finally:
+        stop(proc)
+    require(rc == -signal.SIGKILL, f"the faulted daemon exited {rc}, not by "
+            "SIGKILL")
+    proc, ready_s = spawn(state)
+    done = {}
+    try:
+        def client(name, data, **kw):
+            try:
+                with ServeClient.from_state_dir(state, timeout=deadline) as c:
+                    t0 = time.perf_counter()
+                    job = (kw.pop("job_id") if "job_id" in kw else
+                           c.submit(data["reads"], data["overlaps"],
+                                    data["draft"], args=args,
+                                    submitter=name, **kw))
+                    done[name] = (c.wait(job, timeout=deadline),
+                                  time.perf_counter() - t0)
+            except Exception as e:  # noqa: BLE001 - reported below
+                done[name] = (None, repr(e))
+
+        threads = [threading.Thread(target=client, args=a, kwargs=k)
+                   for a, k in ((("resumed", d_par), {"job_id": jid}),
+                                (("main_a", d), {}), (("main_b", d), {}),
+                                (("budget", d_par), {"window_budget": 1}))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(deadline)
+        with ServeClient.from_state_dir(state, timeout=60) as c:
+            stats = c.stats()
+            stats.pop("ok", None)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        term_s = time.perf_counter() - t0
+    finally:
+        stop(proc)
+    require(rc == 0, f"the daemon exited {rc} on SIGTERM")
+    for name in ("resumed", "main_a", "main_b", "budget"):
+        require(done.get(name, (None,))[0] is not None,
+                f"serve job {name} failed: {done.get(name)}")
+    resp = done.pop("resumed")[0]
+    res = resp["result"]
+    require(resp["state"] == "done" and resp["lane"] == "device",
+            f"the recovered job: {resp}")
+    require(res["journal_replayed"] >= 1, "the recovered job replayed no "
+            "journal record")
+    require(read(res["output"]) == par_fasta, "the recovered job's FASTA "
+            "differs from the card's polish of the parity set")
+    emit({"phase": "serve_resume", "mbp": PARITY_MBP, "killed_rc": -9,
+          "restart_ready_s": ready_s, "journal_replayed":
+          res["journal_replayed"], "cold": res["cold"],
+          "wall_s": res["wall_s"], "kernel_builds": res["kernel_builds"],
+          "sigterm_exit_s": term_s, "identical": True})
+    jobs = []
+    for name, (resp, latency) in sorted(done.items()):
+        res = resp["result"]
+        require(resp["state"] == "done", f"serve job {name}: {resp}")
+        require(res["kernel_builds"] == 0, f"serve job {name} built or "
+                f"loaded {res['kernel_builds']} kernels after the warm-up")
+        line = {"job": name, "lane": resp["lane"], "cold": res["cold"],
+                "wall_s": res["wall_s"], "queued_s": resp["queued_s"],
+                "running_s": resp["running_s"], "latency_s": latency,
+                "kernel_builds": res["kernel_builds"],
+                "batches": res.get("batches"), "rss_mb": res.get("rss_mb"),
+                "demotions": resp["demotions"]}
+        if name == "budget":
+            require(resp["lane"] == "host" and res["backend"] == "host" and
+                    "window budget" in resp["demotions"][0]["cause"],
+                    f"the budget job did not run on the host lane: {resp}")
+            require(read(res["output"]) == host_fasta, "the budget job's "
+                    "FASTA differs from the host backend's")
+        else:
+            require(resp["lane"] == "device" and not resp["demotions"],
+                    f"serve job {name} left the device lane: {resp}")
+            require(read(res["output"]) == main_fasta, f"serve job {name}'s "
+                    "FASTA differs from main's")
+            doc, errors = reader.load_trace(res["trace"])
+            require(not errors, f"serve job {name}'s trace: {errors[:5]}")
+            track = reader.device_track(doc)
+            for k in ("poa_consensus", "hirschberg_edge", "hirschberg_base"):
+                n = track["kernels"].get(k, {}).get("launches", 0)
+                require(n == main_launches[k] == res["launches"].get(k, 0),
+                        f"serve job {name} launched {k} {n} times "
+                        f"(its counts {res['launches'].get(k, 0)}), main "
+                        f"{main_launches[k]}")
+            line.update(launches=res["launches"],
+                        device_busy_share=track["busy_share"],
+                        device_busy_ms=track["busy_us"] / 1e3)
+        jobs.append(line)
+    adm = stats["admission"]
+    require(stats["jobs"] == {"done": 4}, f"serve jobs: {stats['jobs']}")
+    require(adm.get("demoted_budget") == 1, f"budget demotions: {adm}")
+    mains = sorted((j for j in jobs if j["lane"] == "device"),
+                   key=lambda j: j["latency_s"])
+    emit({"phase": "serve", "ready_s": ready_s,
+          "warm_wall_s": stats["session"]["warm_wall_s"],
+          "warmed": stats["session"]["warmed"],
+          "jobs": jobs, "first_main_wall_s": mains[0]["wall_s"],
+          "second_main_wall_s": mains[1]["wall_s"],
+          "plain_main_wall_s": plain_s, "main_wall_s": main_run[4],
+          "identical": True})
+    emit({"phase": "serve_stats", **stats})
+
+
 def main() -> int:
     import argparse
 
@@ -1802,6 +1976,9 @@ def main() -> int:
         trace_phase(torch, racon_tpu_torch, cuda_lib, d, runs[first],
                     plain_s, tmp, keep)
         watchdog_phase(racon_tpu_torch, d_par)
+        # serve: the resident daemon on the main cell
+        serve_phase(torch, racon_tpu_torch, d, d_par, runs[first], plain_s,
+                    tmp)
         # main_band: the main cell on the banded path
         band_run = run_main(*mods, "v2", "main_band",
                             band=band.DEFAULT_SLACK,

@@ -2,6 +2,9 @@
 
 Usage: python -m racon_tpu_torch.cli [options] <sequences> <overlaps>
        <target sequences> > polished.fasta
+       python -m racon_tpu_torch.cli serve [daemon options]
+
+``serve`` runs the resident polishing daemon (racon_tpu_torch/serve).
 
 The fault spec (resilience/faults.py) is read from RACON_TORCH_FAULT and
 checked up front: a malformed one is one line on stderr and exit 1, as a
@@ -133,6 +136,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    # the subcommand: `serve` hands the rest of the argv to the daemon
+    # before the polish flags' parser sees it
+    if argv and argv[0] == "serve":
+        from .serve.__main__ import main as serve_main
+        return serve_main(argv[1:])
     args = build_arg_parser().parse_args(argv)
     try:
         faults.validate()

@@ -1,9 +1,10 @@
-"""The journal's fingerprint: the identity of one polishing problem.
+"""The journal's fingerprint: the identity of one polishing problem, and
+the serve daemon's paths of a job.
 
-A copy of the JAX package's ``journal_fingerprint``
-(racon_tpu/fingerprint.py), with its schema version and excluded
-parameters. The kernel-cache and serve keys of that module wait for the
-modules that use them.
+A copy of the JAX package's ``journal_fingerprint`` and
+``serve_job_paths`` (racon_tpu/fingerprint.py), with its schema version
+and excluded parameters. Its kernel-cache key has no use here: the CUDA
+kernels are built once per source, not per geometry.
 
 The fingerprint hashes the input files' bytes, racon's parameters (the
 polisher's ``racon_kwargs`` with the pipeline's defaults filled in, less
@@ -20,7 +21,8 @@ resumes on the CPU with ls.
 from __future__ import annotations
 
 import hashlib
-from typing import Sequence
+import os
+from typing import Dict, Optional, Sequence
 
 #: Journal header schema version (a journal written under another version
 #: is not replayed).
@@ -48,3 +50,22 @@ def journal_fingerprint(paths: Sequence[str], params: dict,
             for blk in iter(lambda: f.read(1 << 20), b""):
                 h.update(blk)
     return h.hexdigest()
+
+
+def serve_job_paths(workdir: str, job_id: str,
+                    backend: Optional[str] = None) -> Dict[str, str]:
+    """Every path the serve daemon derives from a job id: the job
+    directory and, when `backend` is given, the artifact paths inside it.
+    The journal's name is keyed by backend ("cuda", "host"), so a job
+    demoted from the device lane to the host lane never replays device
+    records into a host run (the two fingerprints differ too)."""
+    jd = os.path.join(workdir, "jobs", job_id)
+    out = {"dir": jd}
+    if backend is not None:
+        out.update(
+            journal=os.path.join(jd, f"journal.{backend}.jsonl"),
+            output=os.path.join(jd, "polished.fasta"),
+            trace=os.path.join(jd, "trace.json"),
+            report=os.path.join(jd, "report.json"),
+        )
+    return out

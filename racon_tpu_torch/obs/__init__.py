@@ -30,17 +30,28 @@ recorded, after a synchronize, with its ``monotonic_ns`` at arming. The
 events are read only in ``write_trace``, after a synchronize: an event
 read before its stream has reached it raises. The track has its own sink
 (``cuda_lib.TRACE_EVENTS``), so a caller's ``cuda_lib.LAUNCH_EVENTS`` list
-sees every launch as before. Left out, for the serve and distrib
-modules: the fleet role, telemetry, the flight ring and trace context.
+sees every launch as before.
+
+**Process identity and history** (for the serve daemon; they survive
+``reset()``): the process role (``set_role``), the trace context
+(``obs.context``, stamped on the tracer at arming), the flight recorder
+(``obs.flight``: every instant event and finished span is breadcrumbed
+there), and the telemetry ring (``telemetry_tick``, ``telemetry``; 64
+entries, the JAX package's ``RACON_TPU_TELEMETRY_RING`` default). A job's
+spans ship with its result (``shipment``, at most 1,500 events, the
+JAX package's ``RACON_TPU_OBS_SHIP_EVENTS`` default), in the JAX
+package's format, which its tracer's ``ingest`` reads.
 """
 
 from __future__ import annotations
 
+import collections
 import sys
 import threading
 import time
 from typing import Optional
 
+from . import context, flight
 from .metrics import Metrics
 from .tracer import NULL_SPAN, Span, Tracer
 
@@ -52,18 +63,35 @@ PHASES = ("parse", "align", "window_assign", "poa", "stitch")
 #: ``cuda_lib.LAUNCHES``.
 DEVICE_TID = 1 << 20
 
+#: Trace events a job's shipment carries at most, and the telemetry
+#: ring's length: the JAX package's RACON_TPU_OBS_SHIP_EVENTS and
+#: RACON_TPU_TELEMETRY_RING defaults.
+SHIP_EVENTS = 1500
+TELEMETRY_RING = 64
+
 _lock = threading.Lock()
 _tracer: Optional[Tracer] = None
 _metrics: Optional[Metrics] = None
 _trace_path: Optional[str] = None
 _device = None   # (device, reference event, its monotonic_ns) when armed
 
+# The process role ("serve", ...) for merged timelines; survives reset():
+# a process keeps its identity across every run it hosts.
+_role: Optional[str] = None
+
+# The live-telemetry ring (the daemon's `stats` op scrapes it); survives
+# reset(): it is the process's history, not a run's state.
+_telemetry_lock = threading.Lock()
+_telemetry = collections.deque(maxlen=TELEMETRY_RING)
+
 
 # -- arming ----------------------------------------------------------------
 
 def reset() -> None:
     """Disarm and drop the collected state, the device track's sink
-    included (the polisher constructors call it before ``configure``)."""
+    included (the polisher constructors call it before ``configure``).
+    The role, the trace context, the flight recorder and the telemetry
+    ring survive."""
     global _tracer, _metrics, _trace_path, _device
     with _lock:
         _tracer = None
@@ -91,11 +119,19 @@ def configure(trace_path: Optional[str] = None,
         _trace_path = trace_path
         _tracer = Tracer()
         _metrics = m = Metrics()
+        _tracer.role = _role
+        ctx = context.current()
+        if ctx is not None:
+            _tracer.trace_id = ctx.get("trace_id")
+            _tracer.parent_span = ctx.get("parent")
+        fl = flight.recorder()
 
         # every finished span also lands in a span_us.<name> histogram,
-        # so the reader has quantiles even where the buffer truncated
-        def _on_complete(name, dur_us, _m=m):
+        # so the reader has quantiles even where the buffer truncated,
+        # and in the flight ring, so a crash dump carries the span tail
+        def _on_complete(name, dur_us, _m=m, _fl=fl):
             _m.observe(f"span_us.{name}", dur_us)
+            _fl.span(name, dur_us)
 
         _tracer.on_complete = _on_complete
 
@@ -127,6 +163,21 @@ def release(write: bool = True) -> Optional[str]:
     return path
 
 
+def set_role(role: Optional[str]) -> None:
+    """Name this process's track in merged timelines and flight dumps
+    ("serve", ...). Sticky across ``reset()``."""
+    global _role
+    _role = role
+    flight.set_role(role)
+    t = _tracer
+    if t is not None:
+        t.role = role
+
+
+def role() -> Optional[str]:
+    return _role
+
+
 def enabled() -> bool:
     return _tracer is not None
 
@@ -147,7 +198,10 @@ def span(name: str, **args):
 
 
 def event(name: str, **args) -> None:
-    """Instant event (watchdog timeout, injected fault, ...)."""
+    """Instant event (watchdog timeout, injected fault, a job's
+    demotion, ...). Always breadcrumbed into the flight recorder, and
+    recorded on the timeline when armed."""
+    flight.record(name, **args)
     t = _tracer
     if t is not None:
         t.add_instant(name, **args)
@@ -170,6 +224,45 @@ def observe(name: str, value: float) -> None:
     m = _metrics
     if m is not None:
         m.observe(name, value)
+
+
+# -- cross-process span shipping -------------------------------------------
+
+def shipment(max_events: int = SHIP_EVENTS) -> Optional[dict]:
+    """Bounded, JSON-ready export of the armed span buffer and metrics
+    snapshot, shipped with a serve job's result so that a tracing
+    submitter can fold it into its own timeline; None when disarmed."""
+    t = _tracer
+    if t is None:
+        return None
+    return t.export(max_events=max(1, max_events), metrics=snapshot())
+
+
+# -- live telemetry ----------------------------------------------------------
+
+def telemetry_tick(**gauges) -> dict:
+    """Append one gauge snapshot to the process's telemetry ring and
+    return it: the gauges, the process RSS, and, with metrics armed, the
+    served totals. Armed or not: it is the `stats` op's scrape state,
+    not trace output."""
+    from ..resilience import budget as _budget
+
+    entry = {"t_mono_ns": time.monotonic_ns()}
+    entry.update(gauges)
+    entry["mem.rss_mb"] = round(_budget.rss_mb(), 1)
+    m = _metrics
+    if m is not None:
+        entry["served_total"] = m.prefix_sum("served.")
+    with _telemetry_lock:
+        _telemetry.append(entry)
+    return entry
+
+
+def telemetry(last: Optional[int] = None) -> list:
+    """The telemetry ring, oldest first (optionally just the last N)."""
+    with _telemetry_lock:
+        items = list(_telemetry)
+    return items[-last:] if last else items
 
 
 # -- snapshots & invariants ------------------------------------------------

@@ -1,10 +1,13 @@
 """Thread-safe span tracer emitting Chrome-trace ("Trace Event Format")
 JSON, loadable in Perfetto / chrome://tracing.
 
-A copy of the JAX package's tracer (racon_tpu/obs/tracer.py) without its
-cross-process shipping (that waits for the fleet modules), and with one
-addition: ``add_track_complete``, a complete event on a track of its own
-rather than on the calling thread's (the card's launches, obs.__init__).
+A copy of the JAX package's tracer (racon_tpu/obs/tracer.py), with its
+cross-process shipping (``export``: a serve job's spans ride its
+result to a tracing submitter) and its provenance (``role``,
+``trace_id``, ``parent_span``, from ``obs.set_role`` and
+``obs.context``), and with one addition: ``add_track_complete``, a
+complete event on a track of its own rather than on the calling
+thread's (the card's launches, obs.__init__).
 
 * **Monotonic clock only.**  Span math uses ``time.monotonic_ns()``.
 * **Bounded memory.**  Past the cap events are counted as dropped
@@ -90,6 +93,13 @@ class Tracer:
         # timestamps are offsets from tracer creation
         self._t0 = time.monotonic_ns()
         self.pid = os.getpid()
+        #: Provenance, stamped by ``obs.configure`` from ``obs.context``
+        #: and ``obs.set_role``: ``role`` names this process's track in a
+        #: merged timeline ("serve", ...); trace_id/parent_span tie its
+        #: spans to the submitter's trace context.
+        self.role: Optional[str] = None
+        self.trace_id: Optional[str] = None
+        self.parent_span: Optional[str] = None
 
     @property
     def t0_ns(self) -> int:
@@ -149,6 +159,33 @@ class Tracer:
         with self._lock:
             return list(self._events)
 
+    # -- cross-process shipping -------------------------------------------
+    def export(self, max_events: Optional[int] = None,
+               metrics: Optional[dict] = None) -> dict:
+        """A JSON-ready shipment of this process's span buffer: the last
+        ``max_events`` events (the newest win), thread names, and the
+        clock epoch a peer needs to re-base them. Bounded so a shipment
+        fits the wire's one-line message limit."""
+        with self._lock:
+            events = list(self._events)
+            names = dict(self._thread_names)
+            dropped = self.dropped
+        if max_events is not None and len(events) > max_events:
+            dropped += len(events) - max_events
+            events = events[-max_events:]
+        ship = {
+            "pid": self.pid,
+            "t0_mono_ns": self._t0,
+            "role": self.role,
+            "trace_id": self.trace_id,
+            "dropped": dropped,
+            "thread_names": {str(t): n for t, n in names.items()},
+            "events": events,
+        }
+        if metrics is not None:
+            ship["metrics"] = metrics
+        return ship
+
     def to_dict(self, metrics: Optional[dict] = None,
                 platform: Optional[str] = None) -> dict:
         """The full Chrome-trace JSON object; the metrics snapshot and
@@ -158,7 +195,8 @@ class Tracer:
             names = dict(self._thread_names)
             dropped = self.dropped
         events.append({"name": "process_name", "ph": "M", "pid": self.pid,
-                       "tid": 0, "args": {"name": "racon-tpu-torch"}})
+                       "tid": 0,
+                       "args": {"name": self.role or "racon-tpu-torch"}})
         for tid, tname in sorted(names.items()):
             events.append({"name": "thread_name", "ph": "M", "pid": self.pid,
                            "tid": tid, "args": {"name": tname}})
@@ -169,6 +207,12 @@ class Tracer:
                           "clock": "monotonic", "dropped_events": dropped,
                           "pid": self.pid, "t0_monotonic_ns": self._t0},
         }
+        if self.role:
+            doc["otherData"]["role"] = self.role
+        if self.trace_id:
+            doc["otherData"]["trace_id"] = self.trace_id
+            if self.parent_span:
+                doc["otherData"]["parent_span"] = self.parent_span
         if platform:
             doc["otherData"]["platform"] = platform
         if metrics is not None:

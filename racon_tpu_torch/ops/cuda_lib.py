@@ -18,6 +18,12 @@ alone; ``TRACE_EVENTS`` is a second such sink, the trace's device track
 launches from two threads (alignment on one, consensus on the other), so
 all are written under one lock, and each launch goes to the calling
 thread's current stream.
+
+Each ``nvcc`` build of a source and each first load of its library in
+the process counts ``kernel.builds.<source>`` in obs (a no-op unless a
+run has armed it): a serve job reports their sum as its
+``kernel_builds``, 0 once the daemon's warm-up has loaded every library
+(``serve.PolishSession.warm``).
 """
 
 from __future__ import annotations
@@ -147,6 +153,7 @@ def build_all() -> float:
                                           f"{f.read()}")
                     else:
                         os.replace(tmp, lib_path(n))
+                        obs.count(f"kernel.builds.{n}")
                 if errors:
                     raise RuntimeError("CUDA kernel build failed:\n"
                                        + "\n".join(errors))
@@ -168,6 +175,9 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             lib = ctypes.CDLL(lib_path(name))
             _libs[name] = lib
+            from .. import obs
+
+            obs.count(f"kernel.builds.{name}")
     return lib
 
 

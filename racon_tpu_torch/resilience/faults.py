@@ -35,7 +35,8 @@ The port has no tier lattice: a ``raise`` at ``align.run`` or
 failure does. ``band.hit`` makes every banded job or window of the
 checked attempt a hit, which drives the ladder to flat; ``mem.pressure``
 forces the hard watermark at a poll; ``mem.spill`` aborts a park. Those
-three give the same bytes.
+three give the same bytes. ``slo.burn`` (the serve daemon's SLO engine,
+obs/slo.py) absorbs a raise as a forced burn rate.
 
 A malformed spec raises ValueError with a one-line message (the CLI exits
 1 with it). ``reset()`` runs in each polisher constructor, so that
@@ -66,6 +67,8 @@ KNOWN_POINTS = frozenset({
     "mem.pressure",     # each synchronous budget poll: forced hard
                         # watermark
     "mem.spill",        # before each park of a working set: aborted park
+    "slo.burn",         # each SLO evaluation (obs/slo.py): a raise is
+                        # absorbed as a forced burn
 })
 
 

@@ -1,9 +1,11 @@
 """Machine-readable run report: who served what.
 
 A copy of the JAX package's report (racon_tpu/resilience/report.py) with
-the keys the port can fill: ``phases``, ``fault_spec``, ``obs`` and
-``wall_s``. The sanitizer, flight-recorder, ledger and unknown-knob keys
-wait for their modules and are left out (not written as null).
+the keys the port can fill: ``phases``, ``fault_spec``, ``obs``,
+``wall_s``, and ``ledger`` where a serve job stamped one (obs/ledger.py).
+The sanitizer, flight-recorder and unknown-knob keys have no module in
+the port and are left out (not written as null); ``summary()`` is the
+compact view a serve job returns.
 
 Each phase produces a ``PhaseReport``: served counts per tier, failure
 causes, wall seconds per tier and the phase's extras. The tiers:
@@ -143,6 +145,8 @@ class RunReport:
         self.phases = {}
         self._t0 = time.monotonic()
         self.wall_s = None
+        # a serve job's latency-ledger fragment (obs/ledger.py)
+        self.ledger: Optional[dict] = None
 
     def attach(self, phase_report: Optional[PhaseReport]) -> None:
         if phase_report is not None:
@@ -164,6 +168,20 @@ class RunReport:
                        if obs.enabled() else {})},
             "wall_s": round(self.wall_s if self.wall_s is not None
                             else time.monotonic() - self._t0, 3),
+            **({"ledger": dict(self.ledger)} if self.ledger else {}),
+        }
+
+    def summary(self) -> dict:
+        """Compact serving-mix view, by phase (a serve job's result)."""
+        return {
+            phase: {"total": r.total, "served": dict(r.served),
+                    "retries": r.retries, "bisections": r.bisections,
+                    "quarantined": len(r.quarantined),
+                    "degradations": len(r.degradations),
+                    "wall_s": {t: round(s, 4)
+                               for t, s in r.wall_s.items()},
+                    **({"extra": dict(r.extra)} if r.extra else {})}
+            for phase, r in self.phases.items()
         }
 
     def write(self, path: str) -> None:
