@@ -37,11 +37,13 @@ smoke started):
   direction, per base-case band; the v2 kernel, colstep on and off, on
   the POA launches; v2's banded build on main_band's banded launches, the
   ls banded build on main_ls_band's; the
-  K = 128 builds on lowerr_band's), holds each whole batch against the
-  plain PyTorch version (tolerance 0: all outputs are integers; the
-  banded build on a sample of each launch's windows, its hit windows
-  first, and at wband = 0 on the whole launch against the flat build)
-  and times it; the v2 lines also give the kernel's per-phase times (init,
+  K = 128 builds on lowerr_band's), holds it against the plain PyTorch
+  version (tolerance 0: all outputs are integers; the aligner's whole
+  batch; a POA build's outputs on up to PLAIN_SAMPLE windows of the
+  launch, spread evenly over it, the banded build's hit windows first,
+  since the plain POA version loops over windows in Python on the host;
+  the banded build at wband = 0 on the whole launch against the flat
+  build) and times the whole launch; the v2 lines also give the kernel's per-phase times (init,
   dp, end_pick, traceback, update, consensus: max and mean over the
   launch's windows, from clock64() cycles over the card's highest SM
   clock), printed as "v2 POA phases" lines; each ls launch, flat and
@@ -100,10 +102,10 @@ smoke started):
   pipeline alone) on the parity set: its wall and its edit distance to
   the truth (below the draft's); whether its bytes equal the card's is
   printed, not required;
-* chunked: the main cell's scale and reads in four contigs
-  (simulate.generate(contigs=4)), polished on the card sequentially, with
-  pipelined phases, and pipelined and streamed under a memory budget that
-  does not bind: the same FASTA; a line a mode with the wall by phase,
+* chunked: the main cell's reads at half its scale in four contigs
+  (CHUNKED: simulate.generate(mbp=0.5, contigs=4)), polished on the card
+  sequentially, with pipelined phases, and pipelined and streamed under a
+  memory budget that does not bind: the same FASTA; a line a mode with the wall by phase,
   the consensus feeder's pack and kernel wall, the seconds in which
   alignment (and the whole of a chunk's parse, alignment and windows)
   overlapped consensus, the process's peak RSS and the chunk count
@@ -145,6 +147,31 @@ smoke started):
   within 30 s. Lines: the daemon's start to ready and warm-up wall, each
   job's wall, queue wait and lane, the daemon's stats (SLO, ledger), and
   the main jobs' walls against the plain main polish;
+* distrib, distrib_kill, distrib_w4, serve_fleet: worker processes that
+  share the card, once the CPU polishes of the pool have ended. distrib:
+  the chunked cell (the chunked phase's data) through ``python -m
+  racon_tpu_torch.cli distrib --workers 2 --chunks 4 --trace --report``;
+  its FASTA must equal the chunked phase's sequential one, its four
+  chunks be served by the fleet and none locally, kernel_builds be 0 in
+  every chunk (the coordinator builds, each worker loads before its first
+  chunk), and the ls POA, edge and base-case kernels be launched, summed
+  over the chunks (each worker sets its counts to 0 before a chunk and
+  reports them with it); the line gives the wall against the sequential
+  polish's, each worker's chunk walls, peak RSS and peak reserved device
+  memory, each worker's start-up (imports, the kernels' load, spawn to
+  hello), and the card's busy share from the chunks' traces merged as
+  ``obs merge`` merges them; the coordinator must have made no CUDA
+  context. distrib_kill: the same on FLEET_SMALL (half the chunked
+  cell's scale, against its own sequential polish) with
+  RACON_TORCH_FAULT="worker.result:kill=1", which the coordinator hands
+  to worker 0 alone: the same FASTA, one worker dead, the killed chunk
+  re-dispatched and resumed from its journal (journal_replayed > 0).
+  distrib_w4: FLEET_SMALL at four workers. serve_fleet: a daemon with
+  ``--fleet-min 1 --fleet-max 2``, started before distrib so that its
+  start overlaps the distrib runs, given one chunked-cell job: the
+  sequential FASTA, the job done, kernel_builds 0, no CUDA context in
+  the daemon; the line gives the plane's stats (workers, pool timeline,
+  steals, reclaims, the workers' start-up);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -216,11 +243,22 @@ WIDE11_MBP = 0.011
 WIDE11_WINDOW = 11008
 WIDE11_COVERAGE = 10
 CHUNK_PHASES = ("parse", "align", "windows", "consensus", "stitch")
-# The chunked cell: the main cell's scale, reads and width in four contigs,
-# polished on the card sequentially and by two chunked modes. The
-# streamed-only mode runs in the CPU tests and
-# tests/test_torch_cuda_chunked.py, not here: the smoke's time.
-CHUNKED = dict(mbp=1.0, coverage=30, seed=11, contigs=4)
+# The chunked cell: the main cell's reads and width at half its scale, in
+# four contigs, polished on the card sequentially and by two chunked modes
+# (and by the fleet phases). The streamed-only mode runs in the CPU tests
+# and tests/test_torch_cuda_chunked.py, not here: the smoke's time, as the
+# half scale is.
+CHUNKED = dict(mbp=0.5, coverage=30, seed=11, contigs=4)
+# The fleet phases: four chunks, one a contig; distrib_kill and
+# distrib_w4 on half the chunked cell's scale (the smoke's time).
+DISTRIB_CHUNKS = 4
+FLEET_SMALL = dict(CHUNKED, mbp=0.25)
+# The most windows of one launch that a POA check holds against the plain
+# version, which loops over windows in Python on the host: every window of
+# a smaller launch, an even spread of a larger one's (the smoke's time).
+PLAIN_SAMPLE = 32
+# The host processes that run the plain versions of the POA checks.
+PLAIN_PROCS = 10
 NO_BINDING_BUDGET_MB = 1 << 20   # 1 TiB: arms streaming, never binds
 CHUNKED_MODES = {
     "sequential": {},
@@ -538,36 +576,55 @@ class Totals:
                 "plain_ms": self.plain_ms, "bound_ms": b_ms, "bound_by": b_by}
 
 
-def check_poa(torch, poa_cuda, rec):
-    """The main path's largest POA launch of each depth bucket, every
-    window held against the plain version (on the host, in parallel
-    processes; its time is that of all buckets together). Returns the
-    kernel's totals and, for the v2 check, the kept launches with their
-    plain outputs and stats and the plain time. Each launch also prints
-    an "ls POA phases" line (phase_ms of the kernel's clock64() phase
-    counts)."""
+def spread(n: int, k: int = PLAIN_SAMPLE):
+    """Indices of up to `k` of `n` windows spread evenly over them (all of
+    them when n <= k)."""
+    import torch
+
+    return torch.linspace(0, n - 1, min(n, k)).round().long().unique()
+
+
+def check_poa(torch, poa_cuda, rec, procs, ex):
+    """The main path's largest POA launch of each depth bucket, held
+    against the plain version on up to PLAIN_SAMPLE windows of it spread
+    evenly over the launch (the plain version runs on the host, on the
+    pool `ex` of `procs` processes; its time is that of all buckets'
+    samples together): the sampled outputs equal, and the DP cells the
+    kernel counts equal the plain version's on the sample and the main
+    path's on the whole launch. The time and the bound are the whole
+    launch's. Returns the kernel's totals and, for the v2 check, the kept
+    launches with their samples, the plain outputs and stats and the plain
+    time. Each launch also prints an "ls POA phases" line (phase_ms of the
+    kernel's clock64() phase counts)."""
     from racon_tpu_torch.tools.batches import plain_poa_parallel
 
     mhz = sm_clock_mhz()
     kept = rec.inputs("poa_consensus")
     require(kept, "no POA launch of the main run was kept to check")
-    procs = max(1, min(8, os.cpu_count() or 1))
+    samples = []
+    for _, (cfg, dev_in) in kept:
+        idx = spread(dev_in[0].shape[0]).to(dev_in[0].device)
+        samples.append((idx, [t[idx].contiguous() for t in dev_in]))
     t0 = time.perf_counter()
-    plain = plain_poa_parallel([inp for _, inp in kept], procs)
+    plain = plain_poa_parallel([(cfg, sub) for (_, (cfg, _)), (_, sub) in
+                                zip(kept, samples)], procs, ex=ex)
     plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
     per_bucket = {}
-    for (cells_main, (cfg, dev_in)), (want, pst) in zip(kept, plain):
-        cells = pst["cells"]
-        kst = {}
+    for (cells_main, (cfg, dev_in)), (idx, sub), (want, pst) in zip(
+            kept, samples, plain):
+        kst, sst = {}, {}
         got = poa_cuda.poa_consensus(cfg, *dev_in, stats=kst)
+        poa_cuda.poa_consensus(cfg, *sub, stats=sst)
         torch.cuda.synchronize()
-        err = max_abs_err(want, got)
+        err = max_abs_err(want, [g[idx] for g in got])
         require(err == 0, f"POA kernel (depth {cfg.depth}) differs from "
                 f"its plain version by {err}")
-        require(kst["cells"] == cells == cells_main,
-                f"POA DP cells: kernel {kst['cells']}, plain {cells}, "
-                f"main path {cells_main}")
+        require(sst["cells"] == pst["cells"] and kst["cells"] == cells_main,
+                f"POA DP cells: kernel {sst['cells']} on the sample, plain "
+                f"{pst['cells']}; kernel {kst['cells']} on the launch, main "
+                f"path {cells_main}")
+        cells = kst["cells"]
         ms = cuda_ms(torch, lambda: poa_cuda.poa_consensus(cfg, *dev_in), 3)
         phases = phase_ms(poa_cuda.PHASES, kst, dev_in[0].shape[0], mhz)
         print_phases(f"ls POA phases, depth {cfg.depth}, "
@@ -581,46 +638,56 @@ def check_poa(torch, poa_cuda, rec):
                 "layers_mean": float(dev_in[3].float().mean()),
                 "max_nodes": cfg.max_nodes, "max_len": cfg.max_len,
                 "dp_cells": cells, "failed": int(got[3].sum()),
+                "plain_windows": len(idx), "plain_dp_cells": pst["cells"],
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms / len(kept),
-                "plain_on": f"host, {procs} processes (all buckets' time "
-                "split evenly)", "bound_ms": b_ms, "bound_by": b_by,
-                "phases": phases, "sm_clock_mhz": mhz}
+                "plain_on": f"host, {procs} processes, the sampled windows "
+                "(all buckets' time split evenly)", "bound_ms": b_ms,
+                "bound_by": b_by, "phases": phases, "sm_clock_mhz": mhz}
         emit(line)
         tot.add(line, n_bytes, n_ops)
         per_bucket[cfg.depth] = ms
-    return (tot.row(), per_bucket), (kept, plain, plain_ms)
+    return (tot.row(), per_bucket), (kept, samples, plain, plain_ms)
 
 
 def check_poa_v2(torch, poa_v2_cuda, checked):
     """The v2 kernel, colstep on and off, on the ls main run's kept POA
-    launches, against the plain outputs check_poa computed: every output
-    equal, the kernel's cells and serial steps equal the plain version's
-    (steps without colstep are the DP rows). Each line also holds the
-    kernel's per-phase times (max and mean over the launch's windows,
-    from its clock64() phase counts over the SM clock)."""
-    kept, plain, plain_ms = checked
+    launches, against the plain outputs check_poa computed on their
+    sampled windows: every sampled output equal; on the sample the
+    kernel's cells and serial steps equal the plain version's (steps
+    without colstep are the DP rows), on the whole launch its cells equal
+    the ls kernel's. Each line also holds the kernel's per-phase times
+    (max and mean over the launch's windows, from its clock64() phase
+    counts over the SM clock)."""
+    kept, samples, plain, plain_ms = checked
     mhz = sm_clock_mhz()
     tot = Totals()
     per_bucket = {}
-    for (_, (cfg, dev_in)), (want, pst) in zip(kept, plain):
+    for (cells_main, (cfg, dev_in)), (idx, sub), (want, pst) in zip(
+            kept, samples, plain):
         line = {"phase": "kernel_check", "kernel": "poa_consensus_v2",
                 "input": "largest ls launch of its depth bucket in the main "
                 "run", "windows": dev_in[0].shape[0], "depth": cfg.depth,
-                "dp_cells": pst["cells"], "dp_rows": pst["rows"]}
+                "dp_cells": cells_main, "plain_windows": len(idx),
+                "plain_dp_cells": pst["cells"]}
         for colstep in (True, False):
-            kst = {}
+            kst, sst = {}, {}
             got = poa_v2_cuda.poa_consensus_v2(cfg, *dev_in, colstep=colstep,
                                                stats=kst)
+            poa_v2_cuda.poa_consensus_v2(cfg, *sub, colstep=colstep,
+                                         stats=sst)
             torch.cuda.synchronize()
-            err = max_abs_err(want, got)
+            err = max_abs_err(want, [g[idx] for g in got])
             want_steps = pst["steps"] if colstep else pst["rows"]
             require(err == 0, f"v2 POA kernel (depth {cfg.depth}, colstep "
                     f"{colstep}) differs from its plain version by {err}")
-            require(kst["cells"] == pst["cells"] and
-                    kst["steps"] == want_steps,
-                    f"v2 POA counts (colstep {colstep}): kernel {kst}, plain "
-                    f"cells {pst['cells']}, steps {want_steps}")
+            require(sst["cells"] == pst["cells"] and
+                    sst["steps"] == want_steps and
+                    kst["cells"] == cells_main,
+                    f"v2 POA counts (colstep {colstep}): kernel {sst} on the "
+                    f"sample, plain cells {pst['cells']}, steps {want_steps}; "
+                    f"kernel cells {kst['cells']} on the launch, ls "
+                    f"{cells_main}")
             ms = cuda_ms(torch, lambda: poa_v2_cuda.poa_consensus_v2(
                 cfg, *dev_in, colstep=colstep), 3)
             key = "colstep" if colstep else "flat"
@@ -631,16 +698,17 @@ def check_poa_v2(torch, poa_v2_cuda, checked):
                          f"phases_{key}": phases, "sm_clock_mhz": mhz})
             print_phases(f"v2 POA phases, depth {cfg.depth}, "
                          f"{dev_in[0].shape[0]} windows, {key}", phases, ms)
+        line["dp_rows"] = line["steps_flat"]
         line["step_ratio"] = line["steps_flat"] / line["steps_colstep"]
-        n_bytes = poa_bytes(dev_in, want)
-        n_ops = POA_OPS_PER_CELL * pst["cells"]
+        n_bytes = poa_bytes(dev_in, got)
+        n_ops = POA_OPS_PER_CELL * cells_main
         b_ms, b_by = bound(n_bytes, n_ops)
         line.update({"max_abs_err": max(line["max_abs_err_colstep"],
                                         line["max_abs_err_flat"]),
                      "ms": line["ms_colstep"],
                      "plain_ms": plain_ms / len(kept),
-                     "plain_on": "the ls check's host pass (one plain "
-                     "version for both kernels)",
+                     "plain_on": "the ls check's host pass on the sampled "
+                     "windows (one plain version for both kernels)",
                      "bound_ms": b_ms, "bound_by": b_by})
         emit(line)
         tot.add(line, n_bytes, n_ops)
@@ -672,7 +740,12 @@ def poa_decision(default, ls_ms, v2_ms):
                 r <= 0.95 for r in colstep_over_flat.values())}
 
 
-def check_poa_band(torch, fn, kernel, rec, procs, run, name=None):
+def check_poa_band(torch, fn, kernel, rec, procs, run, name=None, *, ex):
+    """start_poa_band's check, waited for."""
+    return start_poa_band(torch, fn, kernel, rec, procs, run, name, ex=ex)()
+
+
+def start_poa_band(torch, fn, kernel, rec, procs, run, name=None, *, ex):
     """A POA kernel's banded build (`fn` is its wrapper; `kernel` "v2" or
     "ls", whose banded semantics the plain version runs) on the `run`'s
     largest banded launch of each depth bucket, with band hits and
@@ -680,14 +753,16 @@ def check_poa_band(torch, fn, kernel, rec, procs, run, name=None):
     card; at the ladder's wband the six outputs (band_hit included) equal
     the plain version's on a sample of the launch's windows (its hit
     windows first, up to 16, and up to 16 others; the plain version runs
-    on the host in `procs` processes), and the band cells the kernel
-    counts equal the plain version's on that sample. The time is the
+    on the host in `procs` jobs on the pool `ex`), and the band cells the
+    kernel counts equal the plain version's on that sample. The time is the
     whole launch's; the bound counts its band cells. Each launch also
     prints a "<kernel> POA phases" line from the banded run's clock64()
     phase counts. `name` is the build's launch-count name (the kernel's
-    banded build unless given: its global build)."""
+    banded build unless given: its global build). Runs the kernel and
+    queues the plain version, then returns a function that waits for it,
+    holds the two against each other and gives the kernel's totals."""
     from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
-    from racon_tpu_torch.tools.batches import plain_poa_parallel
+    from racon_tpu_torch.tools.batches import plain_poa_submit
 
     mhz = sm_clock_mhz()
     names = (poa_cuda if kernel == "ls" else poa_v2_cuda).PHASES
@@ -712,7 +787,15 @@ def check_poa_band(torch, fn, kernel, rec, procs, run, name=None):
         runs.append((cfg, dev_in, wband, got, kst, idx, err0))
         samples.append((cfg, sub, wband[idx.to(wband.device)].contiguous()))
     t0 = time.perf_counter()
-    plain = plain_poa_parallel(samples, procs, kernel)
+    pending = plain_poa_submit(samples, procs, ex, kernel)
+    return lambda: finish_poa_band(torch, fn, kernel, names, name, run, mhz,
+                                   procs, runs, samples, pending, t0)
+
+
+def finish_poa_band(torch, fn, kernel, names, name, run, mhz, procs, runs,
+                    samples, pending, t0):
+    """The second half of start_poa_band."""
+    plain = pending()
     plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
     for (cfg, dev_in, wband, got, kst, idx, err0), (want, pst), \
@@ -1179,11 +1262,12 @@ def path_counts(runs, phase, flat_names, band_names):
 
 
 def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
-                cpu_run, procs):
+                cpu_run, procs, ex):
     """The -w 3000 set (window class 3072: both POA kernels' global
     builds, int16 node ids) through global_runs; then each global build on
-    its path's largest launch against the plain version (check_global,
-    check_poa_band), and an occupancy line per global geometry. Returns
+    its path's largest launch against the plain version (start_global,
+    start_poa_band; their plain passes on the pool `ex` at once), and an
+    occupancy line per global geometry. Returns
     (kernel-check rows, path of each global build: (launches,
     summary))."""
     from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
@@ -1191,13 +1275,19 @@ def wide3_phase(torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d,
     runs = global_runs(torch, racon_tpu_torch, native, ac, poa_driver,
                        cuda_lib, d, cpu_run, "wide_3000", WIDE3_WINDOW,
                        WIDE3_MBP, GLOBAL_NAME, GLOBAL_BAND_NAME)
-    rows = check_global(torch, runs["wide_3000_ls"][5], procs)
+    # the three checks' plain passes (a few windows each, every window a
+    # job) run on the pool at once
+    pending = {"flat": start_global(torch, runs["wide_3000_ls"][5], procs,
+                                    ex)}
     for kernel in ("ls", "v2"):
         fn = (poa_cuda.poa_consensus if kernel == "ls"
               else poa_v2_cuda.poa_consensus_v2)
-        rows[GLOBAL_BAND_NAME[kernel]] = check_poa_band(
+        pending[kernel] = start_poa_band(
             torch, fn, kernel, runs[f"wide_3000_{kernel}_band"][5], procs,
-            f"wide_3000_{kernel}_band", GLOBAL_BAND_NAME[kernel])
+            f"wide_3000_{kernel}_band", GLOBAL_BAND_NAME[kernel], ex=ex)
+    rows = pending.pop("flat")()
+    for kernel, finish in pending.items():
+        rows[GLOBAL_BAND_NAME[kernel]] = finish()
     for wl in (3072, 4096, 10880):
         emit(occupancy_line(poa_driver, poa_cuda, poa_v2_cuda, wl, "global"))
     return rows, path_counts(runs, "wide_3000", GLOBAL_NAME,
@@ -1382,6 +1472,223 @@ def chunked_phase(racon_tpu_torch, native, cuda_lib, d, gen_s):
                 "split's hint: handoff_depth 1 + 2)")
     require(ed[1] < ed[0], "the chunked polish did not lower the edit "
             f"distance ({ed[0]} -> {ed[1]})")
+    return seq, runs["sequential"][2]
+
+
+def fasta_text(records) -> str:
+    return "".join(f">{n}\n{s}\n" for n, s in records)
+
+
+def distrib_run(reader, d, tmp, name, workers, fault=None):
+    """One ``python -m racon_tpu_torch.cli distrib`` polish of `d` on the
+    card with `workers` workers and DISTRIB_CHUNKS chunks, traced, with
+    `fault` as RACON_TORCH_FAULT (the coordinator hands it to worker 0
+    alone): (its FASTA, its wall, the coordinator's result.json, the
+    device track of every chunk trace merged as ``obs merge`` merges
+    them, and the fleet breakdown of those merged with the coordinator's
+    trace, which holds the dispatches)."""
+    import glob
+
+    from racon_tpu_torch.serve.scheduler import child_env
+
+    state = os.path.join(tmp, name)
+    out = os.path.join(tmp, f"{name}.fasta")
+    trace = os.path.join(tmp, f"{name}.trace.json")
+    cmd = [sys.executable, "-m", "racon_tpu_torch.cli", "distrib",
+           "--workers", str(workers), "--chunks", str(DISTRIB_CHUNKS),
+           "--state-dir", state, "--trace", trace, "--report",
+           os.path.join(tmp, f"{name}.report.json"), "-o", out,
+           "-w", str(MAIN["window_length"]), "-m", str(MAIN["match"]),
+           "-x", str(MAIN["mismatch"]), "-g", str(MAIN["gap"]),
+           d["reads"], d["overlaps"], d["draft"]]
+    env = child_env()
+    env.pop("RACON_TORCH_FAULT", None)
+    if fault:
+        env["RACON_TORCH_FAULT"] = fault
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, env=env, stdout=subprocess.DEVNULL,
+                       stderr=subprocess.PIPE, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    require(r.returncode == 0, f"{name}: distrib exited {r.returncode}: "
+            f"{r.stderr[-2000:]}")
+    with open(os.path.join(state, "result.json")) as f:
+        result = json.load(f)
+    with open(out) as f:
+        text = f.read()
+    traces = sorted(glob.glob(os.path.join(state, "chunks", "*",
+                                           "trace.a*.json")))
+    docs = []
+    for path in [trace] + traces:
+        doc, errors = reader.load_trace(path)
+        require(not errors, f"{name}: trace {path}: {errors[:5]}")
+        docs.append(doc)
+    track = reader.device_track(reader.merge_traces(docs[1:], traces))
+    return text, wall, result, track, reader.fleet_breakdown(
+        reader.merge_traces(docs, [trace] + traces))
+
+
+def distrib_line(phase, workers, mbp, text, wall, result, track, seq_fasta,
+                 seq_wall, breakdown):
+    """A distrib phase's line, after its checks that hold for every
+    phase: the sequential FASTA, every chunk served by the fleet (none
+    locally), kernel_builds 0 in every chunk, the ls POA, edge and
+    base-case kernels launched, summed over the chunks, the dispatch ->
+    chunk parenting of the merged traces, and no CUDA context in the
+    coordinator."""
+    require(text == seq_fasta, f"{phase}: the FASTA differs from the "
+            "sequential polish's")
+    served = result["served"]
+    require(result["chunks"] == DISTRIB_CHUNKS and
+            served.get("fleet") == DISTRIB_CHUNKS and
+            not served.get("local"), f"{phase}: served {served} of "
+            f"{result['chunks']} chunks")
+    rows = result["chunk_stats"]
+    builds = [r.get("kernel_builds") for r in rows]
+    require(builds == [0] * DISTRIB_CHUNKS, f"{phase}: kernel_builds by "
+            f"chunk {builds}")
+    launches = {}
+    for r in rows:
+        for k, v in (r.get("launches") or {}).items():
+            launches[k] = launches.get(k, 0) + v
+    for k in ("poa_consensus", "hirschberg_edge", "hirschberg_base"):
+        require(launches.get(k, 0) > 0, f"{phase}: kernel {k} was not "
+                "launched in any chunk")
+    require(not breakdown["violations"], f"{phase}: the merged traces: "
+            f"{breakdown['violations']}")
+    require(result["cuda_context"] is False, f"{phase}: the coordinator "
+            "created a CUDA context")
+    per_worker = {w: {k: s.get(k) for k in ("chunks", "chunk_walls",
+                                            "rss_mb", "device_peak_mb")}
+                  for w, s in result["telemetry"]["workers"].items()}
+    return {"phase": phase, "workers": workers, "chunks": result["chunks"],
+            "mbp": mbp, "wall_s": wall, "sequential_wall_s": seq_wall,
+            "vs_sequential": wall / seq_wall, "served": served,
+            "counters": result["counters"],
+            "memory_share": result["memory_share"],
+            "build_s": result["build_s"],
+            "coordinator_startup_s": result["startup_s"],
+            "coordinator_run_s": result["run_s"],
+            "worker_start": result["worker_start"],
+            "per_worker": per_worker,
+            "chunks_by_index": [
+                {k: r.get(k) for k in ("index", "worker", "attempt",
+                                       "attempts", "wall_s",
+                                       "journal_replayed",
+                                       "kernel_builds")} for r in rows],
+            "device_budget_mb": sorted({r.get("device_budget_mb")
+                                        for r in rows}),
+            "launches": launches, "device_busy_share": track["busy_share"],
+            "device_busy_ms": track["busy_us"] / 1e3,
+            "polish_extent_s": track["polish_us"] / 1e6,
+            "identical": True}
+
+
+def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
+    """The fleet on the card (module note): distrib on the chunked cell
+    against its sequential polish (the chunked phase's), distrib_kill and
+    distrib_w4 on FLEET_SMALL against its own sequential polish run just
+    before them, and serve_fleet: a daemon started first, in a thread,
+    so that its start (and its floor worker's) overlaps the distrib runs,
+    as a resident daemon's does, then given one chunked-cell job."""
+    import threading
+
+    from racon_tpu_torch.obs import __main__ as reader
+    from racon_tpu_torch.serve import ServeClient, loadtest
+
+    # the workers are other processes on the card: this one's cached
+    # blocks go back first
+    torch.cuda.empty_cache()
+    state = os.path.join(tmp, "serve_fleet")
+    daemon = {}
+
+    def start_daemon():
+        t0 = time.perf_counter()
+        try:
+            daemon["proc"] = loadtest.spawn_daemon(state, "cuda", extra_args=[
+                "--fleet-min", "1", "--fleet-max", "2"], timeout=300)
+        except Exception as e:  # noqa: BLE001 - required below
+            daemon["error"] = repr(e)
+        daemon["ready_s"] = time.perf_counter() - t0
+
+    starter = threading.Thread(target=start_daemon, name="serve-fleet")
+    starter.start()
+    try:
+        runs = [("distrib", 2, None, d, fasta_text(seq), seq_wall,
+                 CHUNKED["mbp"])]
+        d_small = simulate.generate(os.path.join(tmp, "fleet_small"),
+                                    **FLEET_SMALL)
+        small_seq, _, small_wall = polish_with(racon_tpu_torch, d_small,
+                                               "cuda")
+        torch.cuda.empty_cache()
+        small = (d_small, fasta_text(small_seq), small_wall,
+                 FLEET_SMALL["mbp"])
+        runs += [("distrib_kill", 2, "worker.result:kill=1", *small),
+                 ("distrib_w4", 4, None, *small)]
+        for phase, workers, fault, data, want, want_wall, mbp in runs:
+            text, wall, result, track, breakdown = distrib_run(
+                reader, data, tmp, phase, workers, fault)
+            line = distrib_line(phase, workers, mbp, text, wall, result,
+                                track, want, want_wall, breakdown)
+            if fault:
+                c = result["counters"]
+                redone = [r for r in result["chunk_stats"]
+                          if r["attempts"] > 1 and r["journal_replayed"] > 0]
+                require(c.get("workers_dead") == 1, f"{phase}: workers "
+                        f"dead {c.get('workers_dead')}")
+                require(redone, f"{phase}: no chunk was re-dispatched with "
+                        f"a journal replay: {line['chunks_by_index']}")
+                line.update(fault=fault,
+                            redispatched=[r["index"] for r in redone])
+            emit(line)
+
+        # serve_fleet: the daemon's device lane runs through its plane
+        starter.join(300)
+        proc = daemon.get("proc")
+        require(proc is not None, f"serve_fleet: the daemon did not start: "
+                f"{daemon.get('error')}")
+        with ServeClient.from_state_dir(state, timeout=900) as c:
+            t0 = time.perf_counter()
+            jid = c.submit(d["reads"], d["overlaps"], d["draft"],
+                           args=dict(MAIN))
+            resp = c.wait(jid, timeout=900)
+            latency = time.perf_counter() - t0
+            stats = c.stats()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        starter.join(300)
+        proc = daemon.get("proc")
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    require(resp["state"] == "done" and resp["lane"] == "device",
+            f"serve_fleet: the job: {resp.get('state')} "
+            f"{resp.get('error')}")
+    res = resp["result"]
+    with open(res["output"]) as f:
+        require(f.read() == fasta_text(seq), "serve_fleet: the job's FASTA "
+                "differs from the chunked cell's sequential polish")
+    require(res["fleet"]["served"] == {"fleet": DISTRIB_CHUNKS},
+            f"serve_fleet: served {res['fleet']}")
+    require(res["kernel_builds"] == 0, f"serve_fleet: the job built or "
+            f"loaded {res['kernel_builds']} kernels")
+    require(rc == 0, f"serve_fleet: the daemon exited {rc} on SIGTERM")
+    fleet = stats["fleet"]
+    require(fleet["cuda_context"] is False, "serve_fleet: the daemon "
+            "created a CUDA context")
+    emit({"phase": "serve_fleet", "mbp": CHUNKED["mbp"],
+          "fleet_min": 1, "fleet_max": 2, "ready_s": daemon["ready_s"],
+          "latency_s": latency, "wall_s": res["wall_s"],
+          "sequential_wall_s": seq_wall, "queued_s": resp["queued_s"],
+          "kernel_builds": res["kernel_builds"],
+          "launches": res["launches"], "served": res["fleet"],
+          "workers": fleet["workers"], "timeline": fleet["timeline"],
+          "steals": fleet["counters"].get("steals", 0),
+          "reclaims": fleet["counters"].get("lease_reclaimed", 0),
+          "counters": fleet["counters"],
+          "memory_share": fleet["memory_share"],
+          "worker_start": fleet["worker_start"],
+          "per_worker": fleet["per_worker"], "identical": True})
 
 
 def host_phase(racon_tpu_torch, native, d, gpu, procs):
@@ -1407,21 +1714,30 @@ def host_phase(racon_tpu_torch, native, d, gpu, procs):
             f"distance ({ed[0]} -> {ed[1]})")
 
 
-def check_global(torch, rec, procs):
+def start_global(torch, rec, procs, ex):
     """Both POA kernels' flat global builds on the ls -w 3000 run's
     largest global launch of each depth bucket, every window held against
-    the plain version (on the host, in `procs` processes; one plain pass
-    for both kernels), the DP cells (and v2's serial steps, colstep on)
-    equal the plain version's; each timed (three calls) beside its bound.
-    Each launch prints a "<kernel> POA phases" line."""
-    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
-    from racon_tpu_torch.tools.batches import plain_poa_parallel
+    the plain version (on the host, in `procs` jobs on the pool `ex`; one
+    plain pass for both kernels), the DP cells (and v2's serial steps,
+    colstep on) equal the plain version's; each timed (three calls) beside
+    its bound. Each launch prints a "<kernel> POA phases" line. Queues the
+    plain version and returns a function that waits for it, runs the
+    checks and gives each build's totals."""
+    from racon_tpu_torch.tools.batches import plain_poa_submit
 
-    mhz = sm_clock_mhz()
     kept = rec.inputs(GLOBAL_NAME["ls"])
     require(kept, "no global POA launch of the -w 3000 run was kept")
     t0 = time.perf_counter()
-    plain = plain_poa_parallel([inp for _, inp in kept], procs)
+    pending = plain_poa_submit([inp for _, inp in kept], procs, ex)
+    return lambda: finish_global(torch, kept, procs, pending, t0)
+
+
+def finish_global(torch, kept, procs, pending, t0):
+    """The second half of start_global."""
+    from racon_tpu_torch.ops import poa_cuda, poa_v2_cuda
+
+    mhz = sm_clock_mhz()
+    plain = pending()
     plain_ms = (time.perf_counter() - t0) * 1e3
     rows = {}
     for kernel, mod in (("ls", poa_cuda), ("v2", poa_v2_cuda)):
@@ -1456,7 +1772,8 @@ def check_global(torch, rec, procs):
                     "failed": int(got[3].sum()), "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms / len(kept),
                     "plain_on": f"host, {procs} processes (one pass for "
-                    "both kernels)", "bound_ms": b_ms, "bound_by": b_by,
+                    "both kernels, beside the banded global builds' "
+                    "plain passes)", "bound_ms": b_ms, "bound_by": b_by,
                     "phases": phases, "sm_clock_mhz": mhz}
             emit(line)
             tot.add(line, n_bytes, n_ops)
@@ -1911,6 +2228,7 @@ def main() -> int:
                                      poa_v2_cuda)
     from racon_tpu_torch.tools import dp_cost_probe as probe
     from racon_tpu_torch.tools import simulate
+    from racon_tpu_torch.tools.batches import plain_poa_pool
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -1923,7 +2241,8 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="racon_smoke_") as tmp, \
             ProcessPoolExecutor(6, mp_context=multiprocessing.get_context(
-                "spawn")) as cpu_pool:
+                "spawn")) as cpu_pool, \
+            plain_poa_pool(PLAIN_PROCS) as plain_ex:
         # the parity set's three CPU polishes (plain versions: flat, and
         # banded with each POA kernel) and the three wide sets' run in
         # their own processes through the phases below
@@ -2019,8 +2338,9 @@ def main() -> int:
         t0 = time.perf_counter()
         d_chunked = simulate.generate(os.path.join(tmp, "chunked"),
                                       **CHUNKED)
-        chunked_phase(racon_tpu_torch, native, cuda_lib, d_chunked,
-                      time.perf_counter() - t0)
+        chunked_seq, chunked_wall = chunked_phase(
+            racon_tpu_torch, native, cuda_lib, d_chunked,
+            time.perf_counter() - t0)
 
         # kept launches: the POA checks take the ls run's (one plain pass
         # serves both POA kernels) and the banded runs' banded launches,
@@ -2059,17 +2379,19 @@ def main() -> int:
                   "v2_band_plan": poa_v2_cuda.plan(cfg, band=True), **occ})
 
         # each kernel on its path's largest launches, against its plain
-        # version
+        # version (the POA checks' plain passes on one pool of host
+        # processes, plain_ex)
         procs = max(1, min(8, os.cpu_count() or 1))
-        (poa_row, ls_ms), poa_plain = check_poa(torch, poa_cuda, rec_ls)
+        (poa_row, ls_ms), poa_plain = check_poa(torch, poa_cuda, rec_ls,
+                                                PLAIN_PROCS, plain_ex)
         v2_row, v2_ms = check_poa_v2(torch, poa_v2_cuda, poa_plain)
         checked = {"poa_consensus": poa_row, "poa_consensus_v2": v2_row,
                    "poa_consensus_v2_band": check_poa_band(
                        torch, poa_v2_cuda.poa_consensus_v2, "v2", rec_band,
-                       procs, "main_band"),
+                       PLAIN_PROCS, "main_band", ex=plain_ex),
                    "poa_consensus_band": check_poa_band(
                        torch, poa_cuda.poa_consensus, "ls", rec_ls_band,
-                       procs, "main_ls_band"),
+                       PLAIN_PROCS, "main_ls_band", ex=plain_ex),
                    "hirschberg_edge": check_edge(torch, ac, rec),
                    "hirschberg_base": check_base(torch, ac, rec),
                    "hirschberg_edge_k128": check_edge(
@@ -2089,7 +2411,7 @@ def main() -> int:
         # wide_3000: -w 3000 through both POA kernels' global builds
         global_rows, global_paths = wide3_phase(
             torch, racon_tpu_torch, native, ac, poa_driver, cuda_lib, d_wide3,
-            cpu_runs["wide3"], procs)
+            cpu_runs["wide3"], PLAIN_PROCS, plain_ex)
         checked.update(global_rows)
         # wide_11008: -w 11008 through both POA kernels' int32 global builds
         global32_rows, global32_paths = wide11_phase(
@@ -2146,6 +2468,10 @@ def main() -> int:
               "windows_device": lbstats["consensus"]["device"]})
         # host: the host backend on the parity set
         host_phase(racon_tpu_torch, native, d_par, gpu, procs)
+        # the fleet: the chunked cell through worker processes that share
+        # the card, once every CPU polish of the pool has ended
+        fleet_phases(torch, racon_tpu_torch, simulate, d_chunked,
+                     chunked_seq, chunked_wall, tmp)
 
 
     # the DP-cost probe's path

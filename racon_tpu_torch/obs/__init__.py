@@ -40,7 +40,8 @@ there), and the telemetry ring (``telemetry_tick``, ``telemetry``; 64
 entries, the JAX package's ``RACON_TPU_TELEMETRY_RING`` default). A job's
 spans ship with its result (``shipment``, at most 1,500 events, the
 JAX package's ``RACON_TPU_OBS_SHIP_EVENTS`` default), in the JAX
-package's format, which its tracer's ``ingest`` reads.
+package's format, which either package's ``absorb`` folds into a
+tracing coordinator's or fleet plane's timeline.
 """
 
 from __future__ import annotations
@@ -230,12 +231,25 @@ def observe(name: str, value: float) -> None:
 
 def shipment(max_events: int = SHIP_EVENTS) -> Optional[dict]:
     """Bounded, JSON-ready export of the armed span buffer and metrics
-    snapshot, shipped with a serve job's result so that a tracing
-    submitter can fold it into its own timeline; None when disarmed."""
+    snapshot, shipped with a serve job's or a distrib chunk's result so
+    that a tracing submitter or coordinator can fold it into its own
+    timeline (``absorb``); None when disarmed."""
     t = _tracer
     if t is None:
         return None
     return t.export(max_events=max(1, max_events), metrics=snapshot())
+
+
+def absorb(ship) -> int:
+    """Fold a peer process's ``shipment()`` into this process's armed
+    tracer (timestamps re-based, pid tracks kept): the coordinator and
+    the fleet plane absorb their workers' chunks. A no-op when disarmed
+    or the shipment is absent or malformed; returns the number of events
+    absorbed."""
+    t = _tracer
+    if t is None or not isinstance(ship, dict):
+        return 0
+    return t.ingest(ship)
 
 
 # -- live telemetry ----------------------------------------------------------

@@ -10,13 +10,24 @@ The JAX package's reader (racon_tpu/obs/__main__.py) in its flag form::
 ``--device`` is the port's own: the card's busy share of the polish from
 the device track (obs/__init__.py), launches and busy time per kernel,
 and the longest host gaps between launches with the span that encloses
-each. The subcommands of the JAX reader (model, validate, bench, merge,
-fleet, critpath) wait: the cost model's machine profiles are the TPU's,
-and merge and fleet need the distributed modules.
+each. Two of the JAX reader's subcommands::
 
-Exit codes: 0 valid; 1 schema violation(s) in a readable trace; 2 file
-unreadable, not JSON, not a trace object, or bad arguments; 3 a
-``--diff`` phase regression past ``--threshold``.
+    python -m racon_tpu_torch.obs merge a.json b.json ... --out m.json
+    python -m racon_tpu_torch.obs fleet m.json [--json]
+
+``merge`` folds per-process traces (a distrib coordinator's or a fleet
+plane's and its workers' chunk traces) into one timeline on the earliest
+monotonic epoch; ``fleet`` gives each process's chunks, dispatches,
+chunk and kernel wall and peak RSS, and checks that every chunk span's
+parent is a dispatch event and that the run has one trace id (exit 1
+where not). On a merged fleet trace ``--device`` gives the card's busy
+share over all workers. The others (model, validate, bench, critpath)
+wait: the cost model's machine profiles are the TPU's.
+
+Exit codes: 0 valid; 1 schema violation(s) in a readable trace (or a
+``fleet`` parenting violation); 2 file unreadable, not JSON, not a trace
+object, or bad arguments; 3 a ``--diff`` phase regression past
+``--threshold``.
 """
 
 from __future__ import annotations
@@ -262,6 +273,243 @@ def device_track(doc: dict, top: int = 10) -> dict:
             "top_gaps": ranked[:top]}
 
 
+def _doc_t0_ns(doc: dict):
+    od = doc.get("otherData")
+    if isinstance(od, dict):
+        t0 = od.get("t0_monotonic_ns")
+        if isinstance(t0, int):
+            return t0
+    return None
+
+
+def merge_traces(docs: List[dict], paths: List[str]) -> dict:
+    """Fold per-process trace documents into one multi-track timeline.
+
+    Same-host traces share the monotonic clock, so each document's
+    events shift by the µs offset of its ``t0_monotonic_ns`` epoch from
+    the earliest one (documents without one keep their own timebase);
+    the device track's float µs stay floats. pid and tid stamps are kept:
+    one track group a process. Counters are summed; histograms, which do
+    not merge losslessly, are left out."""
+    t0s = [_doc_t0_ns(d) for d in docs]
+    known = [t for t in t0s if t is not None]
+    base = min(known) if known else None
+    events: List[dict] = []
+    processes: List[dict] = []
+    counters: Dict[str, int] = {}
+    platform = None
+    dropped = 0
+    for doc, path, t0 in zip(docs, paths, t0s):
+        dt_ns = (t0 - base) if t0 is not None and base is not None else 0
+        for ev in doc.get("traceEvents", []):
+            if not isinstance(ev, dict):
+                continue
+            ev = dict(ev)
+            ts = ev.get("ts")
+            if ev.get("ph") != "M" and isinstance(ts, (int, float)):
+                ev["ts"] = max(0, int(ts) + dt_ns // 1000
+                               if isinstance(ts, int)
+                               else ts + dt_ns / 1000.0)
+            events.append(ev)
+        dropped += dropped_events(doc)
+        for name, v in _counters(doc).items():
+            try:
+                counters[name] = counters.get(name, 0) + int(v)
+            except (TypeError, ValueError):
+                continue
+        od = doc.get("otherData") if isinstance(doc.get("otherData"),
+                                                dict) else {}
+        platform = platform or od.get("platform")
+        processes.append({
+            "path": path, "pid": od.get("pid"), "role": od.get("role"),
+            "trace_id": od.get("trace_id"), "t0_monotonic_ns": t0,
+            "offset_us": dt_ns // 1000,
+            "events": len(doc.get("traceEvents", [])),
+        })
+    other = {"tool": "racon_tpu_torch.obs", "clock": "monotonic",
+             "dropped_events": dropped, "merged_from": list(paths)}
+    if platform:
+        other["platform"] = platform
+    merged = {"traceEvents": events, "displayTimeUnit": "ms",
+              "otherData": other, "racon_tpu": {"processes": processes}}
+    if counters:
+        merged["racon_tpu"]["metrics"] = {
+            "counters": dict(sorted(counters.items()))}
+    return merged
+
+
+_ELASTIC_NAMES = {"fleet.scale_up": "scale_ups",
+                  "fleet.scale_down": "scale_downs",
+                  "fleet.steal": "steals", "serve.shed": "sheds"}
+
+
+def fleet_breakdown(doc: dict) -> dict:
+    """Per-process accounting over a merged fleet trace, and the
+    trace-context invariants the merge makes checkable: every
+    ``distrib.chunk`` span that names a parent names the ``span_id`` of
+    some ``distrib.dispatch`` event, and one fleet run has one trace
+    id."""
+    roles: Dict[int, str] = {}
+    per: Dict[int, dict] = {}
+    dispatch_ids = set()
+    trace_ids = set()
+    violations: List[str] = []
+    elastic = {"scale_ups": 0, "scale_downs": 0, "steals": 0, "sheds": 0}
+    chunk_spans = []
+    for ev in doc.get("traceEvents", []):
+        if not isinstance(ev, dict):
+            continue
+        pid = ev.get("pid")
+        if not isinstance(pid, int):
+            continue
+        if ev.get("ph") == "M" and ev.get("name") == "process_name":
+            name = (ev.get("args") or {}).get("name")
+            if isinstance(name, str):
+                roles[pid] = name
+            continue
+        p = per.setdefault(pid, {"spans": 0, "events": 0, "chunks": 0,
+                                 "dispatches": 0, "chunk_wall_us": 0,
+                                 "kernel_wall_us": 0, "peak_rss_mb": 0.0})
+        args = ev.get("args") if isinstance(ev.get("args"), dict) else {}
+        name = ev.get("name", "")
+        if ev.get("ph") == "X":
+            p["spans"] += 1
+            dur = int(ev.get("dur", 0))
+            if name == "distrib.chunk":
+                p["chunks"] += 1
+                p["chunk_wall_us"] += dur
+                chunk_spans.append((pid, args))
+                if args.get("trace_id"):
+                    trace_ids.add(args["trace_id"])
+            elif name in ("phase.align", "phase.poa"):
+                p["kernel_wall_us"] += dur
+        elif ev.get("ph") in ("i", "I"):
+            p["events"] += 1
+            if name == "distrib.dispatch":
+                p["dispatches"] += 1
+                if args.get("span_id"):
+                    dispatch_ids.add(args["span_id"])
+                if args.get("trace_id"):
+                    trace_ids.add(args["trace_id"])
+            elif name in _ELASTIC_NAMES:
+                elastic[_ELASTIC_NAMES[name]] += 1
+            elif name == "mem.rss":
+                try:
+                    p["peak_rss_mb"] = max(p["peak_rss_mb"],
+                                           float(args.get("rss_mb") or 0.0))
+                except (TypeError, ValueError):
+                    pass
+    for pid, args in chunk_spans:
+        parent = args.get("parent")
+        if parent and parent not in dispatch_ids:
+            violations.append(
+                f"distrib.chunk (pid {pid}, chunk {args.get('chunk')}) "
+                f"names parent {parent!r} but no distrib.dispatch event "
+                f"carries that span_id")
+    if len(trace_ids) > 1:
+        violations.append(f"multiple trace ids in one fleet trace: "
+                          f"{sorted(trace_ids)}")
+    return {
+        "processes": {str(pid): {"role": roles.get(pid), **stats}
+                      for pid, stats in sorted(per.items())},
+        "dispatch_span_ids": len(dispatch_ids),
+        "trace_ids": sorted(trace_ids),
+        "elastic": elastic,
+        "violations": violations,
+    }
+
+
+def _read_valid(path: str):
+    """(document, None), or (None, exit code) with the message printed."""
+    try:
+        doc, errors = load_trace(path)
+    except (OSError, ValueError) as e:
+        print(f"[obs] cannot read trace {path}: {e}", file=sys.stderr)
+        return None, 2
+    if errors:
+        for err in errors:
+            print(f"[obs] {path}: {err}", file=sys.stderr)
+        return None, 1
+    return doc, None
+
+
+def cmd_merge(args) -> int:
+    docs = []
+    for path in args.traces:
+        doc, rc = _read_valid(path)
+        if doc is None:
+            return rc
+        docs.append(doc)
+    merged = merge_traces(docs, args.traces)
+    try:
+        with open(args.out, "w") as f:
+            json.dump(merged, f)
+            f.write("\n")
+    except OSError as e:
+        print(f"[obs] cannot write {args.out}: {e}", file=sys.stderr)
+        return 2
+    procs = merged["racon_tpu"]["processes"]
+    print(f"[obs] merged {len(docs)} trace(s), "
+          f"{len(merged['traceEvents'])} events, "
+          f"{len(procs)} process entr{'y' if len(procs) == 1 else 'ies'} "
+          f"-> {args.out}")
+    return 0
+
+
+def cmd_fleet(args) -> int:
+    doc, rc = _read_valid(args.trace)
+    if doc is None:
+        return rc
+    b = fleet_breakdown(doc)
+    if args.as_json:
+        print(json.dumps(b, indent=2))
+    else:
+        print(f"fleet trace: {args.trace}")
+        print("-- processes " + "-" * 31)
+        for pid, p in b["processes"].items():
+            print(f"  pid {pid:<8s} {p['role'] or '?':<14s} "
+                  f"chunks={p['chunks']:<3d} "
+                  f"dispatches={p['dispatches']:<3d} "
+                  f"chunk={p['chunk_wall_us'] / 1e3:>9.2f} ms  "
+                  f"kernel={p['kernel_wall_us'] / 1e3:>9.2f} ms  "
+                  f"peak_rss={p['peak_rss_mb']:>7.1f} MiB")
+        if b["trace_ids"]:
+            print(f"  trace id: {', '.join(b['trace_ids'])} "
+                  f"({b['dispatch_span_ids']} dispatch span ids)")
+        e = b["elastic"]
+        if any(e.values()):
+            print(f"  elastic: scale_ups={e['scale_ups']} "
+                  f"scale_downs={e['scale_downs']} steals={e['steals']} "
+                  f"sheds={e['sheds']}")
+        for v in b["violations"]:
+            print(f"[obs] VIOLATION: {v}", file=sys.stderr)
+        if not b["violations"]:
+            print("[obs] OK: trace-context parenting holds")
+    return 1 if b["violations"] else 0
+
+
+def _sub_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="python -m racon_tpu_torch.obs")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    mg = sub.add_parser("merge",
+                        help="fold per-process traces (coordinator and "
+                        "workers) into one multi-track timeline, re-based "
+                        "onto the earliest monotonic epoch")
+    mg.add_argument("traces", nargs="+",
+                    help="trace files to merge (any order)")
+    mg.add_argument("--out", required=True,
+                    help="path for the merged Chrome-trace JSON")
+    mg.set_defaults(fn=cmd_merge)
+    fl = sub.add_parser("fleet",
+                        help="per-process breakdown of a merged fleet "
+                        "trace and the trace-context parenting check; "
+                        "exit 1 on a dangling parent or mixed trace ids")
+    fl.add_argument("trace")
+    fl.add_argument("--json", action="store_true", dest="as_json")
+    fl.set_defaults(fn=cmd_fleet)
+    return p
+
+
 def render(doc: dict, path: str) -> str:
     b = breakdown(doc)
     lines = [f"trace: {path}"]
@@ -356,6 +604,14 @@ def diff(old: dict, new: dict, threshold: float,
 
 
 def main(argv=None) -> int:
+    if argv is None:
+        argv = sys.argv[1:]
+    if argv and argv[0] in ("merge", "fleet"):
+        try:
+            args = _sub_parser().parse_args(argv)
+        except SystemExit as e:
+            return 2 if e.code not in (0, None) else 0
+        return args.fn(args)
     p = argparse.ArgumentParser(
         prog="python -m racon_tpu_torch.obs",
         description="validate / summarize / diff racon_tpu_torch trace "

@@ -2,8 +2,9 @@
 JSON, loadable in Perfetto / chrome://tracing.
 
 A copy of the JAX package's tracer (racon_tpu/obs/tracer.py), with its
-cross-process shipping (``export``: a serve job's spans ride its
-result to a tracing submitter) and its provenance (``role``,
+cross-process shipping (``export``: a serve job's or a distrib chunk's
+spans ride its result; ``ingest``: the coordinator or the fleet plane
+folds them into its own timeline) and its provenance (``role``,
 ``trace_id``, ``parent_span``, from ``obs.set_role`` and
 ``obs.context``), and with one addition: ``add_track_complete``, a
 complete event on a track of its own rather than on the calling
@@ -100,6 +101,9 @@ class Tracer:
         self.role: Optional[str] = None
         self.trace_id: Optional[str] = None
         self.parent_span: Optional[str] = None
+        # peers' events and their track names, absorbed by ingest()
+        self._foreign: List[dict] = []
+        self._foreign_meta: List[dict] = []
 
     @property
     def t0_ns(self) -> int:
@@ -186,13 +190,69 @@ class Tracer:
             ship["metrics"] = metrics
         return ship
 
+    def ingest(self, ship: dict) -> int:
+        """Absorb a peer process's ``export()``: re-base its timestamps
+        onto this tracer's clock (same-host monotonic epochs) and keep
+        its pid and tid stamps, so that the written file has one track
+        group a process. A malformed shipment is dropped whole; returns
+        the number of events absorbed."""
+        if not isinstance(ship, dict):
+            return 0
+        events = ship.get("events")
+        if not isinstance(events, list):
+            return 0
+        try:
+            dt_ns = int(ship["t0_mono_ns"]) - self._t0
+            pid = int(ship["pid"])
+        except (KeyError, TypeError, ValueError):
+            return 0
+        absorbed = []
+        for ev in events:
+            if not isinstance(ev, dict) or "ts" not in ev:
+                continue
+            ev = dict(ev)
+            try:
+                # whole µs stay whole, as the JAX tracer's; the device
+                # track keeps its floats
+                ts = ev["ts"]
+                ev["ts"] = max(0, int(ts) + dt_ns // 1000
+                               if isinstance(ts, int)
+                               else float(ts) + dt_ns / 1000.0)
+                ev["pid"] = int(ev.get("pid", pid))
+                ev["tid"] = int(ev.get("tid", 0))
+            except (TypeError, ValueError):
+                continue
+            absorbed.append(ev)
+        meta = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
+                 "args": {"name": ship.get("role") or f"pid{pid}"}}]
+        tnames = ship.get("thread_names")
+        if isinstance(tnames, dict):
+            for t, n in sorted(tnames.items()):
+                try:
+                    meta.append({"name": "thread_name", "ph": "M",
+                                 "pid": pid, "tid": int(t),
+                                 "args": {"name": str(n)}})
+                except (TypeError, ValueError):
+                    continue
+        try:
+            foreign_dropped = int(ship.get("dropped", 0))
+        except (TypeError, ValueError):
+            foreign_dropped = 0
+        with self._lock:
+            self._foreign.extend(absorbed)
+            self._foreign_meta.extend(meta)
+            self.dropped += foreign_dropped
+        return len(absorbed)
+
     def to_dict(self, metrics: Optional[dict] = None,
                 platform: Optional[str] = None) -> dict:
-        """The full Chrome-trace JSON object; the metrics snapshot and
-        the provenance ride along as extra top-level keys."""
+        """The full Chrome-trace JSON object, absorbed peers' events
+        included; the metrics snapshot and the provenance ride along as
+        extra top-level keys."""
         with self._lock:
-            events = list(self._events)
+            events = list(self._events) + list(self._foreign)
             names = dict(self._thread_names)
+            meta = list(self._foreign_meta)
             dropped = self.dropped
         events.append({"name": "process_name", "ph": "M", "pid": self.pid,
                        "tid": 0,
@@ -200,6 +260,7 @@ class Tracer:
         for tid, tname in sorted(names.items()):
             events.append({"name": "thread_name", "ph": "M", "pid": self.pid,
                            "tid": tid, "args": {"name": tname}})
+        events.extend(meta)
         doc = {
             "traceEvents": events,
             "displayTimeUnit": "ms",

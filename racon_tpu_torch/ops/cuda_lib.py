@@ -181,10 +181,32 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+#: cudaError_t codes after which the process's context launches nothing
+#: more (every later call returns the same error): illegal address (700),
+#: launch timeout (702), device-side assert (710), hardware stack error
+#: (714), illegal instruction (715), misaligned address (716), invalid
+#: address space (717), invalid PC (718), launch failure (719).
+STICKY_CODES = frozenset({700, 702, 710, 714, 715, 716, 717, 718, 719})
+
+
+class DeviceError(RuntimeError):
+    """A launch function returned a non-zero cudaError_t (``code``)."""
+
+    def __init__(self, what: str, code: int):
+        super().__init__(f"{what}: CUDA launch failed with error {code}")
+        self.code = code
+
+    @property
+    def sticky(self) -> bool:
+        """Whether the error has poisoned the process's CUDA context."""
+        return self.code in STICKY_CODES
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a launch function."""
+    """Raise DeviceError on a non-zero cudaError_t returned by a launch
+    function."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise DeviceError(what, err)
 
 
 # What the POA kernels' occupancy exports report, in order.

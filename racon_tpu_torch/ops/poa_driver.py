@@ -22,7 +22,9 @@ length that fits, where one does not; no window is sent to the host for
 its size. Each bucket's batches are capped by geometry (``batch_cap``):
 as many windows as the card's free memory holds for every batch in
 flight, less the margin (``MEMORY_MARGIN``), and at most
-``batch_windows``.
+``batch_windows``. A process that shares the card (a fleet's worker)
+sizes both from its share of the card instead, where that is smaller
+(``device_memory_share``, ``sizing_bytes``).
 
 The batches go through the shared feeder (ops/batch_exec.py) with up to
 ``pipeline_depth`` batches in flight (2, as the JAX package's
@@ -196,6 +198,31 @@ def free_device_bytes(device) -> int:
         torch.cuda.memory_allocated(device)
 
 
+def shared_free_bytes(free_bytes: int, total_bytes: int, held_bytes: int,
+                      share: float) -> int:
+    """The free bytes a process that may hold `share` of a card sizes
+    from: the smaller of `free_bytes` and that share of `total_bytes`
+    less the `held_bytes` it already uses; `free_bytes` at a share of 1.
+    Worker processes of one fleet each hold 1 / (its pool's ceiling),
+    so that two of them sizing a batch at the same moment cannot each
+    take nearly all of the card."""
+    if share >= 1.0:
+        return free_bytes
+    return max(0, min(free_bytes, int(share * total_bytes) - held_bytes))
+
+
+def sizing_bytes(device, share: float = 1.0) -> int:
+    """``free_device_bytes`` capped at `share` of the card
+    (``shared_free_bytes``): what ``check_memory`` and ``batch_cap``
+    size from."""
+    free = free_device_bytes(device)
+    if share >= 1.0:
+        return free
+    _, total = torch.cuda.mem_get_info(device)
+    return shared_free_bytes(free, total, torch.cuda.memory_allocated(device),
+                             share)
+
+
 def initial_poa_band(wx, keep, cfg: poa.PoaConfig, slack: int):
     """w0 (half band) for a window: the worst admitted layer's length less
     its span, plus the slack; None (flat) where the band would not be
@@ -216,7 +243,8 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
                         band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
                         pipeline_depth: int = DEFAULT_DEPTH,
                         budget=None, journal=None, report=None,
-                        device_timeout_s: float = 0.0) -> dict:
+                        device_timeout_s: float = 0.0,
+                        device_memory_share: float = 1.0) -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
     `poa_kernel` ("ls", the default, or "v2") picks the kernel; `band`
@@ -240,7 +268,8 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     wall seconds and the extras: device_rejected, layers_dropped_maxlen,
     band, pack_wall_s, kernel_wall_s, depth_collapsed.
     `device_timeout_s` is the watchdog's deadline on each batch's wait (0:
-    none)."""
+    none). `device_memory_share` is the share of the card this process
+    may hold (``sizing_bytes``; 1: all of it)."""
     device = torch.device(device)
     kernel_for(poa_kernel)
     n = pipeline.num_windows()
@@ -278,7 +307,8 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     cfgs = {key: make_config(key[1], key[0], match, mismatch, gap)
             for key in buckets}
     if device.type == "cuda":
-        check_memory(cfgs.values(), free_device_bytes(device), poa_kernel)
+        check_memory(cfgs.values(), sizing_bytes(device, device_memory_share),
+                     poa_kernel)
     ops = _ConsensusOps(pipeline, device, poa_kernel, trim, stats, fallback,
                         band, band_slack, band_max_widenings, journal,
                         device_timeout_s)
@@ -297,7 +327,8 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
             per_batch = batch_windows
             if device.type == "cuda":
                 per_batch = min(per_batch, batch_cap(
-                    cfg, free_device_bytes(device), executor.depth))
+                    cfg, sizing_bytes(device, device_memory_share),
+                    executor.depth))
             for off in range(0, len(bucket_jobs), per_batch):
                 executor.submit(cfg, [i for i, _, _ in
                                       bucket_jobs[off:off + per_batch]])

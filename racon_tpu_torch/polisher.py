@@ -268,6 +268,11 @@ class TorchPolisher:
     set a torn input degraded) and "collapsed" (the hard watermark
     collapsed the pipeline).
 
+    ``device_memory_share`` is the share of the card this polish may
+    hold (1: all of it; a fleet's worker holds 1 / its pool's ceiling):
+    the consensus phase sizes its batches from it
+    (``poa_driver.sizing_bytes``).
+
     ``journal_path``, ``resume_journal``, ``journal_fsync``,
     ``trace_path`` and ``device_timeout_s``: the module note."""
 
@@ -283,9 +288,14 @@ class TorchPolisher:
                  journal_path: Optional[str] = None,
                  resume_journal: bool = False, journal_fsync: bool = True,
                  trace_path: Optional[str] = None,
-                 device_timeout_s: float = 0.0, **racon_kwargs):
+                 device_timeout_s: float = 0.0,
+                 device_memory_share: float = 1.0, **racon_kwargs):
         _reset_run_state(trace_path)
         self.device = _resolve_device(device)
+        if not 0.0 < device_memory_share <= 1.0:
+            raise ValueError(f"device_memory_share must be in (0, 1], got "
+                             f"{device_memory_share}")
+        self.device_memory_share = float(device_memory_share)
         if self.device.type == "cuda":
             obs.arm_device_track(self.device)
         kernel_for(poa_kernel)
@@ -381,7 +391,8 @@ class TorchPolisher:
                 pipeline_depth=self.pipeline_depth,
                 budget=self.budget if self.budget.enabled else None,
                 journal=self.journal, report=rep,
-                device_timeout_s=self.device_timeout_s, **self.band)
+                device_timeout_s=self.device_timeout_s,
+                device_memory_share=self.device_memory_share, **self.band)
         with obs.span("phase.stitch", **at):
             out = self._timed(stats, "stitch", pl.stitch, drop_unpolished)
         return out, rep

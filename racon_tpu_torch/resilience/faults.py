@@ -38,6 +38,15 @@ forces the hard watermark at a poll; ``mem.spill`` aborts a park. Those
 three give the same bytes. ``slo.burn`` (the serve daemon's SLO engine,
 obs/slo.py) absorbs a raise as a forced burn rate.
 
+The distributed points mean what the JAX package's do
+(racon_tpu/resilience/faults.py): ``kill=1`` on ``worker.heartbeat``,
+``worker.result`` or ``mem.oom`` is a SIGKILL of that worker mid-chunk,
+whose chunk the coordinator re-dispatches to resume from its journal; on
+``pool.*`` or ``lease.reclaim`` it crashes the controller mid-transition.
+The coordinator and the fleet plane hand ``RACON_TORCH_FAULT`` to one
+worker only (``fault_worker``, 0 by default), so a spec kills a known
+worker and not the fleet.
+
 A malformed spec raises ValueError with a one-line message (the CLI exits
 1 with it). ``reset()`` runs in each polisher constructor, so that
 consecutive runs in one process fire on the same schedule.
@@ -69,6 +78,22 @@ KNOWN_POINTS = frozenset({
     "mem.spill",        # before each park of a working set: aborted park
     "slo.burn",         # each SLO evaluation (obs/slo.py): a raise is
                         # absorbed as a forced burn
+    # the distributed seams (distrib/, fleet/), as the JAX package's:
+    "worker.spawn",     # before each worker process is launched: a raise
+                        # is a spawn failure, which shrinks the fleet
+    "worker.heartbeat", # a worker, before each lease renewal: a raise
+                        # silently stops renewing (the lease expires)
+    "worker.result",    # a worker, after a chunk is journaled and
+                        # written, before its result is delivered
+    "pool.scale_up",    # the pool, before growing: a raise is absorbed
+                        # and the growth step skipped
+    "pool.scale_down",  # the pool, before draining a worker: the same
+    "pool.steal",       # the fleet plane, before a cross-job steal: a
+                        # raise skips the steal for that fetch
+    "lease.reclaim",    # before a dead worker's leases are reclaimed: a
+                        # raise is absorbed and counted, the reclaim
+                        # proceeds
+    "mem.oom",          # a worker, before polishing a fetched chunk
 })
 
 

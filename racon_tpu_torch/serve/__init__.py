@@ -16,6 +16,9 @@ through it.
   (``racon_tpu_torch.cli --host`` children) for jobs over the window
   budget or shed at submit — each such move recorded in the job's
   status and counted in ``stats``. A device-lane job that raises fails.
+  With ``--fleet-max`` above 0 the device lane runs through a fleet
+  plane (fleet/plane.py): each job split into chunks, polished by an
+  autoscaled pool of worker processes on the card.
 * ``server`` / ``client`` — localhost TCP daemon speaking a newline-JSON
   protocol (ping/submit/status/result/cancel/stats/metrics/shutdown) and
   the thin client. Each request carries its own crash-safe journal, so a
@@ -26,9 +29,9 @@ through it.
 Entry points: ``python -m racon_tpu_torch.serve`` or ``python -m
 racon_tpu_torch.cli serve`` (daemon), ``python -m
 racon_tpu_torch.serve.loadtest`` (harness). Left out of the JAX
-package's: the fleet plane (its ``--fleet-*`` flags), the load test's
-``--docs``, the daemon's per-geometry warm-up (``--warm-window``) and its
-warm-up scores (``-m -x -g``), which configure nothing on the card.
+package's: the load test's ``--docs``, the daemon's per-geometry warm-up
+(``--warm-window``) and its warm-up scores (``-m -x -g``), which
+configure nothing on the card.
 """
 
 from .client import ServeClient, ServeError

@@ -2,10 +2,12 @@
 serve` — run the resident polishing daemon, or (with ``--stats-watch``)
 poll a running daemon's live telemetry without starting one.
 
-The JAX package's flags (racon_tpu/serve/__main__.py) less its fleet
-ones, plus ``--device`` and ``--poa-kernel`` (the session's), and the
-settings the JAX package reads from its environment knobs:
-``--memory-budget-mb``, ``--tenant-quota`` and ``--slo-*``.
+The JAX package's flags (racon_tpu/serve/__main__.py), ``--fleet-min``
+and ``--fleet-max`` among them (a ceiling above 0 runs the device lane
+through a fleet plane of worker processes), plus ``--device`` and
+``--poa-kernel`` (the session's and the workers'), and the settings the
+JAX package reads from its environment knobs: ``--memory-budget-mb``,
+``--tenant-quota`` and ``--slo-*``.
 """
 
 from __future__ import annotations
@@ -16,7 +18,8 @@ import signal
 import sys
 import time
 
-from ..fleet import DEFAULT_TENANT_QUOTA
+from ..fleet import (DEFAULT_MAX_WORKERS, DEFAULT_MIN_WORKERS,
+                     DEFAULT_TENANT_QUOTA)
 from ..ops.poa_driver import DEFAULT_POA_KERNEL, POA_KERNELS
 from .session import (DEFAULT_MAX_JOBS, DEFAULT_MEMORY_BUDGET_MB,
                       DEFAULT_METRICS_PORT, DEFAULT_PORT, DEFAULT_QUEUE_DEPTH,
@@ -82,6 +85,15 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-host-lane", action="store_true",
                    help="disable the host lane (jobs over the window "
                    "budget then run on the device lane)")
+    p.add_argument("--fleet-max", type=int, default=DEFAULT_MAX_WORKERS,
+                   help="elastic fleet worker ceiling; above 0 the device "
+                   "lane runs through the chunk-level fleet plane, with "
+                   "autoscaling and work-stealing, each worker holding 1 / "
+                   "this of the card's memory (default "
+                   f"{DEFAULT_MAX_WORKERS}: the device lane in-process)")
+    p.add_argument("--fleet-min", type=int, default=DEFAULT_MIN_WORKERS,
+                   help="elastic fleet worker floor (default "
+                   f"{DEFAULT_MIN_WORKERS})")
     p.add_argument("--metrics-port", type=int, default=DEFAULT_METRICS_PORT,
                    help="Prometheus exposition HTTP port on 127.0.0.1 "
                    f"(GET /metrics; default {DEFAULT_METRICS_PORT}: "
@@ -152,7 +164,8 @@ def main(argv=None) -> int:
         memory_budget_mb=args.memory_budget_mb,
         slo_settings=dict(latency_s=args.slo_latency_s,
                           availability=args.slo_availability,
-                          shed_burn=args.slo_shed_burn))
+                          shed_burn=args.slo_shed_burn),
+        fleet_min=args.fleet_min, fleet_max=args.fleet_max)
 
     from .. import obs
     from ..obs import flight

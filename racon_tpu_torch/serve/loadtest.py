@@ -1,8 +1,11 @@
 """Load-test harness for the serve daemon.
 
 A copy of the JAX package's harness (racon_tpu/serve/loadtest.py)
-without its ``--docs`` rewrite of the JAX package's benchmark page and
-its elastic-fleet series (the pool timeline and the saturation curve).
+without its ``--docs`` rewrite of the JAX package's benchmark page. With
+``--fleet-max`` the spawned daemon runs its device lane through a fleet
+plane, and the summary carries the elastic pool's series: its size
+timeline (``pool``) and the saturation curve (``curve``: per time bucket
+the completion rate, tail latency, queue depth and live workers).
 
 Closed-loop load generation: N client threads, each with its own socket,
 each looping submit -> wait over its share of synthetic polish jobs
@@ -253,6 +256,11 @@ def run_loadtest(port: int, paths: dict, jobs: int, clients: int,
                  for s in stats_samples), default=0),
             "last": stats_samples[-1] if stats_samples else None,
         },
+        # elastic pool-size timeline + saturation curve: how worker
+        # count, completion rate, and tail latency evolved over the run
+        # (pool is None when the daemon ran without a fleet plane)
+        "pool": pool_series(stats_samples),
+        "curve": saturation_curve(completed, stats_samples, makespan),
         # aggregated latency ledger over the completed jobs (where the
         # wall went, stage by stage) + the daemon's per-tenant SLO
         # snapshot scraped at the end of the run
@@ -263,11 +271,67 @@ def run_loadtest(port: int, paths: dict, jobs: int, clients: int,
     return summary
 
 
+def pool_series(stats_samples: List[dict]) -> Optional[dict]:
+    """Elastic-pool timeline from the scraped stats samples: live and
+    active workers over time, and the plane's own size timeline from the
+    final sample. None when no sample carried a fleet snapshot (a daemon
+    without a plane)."""
+    fleet = [(s["t"], s["fleet"]) for s in stats_samples
+             if isinstance(s.get("fleet"), dict)]
+    if not fleet:
+        return None
+    last = fleet[-1][1]
+    return {
+        "min": last.get("min_workers"),
+        "max": last.get("max_workers"),
+        "timeline": last.get("timeline"),
+        "samples": [{"t": t,
+                     "live": (f.get("workers") or {}).get("live"),
+                     "active": (f.get("workers") or {}).get("active"),
+                     "chunks_pending": f.get("chunks_pending")}
+                    for t, f in fleet[-300:]],
+    }
+
+
+def saturation_curve(completed: List[dict], stats_samples: List[dict],
+                     makespan: float, buckets: int = 12) -> List[dict]:
+    """Time-bucketed saturation curve over the run: per bucket the
+    completion rate (jobs/s), the p99 end-to-end latency of the jobs that
+    finished in it, the peak total queued depth, and the peak live
+    worker count (None without a fleet plane)."""
+    if makespan <= 0 or not completed:
+        return []
+    buckets = max(1, min(buckets, len(completed)))
+    step = makespan / buckets
+    curve = []
+    for b in range(buckets):
+        lo, hi = b * step, (b + 1) * step
+        done = [r for r in completed
+                if lo <= r["t_done"] < hi or (b == buckets - 1
+                                              and r["t_done"] >= lo)]
+        in_bucket = [s for s in stats_samples if lo <= s["t"] < hi]
+        workers = [((s.get("fleet") or {}).get("workers") or {}).get("live")
+                   for s in in_bucket]
+        workers = [w for w in workers if w is not None]
+        curve.append({
+            "t_end_s": round(hi, 3),
+            "jobs_done": len(done),
+            "jobs_per_s": round(len(done) / step, 4),
+            "p99_s": (percentile([r["latency_s"] for r in done], 99)
+                      if done else None),
+            "max_queued": max(
+                (sum((s.get("queued") or {}).values())
+                 for s in in_bucket), default=0),
+            "workers": max(workers) if workers else None,
+        })
+    return curve
+
+
 # -- report ---------------------------------------------------------------
 
 def render_markdown(summary: dict, workload: str) -> str:
-    """The summary as a markdown table (the JAX package's rows, less its
-    fleet series and its docs-block markers)."""
+    """The summary as a markdown table (the JAX package's rows and fleet
+    series, less its docs-block markers)."""
     lat = summary["latency_s"]
     svc = summary["service_s"]
     mix = ""
@@ -300,6 +364,34 @@ def render_markdown(summary: dict, workload: str) -> str:
            if svc["cold_warm_delta"] is not None else "n/a |"),
         f"| kernel builds in warm jobs | {summary['warm_kernel_builds']} |",
     ]
+    pool = summary.get("pool")
+    if pool and pool.get("max") is not None:
+        lives = [s["live"] for s in pool.get("samples", [])
+                 if s.get("live") is not None]
+        lines.append(f"| elastic fleet workers (floor..ceiling) | "
+                     f"{pool.get('min')}..{pool.get('max')} |")
+        if lives:
+            lines.append(f"| worker count seen (min..peak) | "
+                         f"{min(lives)}..{max(lives)} |")
+    curve = summary.get("curve") or []
+    if len(curve) > 1:
+        lines += [
+            "",
+            "Saturation curve (time-bucketed over the makespan — "
+            "completion rate, tail latency, queue depth, and elastic "
+            "worker count as the run progressed):",
+            "",
+            "| t (s) | jobs/s | p99 latency (s) | peak queued | workers |",
+            "|---|---|---|---|---|",
+        ]
+        for row in curve:
+            p99 = f"{row['p99_s']:.2f}" if row["p99_s"] is not None \
+                else "n/a"
+            workers = row["workers"] if row["workers"] is not None \
+                else "n/a"
+            lines.append(
+                f"| {row['t_end_s']:.1f} | {row['jobs_per_s']:.2f} | "
+                f"{p99} | {row['max_queued']} | {workers} |")
     return "\n".join(lines)
 
 
@@ -326,6 +418,12 @@ def main(argv=None) -> int:
                    help="spawned daemon's queued-job admission cap")
     p.add_argument("--max-jobs", type=int, default=None,
                    help="spawned daemon's unfinished-job admission cap")
+    p.add_argument("--fleet-max", type=int, default=None,
+                   help="spawn the daemon with this elastic-fleet "
+                   "ceiling (> 0: its device lane runs through the "
+                   "chunk-level fleet plane)")
+    p.add_argument("--fleet-min", type=int, default=None,
+                   help="spawned daemon's fleet worker floor")
     p.add_argument("--metrics-port", type=int, default=None,
                    help="spawned daemon's Prometheus-text HTTP port "
                    "(0 disables; lets CI scrape /metrics mid-run)")
@@ -370,10 +468,14 @@ def main(argv=None) -> int:
     workload = (f"{args.mbp} Mbp draft x {args.coverage}x coverage, "
                 f"-w {args.window_length} -m {args.match} -x "
                 f"{args.mismatch} -g {args.gap}, backend {args.backend}"
-                + (", no warm-up" if args.no_warm else ""))
+                + (", no warm-up" if args.no_warm else "")
+                + (f", fleet {args.fleet_min or 1}..{args.fleet_max}"
+                   if args.fleet_max else ""))
 
     extra: List[str] = []
     for flag, val in (("--device", args.device),
+                      ("--fleet-max", args.fleet_max),
+                      ("--fleet-min", args.fleet_min),
                       ("--queue-depth", args.queue_depth),
                       ("--max-jobs", args.max_jobs),
                       ("--metrics-port", args.metrics_port)):

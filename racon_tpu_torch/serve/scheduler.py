@@ -1,8 +1,15 @@
 """Queue-based job scheduler: N concurrent submissions, one card.
 
-A copy of the JAX package's scheduler (racon_tpu/serve/scheduler.py)
-without its fleet-plane branch (``plane`` stays None: the plane, the
-worker pool and the leases wait for the port's distributed modules).
+A copy of the JAX package's scheduler (racon_tpu/serve/scheduler.py).
+
+With a fleet plane (``plane``, fleet/plane.py; ``cli serve --fleet-max``)
+the device lane hands each job to the plane and goes straight back to
+its queue: the plane splits the job into chunks, which its worker
+processes polish on the card, several jobs in flight at once. The
+plane's ``on_done`` callback finishes the job; a job the plane reports
+failed fails with its error (the plane's local floor serves no chunk of
+a job on the card: fleet/plane.py). Without a plane the device lane runs
+each job in this process.
 
 Concurrency model: in-process polishes cannot overlap (the per-run
 state the polisher constructors reset is module-global — see
@@ -23,7 +30,8 @@ A job that the device lane has started never moves: where its run
 raises (a kernel that fails to build or launch, or anything else), the
 job fails with that error.  Unlike the JAX daemon, which re-runs such a
 job on its host lane, the port never hands work that was meant for the
-card to the CPU after the fact.
+card to the CPU after the fact; nor does it re-run a job the fleet plane
+failed.
 
 Admission control bounds what the daemon will hold: a queue-depth cap on
 not-yet-running jobs, a max-jobs cap on everything unfinished, an
@@ -175,9 +183,9 @@ class Scheduler:
                  plane=None,
                  tenant_quota: int = DEFAULT_TENANT_QUOTA,
                  memory_budget_mb: int = DEFAULT_MEMORY_BUDGET_MB):
-        if plane is not None:
-            raise ValueError("the fleet plane is not part of the port yet")
         self.session = session
+        # a FleetPlane, or None: the device lane runs in this process
+        self.plane = plane
         self.queue_depth = queue_depth
         self.max_jobs = max_jobs
         self.window_budget = window_budget
@@ -201,7 +209,7 @@ class Scheduler:
         self._workers: List[threading.Thread] = []
         # injectable for tests: () -> "ok"|"soft"|"hard" — the memory
         # dimension of the admission ladder (sampled OUTSIDE _cv)
-        self.memory_source = lambda: self.memory.poll(fault_check=False)
+        self.memory_source = self._memory_pressure
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -368,6 +376,24 @@ class Scheduler:
         w = spec.polish_args()["window_length"]
         return estimate_windows(spec.target, w)
 
+    def _memory_pressure(self) -> str:
+        """The memory level for admission: the worse of the daemon's own
+        RSS against its watermarks and, with a plane, the worst worker's
+        RSS its telemetry last reported ("ok" without a budget). Runs
+        outside _cv: it reads /proc and takes the plane's lock."""
+        level = self.memory.poll(fault_check=False)
+        if not self.memory.enabled or self.plane is None or \
+                membudget.at_least(level, "hard"):
+            return level
+        tel = self.plane.fleet_telemetry()
+        worst = max((float(s.get("rss_mb") or 0.0)
+                     for s in tel.get("workers", {}).values()), default=0.0)
+        if worst >= self.memory.hard_mb:
+            return "hard"
+        if worst >= self.memory.soft_mb:
+            return "soft"
+        return level
+
     def _admission_count(self, name: str, n: int = 1) -> None:
         # call with self._cv held
         self.admission[name] = self.admission.get(name, 0) + n
@@ -467,11 +493,19 @@ class Scheduler:
                 self._persist_result(job)
                 return job.as_status()
         job.cancel.set()
+        # a plane job: propagate outside _cv (the plane fires on_done ->
+        # _finish, which takes _cv itself)
+        if self.plane is not None and job.lane == "device":
+            self.plane.cancel_job(job_id)
         return job.as_status()
 
     def stats(self) -> dict:
         """Counters read under the scheduler's lock; nothing here
-        touches the card (the daemon's connection threads call it)."""
+        touches the card (the daemon's connection threads call it). With
+        a plane, its snapshot under ``fleet``."""
+        # the plane's snapshot takes the plane's lock: outside ours, so
+        # that the two condition variables never nest
+        fleet = self.plane.snapshot() if self.plane is not None else None
         with self._cv:
             by_state: Dict[str, int] = {}
             for j in self._jobs.values():
@@ -500,6 +534,8 @@ class Scheduler:
             "ledger": joblog.summarize(
                 j.result.get("ledger") for j in done),
         }
+        if fleet is not None:
+            out["fleet"] = fleet
         return out
 
     # -- queue mechanics (call with self._cv held) -------------------------
@@ -529,6 +565,12 @@ class Scheduler:
                 job.lane = lane
                 job.t_start = time.monotonic()
                 job.ledger.mark("dispatch")
+            if lane == "device" and self.plane is not None:
+                # the fleet: hand the job to the plane and go straight
+                # back to the queue — several jobs in flight at once is
+                # what makes cross-job stealing possible
+                self._dispatch_to_plane(job)
+                continue
             try:
                 if lane == "device":
                     result = self.session.run_job(job.spec,
@@ -544,6 +586,35 @@ class Scheduler:
                              error=f"{type(e).__name__}: {e}")
             else:
                 self._finish(job, "done", result=result)
+
+    def _dispatch_to_plane(self, job: Job) -> None:
+        """Submit one popped job to the fleet plane, without blocking.
+        The plane's on_done callback (off its lock, on a fleet thread)
+        finishes the job: done, cancelled, or failed with the plane's
+        error — never re-run on the host lane."""
+        spec = job.spec
+
+        def on_done(state: str, result: Optional[dict],
+                    error: Optional[str]) -> None:
+            if state == "done":
+                self._finish(job, "done", result=result)
+            elif state == "cancelled":
+                self._finish(job, "cancelled",
+                             error=error or "cancelled mid-run")
+            else:
+                self._finish(job, "failed", error=error or "fleet failure")
+
+        try:
+            self.plane.submit_job(
+                job.id, spec.sequences, spec.overlaps, spec.target,
+                spec.polish_args(), spec.include_unpolished,
+                spec.backend or self.session.backend,
+                workdir=self.session.job_dir(job.id),
+                tenant=spec.submitter, priority=spec.priority,
+                on_done=on_done)
+        except Exception as e:  # noqa: BLE001 — a plane that cannot
+            # admit (stopping, a duplicate id) fails the job
+            self._finish(job, "failed", error=f"{type(e).__name__}: {e}")
 
     def _finish(self, job: Job, state: str, result: Optional[dict] = None,
                 error: Optional[str] = None) -> None:

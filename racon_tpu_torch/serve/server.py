@@ -1,9 +1,13 @@
 """The serve daemon: localhost TCP, newline-JSON protocol.
 
-A copy of the JAX package's daemon (racon_tpu/serve/server.py) without
-the fleet plane. Its settings are arguments, each defaulting to its JAX
-knob's default (session.py). One JSON object per line in each
-direction.  Requests carry an ``op``:
+A copy of the JAX package's daemon (racon_tpu/serve/server.py). Its
+settings are arguments, each defaulting to its JAX knob's default
+(session.py, fleet/__init__.py). With a worker ceiling ``fleet_max``
+above 0 the device lane runs through a ``FleetPlane`` (fleet/plane.py:
+chunks on an autoscaled pool of ``fleet_min`` … ``fleet_max`` worker
+processes, each on the card with 1 / ``fleet_max`` of its memory); the
+daemon then neither warms nor touches the card itself. One JSON object
+per line in each direction.  Requests carry an ``op``:
 
 * ``ping``     -> ``{"ok": true, "pid": ..., "backend": ...}``
 * ``submit``   -> admit a job (fields of serve.session.JobSpec);
@@ -46,7 +50,8 @@ import threading
 from typing import Optional
 
 from .. import obs
-from ..fleet import DEFAULT_TENANT_QUOTA
+from ..fleet import (DEFAULT_MAX_WORKERS, DEFAULT_MIN_WORKERS,
+                     DEFAULT_TENANT_QUOTA)
 from ..obs import export as obs_export
 from ..obs import slo
 from ..ops.poa_driver import DEFAULT_POA_KERNEL
@@ -60,8 +65,11 @@ from .session import (DEFAULT_MAX_JOBS, DEFAULT_MEMORY_BUDGET_MB,
 
 class ServeDaemon:
     """`backend` ("cuda" or "host"), `device` and `poa_kernel` are the
-    session's (session.py); the admission settings the scheduler's;
-    `slo` the SLO engine's settings (obs/slo.py; none: its defaults)."""
+    session's (session.py) and the fleet workers'; the admission
+    settings the scheduler's; `slo` the SLO engine's settings
+    (obs/slo.py; none: its defaults); `fleet_min` and `fleet_max` the
+    fleet plane's pool (0 for `fleet_max`: no plane); `fleet_spawn` the
+    plane's worker spawner (fleet/pool.py)."""
 
     def __init__(self, state_dir: str, backend: str = "cuda",
                  port: int = DEFAULT_PORT,
@@ -74,17 +82,32 @@ class ServeDaemon:
                  device="cuda", poa_kernel: str = DEFAULT_POA_KERNEL,
                  tenant_quota: int = DEFAULT_TENANT_QUOTA,
                  memory_budget_mb: int = DEFAULT_MEMORY_BUDGET_MB,
-                 slo_settings: Optional[dict] = None):
+                 slo_settings: Optional[dict] = None,
+                 fleet_min: int = DEFAULT_MIN_WORKERS,
+                 fleet_max: int = DEFAULT_MAX_WORKERS,
+                 fleet_spawn=None):
         self.state_dir = state_dir
         os.makedirs(state_dir, exist_ok=True)
         self.session = PolishSession(state_dir, backend=backend,
                                      device=device, poa_kernel=poa_kernel)
         if slo_settings is not None:
             slo.reset(**slo_settings)
+        self.plane = None
+        if fleet_max > 0:
+            from ..fleet.plane import FleetPlane
+
+            fleet_dir = os.path.join(state_dir, "fleet")
+            self.plane = FleetPlane(
+                workdir=fleet_dir, min_workers=fleet_min,
+                max_workers=fleet_max, backend=backend, device=str(device),
+                poa_kernel=poa_kernel,
+                trace_path=os.path.join(fleet_dir, "trace.json"),
+                report_path=os.path.join(fleet_dir, "report.json"),
+                **({"spawn": fleet_spawn} if fleet_spawn else {}))
         self.scheduler = Scheduler(self.session, queue_depth=queue_depth,
                                    max_jobs=max_jobs,
                                    window_budget=window_budget,
-                                   host_lane=host_lane,
+                                   host_lane=host_lane, plane=self.plane,
                                    tenant_quota=tenant_quota,
                                    memory_budget_mb=memory_budget_mb)
         self._warm = warm
@@ -109,11 +132,18 @@ class ServeDaemon:
                        "pid": os.getpid(),
                        "backend": self.session.backend}, f)
             f.write("\n")
-        if self._warm:
+        if self._warm and self.plane is None:
+            # with a plane, device jobs run in the workers, which load
+            # the kernels themselves: this process never touches the card
             wall = self.session.warm()
             if self.session.warmed:
                 print(f"[racon_tpu_torch::serve] built and loaded the "
                       f"kernels in {wall:.2f}s", file=sys.stderr)
+        if self.plane is not None:
+            self.plane.start()
+            print(f"[racon_tpu_torch::serve] fleet plane up on port "
+                  f"{self.plane.port} (workers {self.plane.min_workers}"
+                  f"..{self.plane.max_workers})", file=sys.stderr)
         self.scheduler.start()
         recovered = self.scheduler.recover()
         if recovered:
@@ -133,6 +163,7 @@ class ServeDaemon:
               f"device: {self.session.device})", file=sys.stderr)
         self._stopping.wait()
         self.scheduler.shutdown(wait=True)
+        self._stop_plane()
 
     def stop(self, wait: bool = True) -> None:
         if not self._stopping.is_set():
@@ -144,6 +175,15 @@ class ServeDaemon:
             self._stop_metrics_http()
         if wait:
             self.scheduler.shutdown(wait=True)
+            self._stop_plane()
+
+    def _stop_plane(self) -> None:
+        """Drain the fleet plane: stamp the scheduler's admission counts
+        into the fleet report, then stop it (writes report and trace)."""
+        if self.plane is None:
+            return
+        self.plane.phase.extra["admission"] = dict(self.scheduler.admission)
+        self.plane.stop()
 
     # -- metrics exposition -------------------------------------------------
 
@@ -152,11 +192,14 @@ class ServeDaemon:
         engine state + instantaneous queue gauges, rendered as
         Prometheus text (obs/export.py).  Shared by the `metrics` wire
         op and the --metrics-port HTTP endpoint."""
-        st = self.scheduler.stats()
+        st = self.scheduler.stats()   # plane lock + _cv, never nested
         gauges = {
             "serve_queued_jobs": sum(st.get("queued", {}).values()),
             "serve_running_jobs": st.get("jobs", {}).get("running", 0),
         }
+        fleet = st.get("fleet")
+        if isinstance(fleet, dict):
+            gauges["fleet_live_workers"] = fleet["workers"]["live"]
         snap = slo.engine().snapshot()
         return {"text": obs_export.prometheus_text(
                     metrics=obs.snapshot(), slo=snap, gauges=gauges),

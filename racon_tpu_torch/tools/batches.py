@@ -4,8 +4,8 @@ edge-kernel tasks.
 Used to hold each CUDA kernel against its plain version on the card
 (chip_smoke.py, tests/test_torch_cuda.py). Everything is drawn with
 numpy from the given seed, so a batch is the same on every machine.
-``plain_poa_parallel`` runs the plain POA version of large batches in
-several host processes for those checks.
+``plain_poa_parallel`` and ``plain_poa_submit`` run the plain POA version
+of large batches in several host processes for those checks.
 """
 
 from __future__ import annotations
@@ -372,15 +372,23 @@ def _plain_poa_part(cfg, arrays, wband=None, kernel="v2"):
     return [o.numpy() for o in outs], stats
 
 
-def plain_poa_parallel(batches, procs: int, kernel: str = "v2"):
-    """The plain POA version on the host for [(cfg, tensors)] or [(cfg,
-    tensors, wband)] (the banded build's half bands, i32[B], run with
-    `kernel`'s banded semantics), each batch's windows split over `procs`
-    processes (the plain version loops over windows in Python). Returns
+def plain_poa_pool(procs: int) -> ProcessPoolExecutor:
+    """A pool of `procs` spawned processes for plain_poa_submit; one pool
+    can serve every check of a run, so each starts no processes of its
+    own."""
+    return ProcessPoolExecutor(procs,
+                               mp_context=multiprocessing.get_context("spawn"))
+
+
+def plain_poa_submit(batches, procs: int, ex: ProcessPoolExecutor,
+                     kernel: str = "v2"):
+    """Queues the plain POA version on the host for [(cfg, tensors)] or
+    [(cfg, tensors, wband)] (the banded build's half bands, i32[B], run
+    with `kernel`'s banded semantics) on the pool `ex`, each batch's
+    windows split over `procs` jobs (the plain version loops over windows
+    in Python), and returns a function that waits for them and gives
     [(outputs, stats)]: the stats hold the DP cells, the DP rows and the
     colstep steps."""
-    import torch
-
     jobs, spans = [], []
     for cfg, dev_in, *wband in batches:
         host = [t.cpu().numpy() for t in dev_in]
@@ -390,18 +398,32 @@ def plain_poa_parallel(batches, procs: int, kernel: str = "v2"):
         jobs += [(cfg, [a[lo:hi] for a in host],
                   None if wb is None else wb[lo:hi], kernel)
                  for lo, hi in zip(cuts[:-1], cuts[1:])]
-    ctx = multiprocessing.get_context("spawn")
-    with ProcessPoolExecutor(procs, mp_context=ctx) as ex:
-        parts = list(ex.map(_plain_poa_part, *zip(*jobs)))
-    res = []
-    for first, n in spans:
-        mine = parts[first:first + n]
-        outs = [np.concatenate([p[0][k] for p in mine])
-                for k in range(len(mine[0][0]))]
-        res.append(([torch.from_numpy(o) for o in outs],
-                    {k: sum(p[1][k] for p in mine)
-                     for k in ("cells", "steps", "rows")}))
-    return res
+    futures = [ex.submit(_plain_poa_part, *job) for job in jobs]
+
+    def gather():
+        import torch
+
+        parts = [f.result() for f in futures]
+        res = []
+        for first, n in spans:
+            mine = parts[first:first + n]
+            outs = [np.concatenate([p[0][k] for p in mine])
+                    for k in range(len(mine[0][0]))]
+            res.append(([torch.from_numpy(o) for o in outs],
+                        {k: sum(p[1][k] for p in mine)
+                         for k in ("cells", "steps", "rows")}))
+        return res
+
+    return gather
+
+
+def plain_poa_parallel(batches, procs: int, kernel: str = "v2", ex=None):
+    """plain_poa_submit's results, waited for: on the pool `ex`, or on a
+    pool of `procs` processes of its own."""
+    if ex is not None:
+        return plain_poa_submit(batches, procs, ex, kernel)()
+    with plain_poa_pool(procs) as own:
+        return plain_poa_submit(batches, procs, own, kernel)()
 
 
 class WindowSet:

@@ -445,9 +445,57 @@ def test_recover_tolerates_torn_spec_and_result(data, tmp_path):
         sched.get("jobD")
 
 
-def test_scheduler_takes_no_fleet_plane(tmp_path):
-    with pytest.raises(ValueError, match="fleet plane"):
-        Scheduler(_FakeSession(tmp_path), plane=object())
+def test_scheduler_takes_no_fleet_plane(data, tmp_path):
+    """The scheduler now takes a fleet plane (the name is older than the
+    plane branch). Without one the device lane runs the job through
+    ``session.run_job``; with one it hands the job to the plane, which
+    finishes it through ``on_done``, and the session runs nothing."""
+    ses = _FakeSession(tmp_path / "alone")
+    sched = Scheduler(ses, host_lane=False)
+    assert sched.plane is None
+    sched.start()
+    try:
+        job = sched.submit(_spec(data))
+        assert job.done.wait(WAIT) and job.state == "done"
+        assert ses.order == [job.id]
+    finally:
+        sched.shutdown(timeout=WAIT)
+
+    class StubPlane:
+        def __init__(self):
+            self.submitted = []
+
+        def submit_job(self, job_id, *a, on_done=None, **kw):
+            self.submitted.append(job_id)
+            # finish off the submitter's thread, as the plane does
+            threading.Thread(target=on_done, args=("done", {
+                "job_id": job_id, "backend": "cuda", "records": 1,
+                "polished_bp": 4, "kernel_builds": 0,
+                "journal_replayed": 0, "output": "", "report": None,
+                "trace": None, "summary": None}, None)).start()
+
+        def cancel_job(self, job_id):
+            return False
+
+        def snapshot(self):
+            return {}
+
+        def fleet_telemetry(self):
+            return {"workers": {}}
+
+    ses = _FakeSession(tmp_path / "plane")
+    plane = StubPlane()
+    sched = Scheduler(ses, plane=plane, host_lane=False)
+    assert sched.plane is plane
+    sched.start()
+    try:
+        job = sched.submit(_spec(data))
+        assert job.done.wait(WAIT) and job.state == "done", job.error
+        assert job.lane == "device" and job.result["polished_bp"] == 4
+        assert plane.submitted == [job.id]
+        assert ses.order == []
+    finally:
+        sched.shutdown(timeout=WAIT)
 
 
 # -- the daemon, in a thread ------------------------------------------------
@@ -575,7 +623,7 @@ def test_cli_serve_subcommand_dispatches(capsys):
         cli.main(["serve", "--help"])
     assert e.value.code == 0
     out = capsys.readouterr().out
-    assert "daemon" in out and "--poa-kernel" in out and "--fleet" not in out
+    assert "daemon" in out and "--poa-kernel" in out and "--fleet-max" in out
 
 
 # -- subprocesses: the host lane's child; a daemon killed and restarted ------
