@@ -172,6 +172,28 @@ smoke started):
   sequential FASTA, the job done, kernel_builds 0, no CUDA context in
   the daemon; the line gives the plane's stats (workers, pool timeline,
   steals, reclaims, the workers' start-up);
+* stripe, multichip, wrapper (after the fleet phases). stripe: the main
+  cell polished with its launches striped over a virtual stripe
+  (devices=["cuda:0", "cuda:0"]: two streams of one card;
+  parallel/partitioner.py), traced: main's FASTA; each path kernel (ls
+  POA, edge, base case) launched twice as often as on main but for the
+  launches too small to stripe, which the line counts
+  (unsplit_launches), all launches main's plus the striped ones
+  (shard.chunks); the rows each stream launched (shard.rows.d0, d1,
+  counted from its slices) at least one a striped launch and d0 at most
+  one a striped launch above d1 (a batch's slices differ by one row at
+  most); the device track's launches equal to the counts. The line gives
+  the wall beside main's and the traced main's, and the busy share.
+  Where the host has two cards, the same polish with devices=2 (one
+  device track a card); with one, the line says that it did not run and
+  why. multichip: the
+  port's sweep (tools/multichip.py) at 1, 2 and 4 stripes on main-cell
+  batches of the ls kernel, real cards where there are that many, else
+  virtual: every count's outputs equal to one launch's; windows/s and
+  rows a stripe. wrapper: FLEET_SMALL through ``python -m
+  racon_tpu_torch.tools.wrapper --split <bytes>`` (one contig a chunk)
+  on the card, sequentially and with --jobs 2: the same four contigs,
+  byte for byte;
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -180,7 +202,8 @@ smoke started):
 Each path (main, main_<other kernel>, journal, journal_resume, trace,
 main_band, main_ls_band, lowerr,
 lowerr_band, wide_ls, wide_v2, wide_3000_<kernel>, wide_3000_<kernel>_band,
-wide_11008_<kernel>, wide_11008_<kernel>_band, chunked_<mode>, probe) runs
+wide_11008_<kernel>, wide_11008_<kernel>_band, chunked_<mode>, stripe,
+stripe_2cards, probe) runs
 with the launch counts set to 0 just before it and read just after; every
 kernel of the path must have launched (the banded paths: their POA
 kernel's banded build and the K = 128 edge build, and on lowerr_band the
@@ -1589,7 +1612,8 @@ def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
     distrib_w4 on FLEET_SMALL against its own sequential polish run just
     before them, and serve_fleet: a daemon started first, in a thread,
     so that its start (and its floor worker's) overlaps the distrib runs,
-    as a resident daemon's does, then given one chunked-cell job."""
+    as a resident daemon's does, then given one chunked-cell job.
+    Returns FLEET_SMALL's data set and its sequential FASTA text."""
     import threading
 
     from racon_tpu_torch.obs import __main__ as reader
@@ -1689,6 +1713,160 @@ def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
           "memory_share": fleet["memory_share"],
           "worker_start": fleet["worker_start"],
           "per_worker": fleet["per_worker"], "identical": True})
+    return small[:2]
+
+
+# The launch counts a polish path of the default POA kernel reads.
+PATH_KERNELS = ("poa_consensus", "hirschberg_edge", "hirschberg_base")
+
+
+def striped_polish(torch, racon_tpu_torch, cuda_lib, reader, d, devices,
+                   main_run, tmp, name):
+    """The main cell polished with its launches striped over `devices`,
+    traced, with the launch counts set to 0 just before it and read just
+    after: the main FASTA; each path kernel launched between main's count
+    and twice it (a launch too small to stripe runs once), the launches
+    in all main's plus the striped launches (shard.chunks: at two
+    stripes a striped launch is two); shard.rows.d* as array_split cuts
+    (each at least one row a striped launch, d0 at most one a striped
+    launch above d1); the device track's launches equal to the counts,
+    per card. Returns its line."""
+    main_out, main_launches, main_wall = main_run[0], main_run[2], \
+        main_run[4]
+    tr = os.path.join(tmp, f"{name}.trace.json")
+    cuda_lib.reset_launches()
+    p = racon_tpu_torch.TorchPolisher(d["reads"], d["overlaps"], d["draft"],
+                                      device="cuda", devices=devices,
+                                      trace_path=tr, **MAIN)
+    t0 = time.perf_counter()
+    p.initialize()
+    out = p.polish(True)
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
+    m = len(p.devices)
+    require(p.partitioner.n_devices == m == 2,
+            f"{name}: the polish did not stripe over two devices")
+    require(out == main_out, f"{name}: the striped polish's FASTA differs "
+            "from main's")
+    doc, errors = reader.load_trace(tr)
+    require(not errors, f"{name}: the trace has schema violations: "
+            f"{errors[:5]}")
+    counters = reader.breakdown(doc)["counters"]
+    chunks = counters.get("shard.chunks", 0)
+    unsplit = {}
+    for k in PATH_KERNELS:
+        got, want = launches.get(k, 0), main_launches[k]
+        require(want <= got <= m * want, f"{name}: {k} launched {got} "
+                f"times, main {want}")
+        unsplit[k] = m * want - got
+    require(set(launches) == set(PATH_KERNELS), f"{name}: launched "
+            f"{sorted(launches)}")
+    require(sum(launches.values()) == sum(main_launches[k] for k in
+                                          PATH_KERNELS) + (m - 1) * chunks,
+            f"{name}: {launches} launches against main's and {chunks} "
+            "striped launches")
+    rows = {k: v for k, v in counters.items()
+            if k.startswith("shard.rows.d")}
+    d = [rows.get(f"shard.rows.d{i}", 0) for i in range(m)]
+    require(len(rows) == m and chunks > 0 and d[-1] >= chunks
+            and 0 <= d[0] - d[-1] <= chunks,
+            f"{name}: stripes {rows} over {chunks} striped launches")
+    track = reader.device_track(doc, top=4)
+    track_launches = {k: v["launches"] for k, v in track["kernels"].items()}
+    require(track_launches == launches, f"{name}: the device track's "
+            f"launches {track_launches} differ from the counts {launches}")
+    cards = sorted({ev["args"].get("card", 0) for ev in doc["traceEvents"]
+                    if isinstance(ev, dict) and ev.get("cat") == "device"})
+    want_cards = sorted({dev.index for dev in p.devices})
+    require(cards == want_cards, f"{name}: device tracks of cards {cards}, "
+            f"expected {want_cards}")
+    return {"phase": name, "devices": [str(x) for x in p.devices],
+            "wall_s": wall, "main_wall_s": main_wall,
+            "phase_s": {k[:-2]: v for k, v in p.stats.items()
+                        if k.endswith("_s")},
+            "launches": launches,
+            "main_launches": {k: main_launches[k] for k in PATH_KERNELS},
+            "unsplit_launches": unsplit, "striped_launches": chunks,
+            "shard_rows": rows, "cards_traced": cards,
+            "device_busy_share": track["busy_share"],
+            "device_busy_ms": track["busy_us"] / 1e3,
+            "polish_extent_ms": track["polish_us"] / 1e3,
+            "kernels": track["kernels"], "identical": True}
+
+
+def stripe_phase(torch, racon_tpu_torch, cuda_lib, d, main_run,
+                 trace_wall, tmp):
+    """stripe: the main cell on a virtual stripe (two streams of cuda:0),
+    and where the host has two cards, on both (``devices=2``)."""
+    from racon_tpu_torch.obs import __main__ as reader
+
+    torch.cuda.empty_cache()
+    line = striped_polish(torch, racon_tpu_torch, cuda_lib, reader, d,
+                          ["cuda:0", "cuda:0"], main_run, tmp, "stripe")
+    line["trace_wall_s"] = trace_wall
+    n = torch.cuda.device_count()
+    if n > 1:
+        line["two_cards"] = striped_polish(
+            torch, racon_tpu_torch, cuda_lib, reader, d, 2, main_run, tmp,
+            "stripe_2cards")
+    else:
+        line["two_cards"] = {"ran": False, "why": f"{n} card visible: the "
+                             "two-card stripe needs two"}
+    emit(line)
+
+
+def multichip_phase(torch):
+    """multichip: the port's sweep (tools/multichip.py) at 1, 2 and 4
+    stripes on main-cell batches; every count's outputs must equal the
+    single launch's."""
+    from racon_tpu_torch.tools import multichip
+
+    doc = multichip.sweep((1, 2, 4), repeats=5, device="cuda")
+    require(doc["ok"], f"multichip: outputs differ: {doc['tail']}")
+    emit({"phase": "multichip", "ok": True, "n_devices": doc["n_devices"],
+          "geometry": doc["geometry"],
+          "scaling": {n: {k: e[k] for k in (
+              "devices", "virtual", "rows_per_stripe", "windows_per_s",
+              "wall_s", "first_s", "failed_windows", "counters")}
+              for n, e in doc["scaling"].items()}})
+
+
+def wrapper_phase(d, tmp, seq_text):
+    """wrapper: FLEET_SMALL through ``python -m
+    racon_tpu_torch.tools.wrapper --split <bytes>`` on the card, once
+    sequentially and once with --jobs 2 (CLI workers): the two stdouts
+    byte-identical, four contigs. Whether they equal the data set's
+    one-process polish is printed."""
+    with open(d["draft"]) as f:
+        sizes = [len(rec.split("\n", 1)[1].replace("\n", ""))
+                 for rec in f.read().split(">")[1:]]
+    split = min(sizes)        # each chunk one contig
+    base = [sys.executable, "-m", "racon_tpu_torch.tools.wrapper",
+            "--split", str(split), "-w", "500", "-m", "5", "-x", "-4", "-g",
+            "-8", d["reads"], d["overlaps"], d["draft"]]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    outs, walls = {}, {}
+    for name, extra in (("sequential", []), ("jobs2", ["--jobs", "2"])):
+        cwd = os.path.join(tmp, f"wrapper_{name}")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        r = subprocess.run(base + extra, cwd=cwd, env=env,
+                           capture_output=True, text=True, timeout=600)
+        walls[name] = time.perf_counter() - t0
+        require(r.returncode == 0, f"wrapper {name}: exit {r.returncode}: "
+                f"{r.stderr[-2000:]}")
+        outs[name] = r.stdout
+    require(outs["sequential"] == outs["jobs2"], "wrapper: --jobs 2 gives "
+            "other bytes than the sequential run")
+    contigs = outs["sequential"].count(">")
+    require(contigs == len(sizes) == 4, f"wrapper: {contigs} contigs of "
+            f"{len(sizes)}")
+    emit({"phase": "wrapper", "mbp": FLEET_SMALL["mbp"], "split": split,
+          "chunks": len(sizes), "contigs": contigs,
+          "sequential_s": walls["sequential"], "jobs2_s": walls["jobs2"],
+          "identical": True,
+          "equals_one_polish": outs["sequential"] == seq_text})
 
 
 def host_phase(racon_tpu_torch, native, d, gpu, procs):
@@ -2024,6 +2202,7 @@ def trace_phase(torch, racon_tpu_torch, cuda_lib, d, main_run, plain_s, tmp,
           "served": {k: v["served"] for k, v in report["phases"].items()},
           "trace_events": len(doc["traceEvents"]),
           "dropped_events": doc["otherData"]["dropped_events"]})
+    return wall
 
 
 def watchdog_phase(racon_tpu_torch, d):
@@ -2292,8 +2471,8 @@ def main() -> int:
         # main cell (the watchdog on the parity set)
         plain_s = journal_phase(racon_tpu_torch, cuda_lib, d, runs[first],
                                 tmp)
-        trace_phase(torch, racon_tpu_torch, cuda_lib, d, runs[first],
-                    plain_s, tmp, keep)
+        trace_wall = trace_phase(torch, racon_tpu_torch, cuda_lib, d,
+                                 runs[first], plain_s, tmp, keep)
         watchdog_phase(racon_tpu_torch, d_par)
         # serve: the resident daemon on the main cell
         serve_phase(torch, racon_tpu_torch, d, d_par, runs[first], plain_s,
@@ -2470,8 +2649,14 @@ def main() -> int:
         host_phase(racon_tpu_torch, native, d_par, gpu, procs)
         # the fleet: the chunked cell through worker processes that share
         # the card, once every CPU polish of the pool has ended
-        fleet_phases(torch, racon_tpu_torch, simulate, d_chunked,
-                     chunked_seq, chunked_wall, tmp)
+        d_small, small_text = fleet_phases(
+            torch, racon_tpu_torch, simulate, d_chunked, chunked_seq,
+            chunked_wall, tmp)
+        # the stripe, the sweep and the wrapper
+        stripe_phase(torch, racon_tpu_torch, cuda_lib, d, runs[first],
+                     trace_wall, tmp)
+        multichip_phase(torch)
+        wrapper_phase(d_small, tmp, small_text)
 
 
     # the DP-cost probe's path

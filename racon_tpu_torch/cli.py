@@ -25,6 +25,7 @@ from .native import NativeError
 from .ops import band as _band
 from .ops.batch_exec import DEFAULT_DEPTH
 from .ops.poa_driver import DEFAULT_POA_KERNEL, POA_KERNELS
+from .parallel import resolve_devices
 from .polisher import create_polisher
 from .resilience import faults
 from .resilience.journal import JournalError
@@ -75,6 +76,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where the kernels run (default cuda; cpu runs "
                    "their plain PyTorch versions)")
+    p.add_argument("--devices", metavar="SPEC", default=None,
+                   help="stripe the kernels' launches over these devices: "
+                   "a count (\"2\": the first two cards), or a comma list "
+                   "of devices, repeats allowed (\"cuda:0,cuda:1\"; "
+                   "\"cuda:0,cuda:0\" stripes over two streams of one "
+                   "card); default every visible card (same output)")
     p.add_argument("--poa-kernel", choices=POA_KERNELS,
                    default=DEFAULT_POA_KERNEL,
                    help=f"POA consensus kernel (default {DEFAULT_POA_KERNEL})"
@@ -174,7 +181,14 @@ def main(argv=None) -> int:
                 stream_input=args.stream_input,
                 memory_budget_mb=args.memory_budget_mb,
                 pipeline_depth=args.pipeline_depth,
-                device_timeout_s=args.device_timeout)
+                device_timeout_s=args.device_timeout,
+                devices=args.devices)
+    if args.devices is not None and not args.host:
+        try:
+            resolve_devices(args.devices, args.device)
+        except ValueError as e:
+            print(e, file=sys.stderr)
+            return 1
     try:
         if args.host:
             polisher = create_polisher(args.sequences, args.overlaps,

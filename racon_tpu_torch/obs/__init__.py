@@ -24,9 +24,14 @@ on it.
 **The device track.** Armed on the card (``arm_device_track``), every
 polish-path launch (the wrappers' ``cuda_lib.launch_events``) becomes one
 complete event on a track of its own, named by its ``cuda_lib.LAUNCHES``
-name. Its start and end are the CUDA events the wrapper records around
-the launch call, mapped to the host clock through one reference event
-recorded, after a synchronize, with its ``monotonic_ns`` at arming. The
+name (on a card other than cuda:0, by the card's index and that name;
+the event's ``card`` arg is the index). Its start and end are the CUDA
+events the wrapper records around the launch call, mapped to the host
+clock through a reference event of the launch's card, recorded, after a
+synchronize, with its ``monotonic_ns`` at arming: one for each distinct
+card of a striped polish, since events of two cards cannot be timed
+against each other. Launches of two streams on one card (a virtual
+stripe) share its tracks; the reader counts their overlap once. The
 events are read only in ``write_trace``, after a synchronize: an event
 read before its stream has reached it raises. The track has its own sink
 (``cuda_lib.TRACE_EVENTS``), so a caller's ``cuda_lib.LAUNCH_EVENTS`` list
@@ -74,7 +79,7 @@ _lock = threading.Lock()
 _tracer: Optional[Tracer] = None
 _metrics: Optional[Metrics] = None
 _trace_path: Optional[str] = None
-_device = None   # (device, reference event, its monotonic_ns) when armed
+_device = None   # {card index: (reference event, its monotonic_ns)}
 
 # The process role ("serve", ...) for merged timelines; survives reset():
 # a process keeps its identity across every run it hosts.
@@ -137,9 +142,10 @@ def configure(trace_path: Optional[str] = None,
         _tracer.on_complete = _on_complete
 
 
-def arm_device_track(device) -> bool:
-    """Arm the device track for a trace on the card (see the module
-    note); False where no trace file is armed."""
+def arm_device_track(devices) -> bool:
+    """Arm the device track for a trace on the card, or on each distinct
+    card of `devices` (a device or a sequence; see the module note);
+    False where no trace file is armed."""
     global _device
     if _tracer is None or not _trace_path:
         return False
@@ -147,13 +153,24 @@ def arm_device_track(device) -> bool:
 
     from ..ops import cuda_lib
 
-    torch.cuda.synchronize(device)
-    ref = torch.cuda.Event(enable_timing=True)
-    ref.record(torch.cuda.current_stream(device))
-    ref.synchronize()
-    ref_ns = time.monotonic_ns()
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    refs = {}
+    for d in map(torch.device, devices):
+        if d.type != "cuda":
+            continue
+        card = d.index if d.index is not None else \
+            torch.cuda.current_device()
+        if card in refs:
+            continue
+        with torch.cuda.device(card):
+            torch.cuda.synchronize(card)
+            ref = torch.cuda.Event(enable_timing=True)
+            ref.record(torch.cuda.current_stream(card))
+            ref.synchronize()
+        refs[card] = (ref, time.monotonic_ns())
     cuda_lib.TRACE_EVENTS = []
-    _device = (device, ref, ref_ns)
+    _device = refs
     return True
 
 
@@ -314,24 +331,30 @@ def served_sum_check(phases) -> dict:
 
 def _flush_device_track() -> None:
     """Move the device track's launches into the tracer: after a
-    synchronize, each launch's start from the reference event and its
-    duration from its own two events (the wrappers' events, as
-    ``cuda_lib.LAUNCH_EVENTS`` readers time them)."""
-    dev, t = _device, _tracer
-    if dev is None or t is None:
+    synchronize of each card, each launch's start from its card's
+    reference event and its duration from its own two events (the
+    wrappers' events, as ``cuda_lib.LAUNCH_EVENTS`` readers time them).
+    Track ids: DEVICE_TID, plus the card's index times the kernel count,
+    plus the kernel's index."""
+    refs, t = _device, _tracer
+    if refs is None or t is None:
         return
     import torch
 
     from ..ops import cuda_lib
 
-    device, ref, ref_ns = dev
-    torch.cuda.synchronize(device)
+    for card in refs:
+        torch.cuda.synchronize(card)
     names = list(cuda_lib.LAUNCHES)
-    for name, start, end in cuda_lib.take_trace_events():
+    for name, start, end, device in cuda_lib.take_trace_events():
+        card = device.index
+        ref, ref_ns = refs[card]
         t0 = ref_ns + ref.elapsed_time(start) * 1e6
         t1 = t0 + start.elapsed_time(end) * 1e6
-        t.add_track_complete(name, t0, t1, DEVICE_TID + names.index(name),
-                             f"device: {name}", "device")
+        t.add_track_complete(
+            name, t0, t1, DEVICE_TID + card * len(names) + names.index(name),
+            f"device: {name}" if card == 0 else f"device {card}: {name}",
+            "device", card=card)
 
 
 def write_trace() -> Optional[str]:

@@ -41,6 +41,13 @@ two mins, and sets the lanes out of band to INF once, at its output
 base case writes its moves, two bits a cell, to a global scratch that one
 thread reads back during the traceback.
 
+Every launch goes through a ``partitioner`` (parallel/partitioner.py; by
+default one over `device` alone, whose stripe runs on the caller's
+current stream). Over m > 1 devices the task rows of each edge launch
+and each base-case launch are cut into m slices, each device runs its
+slice on a stream of its own, and the host waits on every stripe's event
+under the watchdog before it gathers the rows in order.
+
 Wrappers: a tensor on the CPU goes to the plain version, a tensor on the
 card to the kernel (or an exception). Each launch adds one to
 ``cuda_lib.LAUNCHES`` (the K = 128 builds under their own names,
@@ -56,8 +63,9 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..parallel.partitioner import get_partitioner
 from ..resilience import faults
-from ..resilience.watchdog import call_with_watchdog, wait_event
+from ..resilience.watchdog import call_with_watchdog
 from . import band as _band
 from . import cuda_lib
 from .align import ops_to_cigar
@@ -393,19 +401,8 @@ class _Task:
         self.pair, self.ia, self.ib, self.ja, self.jb = pair, ia, ib, ja, jb
 
 
-def _to_host(tensors, timeout_s: float, what: str):
-    """Numpy copies of `tensors`, the host's wait for the card under the
-    watchdog (resilience/watchdog.py)."""
-    ev = None
-    if tensors[0].device.type == "cuda":
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(tensors[0].device))
-    wait_event(ev, timeout_s, what)
-    return [t.cpu().numpy() for t in tensors]
-
-
 def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None,
-                timeout_s: float = 0.0):
+                timeout_s: float = 0.0, partitioner=None):
     """pairs: [(q_codes, t_codes)] int numpy arrays -> [ops | None].
 
     ops are forward-ordered codes (0=M, 1=I, 2=D); None leaves the pair to
@@ -420,8 +417,10 @@ def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None,
     `hits` for the caller's verify-and-widen ladder.
 
     timeout_s: the watchdog's deadline on each wait for the card (0:
-    none)."""
-    device = torch.device(device)
+    none). partitioner: stripes the launches' task rows over its devices
+    (module note; default: `device` alone)."""
+    part = (get_partitioner([device]) if partitioner is None
+            else partitioner)
     results: List[Optional[np.ndarray]] = [None] * len(pairs)
     segments: Dict[int, list] = {}
     bands = {}
@@ -450,11 +449,11 @@ def align_pairs(pairs, *, device="cuda", band_overrides=None, hits=None,
         if not big:
             break
         active = [t for t in active if (t.ib - t.ia) <= BASE_ROWS]
-        active.extend(_split_round(pairs, big, bands, failed, device,
+        active.extend(_split_round(pairs, big, bands, failed, part,
                                    verify, timeout_s))
 
     base = [t for t in active if t.pair not in failed]
-    _solve_base(pairs, base, bands, segments, failed, device, verify,
+    _solve_base(pairs, base, bands, segments, failed, part, verify,
                 timeout_s)
 
     for idx, segs in segments.items():
@@ -507,7 +506,7 @@ def _task_arrays(pairs, tasks, bands, rcap, K, backward):
     return scal, qs, ts
 
 
-def _split_round(pairs, tasks, bands, failed, device, verify, timeout_s):
+def _split_round(pairs, tasks, bands, failed, part, verify, timeout_s):
     """One Hirschberg round: split every oversized task at its midpoint.
     A banded pair's root task checks its certificate here: every path
     crosses the midpoint row, so the least F + B is the global distance."""
@@ -526,14 +525,15 @@ def _split_round(pairs, tasks, bands, failed, device, verify, timeout_s):
             imid = (t.ia + t.ib) // 2
             f_tasks.append(_Task(t.pair, t.ia, imid, t.ja, t.jb))
             b_tasks.append(_Task(t.pair, imid, t.ib, t.ja, t.jb))
-        fwd = tasks_to_tensors(
-            *_task_arrays(pairs, f_tasks, bands, rcap, K, False), device)
-        bwd = tasks_to_tensors(
-            *_task_arrays(pairs, b_tasks, bands, rcap, K, True), device)
-        F, Bv = _to_host((edge_rows(*fwd, K, False),
-                          edge_rows(*bwd, K, True)), timeout_s,
-                         f"the edge kernel's round at K={K}, {len(group)} "
-                         "tasks")
+        fwd = part.stripe(
+            lambda s, q, t, K=K: (edge_rows(s, q, t, K, False),),
+            _task_arrays(pairs, f_tasks, bands, rcap, K, False))
+        bwd = part.stripe(
+            lambda s, q, t, K=K: (edge_rows(s, q, t, K, True),),
+            _task_arrays(pairs, b_tasks, bands, rcap, K, True))
+        F, Bv = part.gather(
+            fwd, bwd, timeout_s=timeout_s,
+            what=f"the edge kernel's round at K={K}, {len(group)} tasks")
         for gi, t in enumerate(group):
             imid = (t.ia + t.ib) // 2
             K_, gdmin = bands[t.pair]
@@ -559,7 +559,7 @@ def _split_round(pairs, tasks, bands, failed, device, verify, timeout_s):
     return out
 
 
-def _solve_base(pairs, tasks, bands, segments, failed, device, verify,
+def _solve_base(pairs, tasks, bands, segments, failed, partitioner, verify,
                 timeout_s):
     """The base case of every task; a banded pair that is one base task
     checks its certificate on the kernel's terminal distance."""
@@ -582,9 +582,11 @@ def _solve_base(pairs, tasks, bands, segments, failed, device, verify,
                 scal[bi] = (R, S, gdmin + t.ia - t.ja, 0)
                 qs[bi, :R] = q[t.ia:t.ib]
                 ts[bi, :S] = tt[t.ja:t.jb]
-            ops, cnt, ok, dist = _to_host(
-                base_case(*tasks_to_tensors(scal, qs, ts, device), K),
-                timeout_s, f"the base case at K={K}, {B} tasks")
+            ops, cnt, ok, dist = partitioner.gather(
+                partitioner.stripe(
+                    lambda s, q, t, K=K: base_case(s, q, t, K),
+                    (scal, qs, ts)),
+                timeout_s=timeout_s, what=f"the base case at K={K}, {B} tasks")
             for bi, t in enumerate(part):
                 if not ok[bi] or not _root_certified(t, verify,
                                                      int(dist[bi])):
@@ -597,7 +599,8 @@ def _solve_base(pairs, tasks, bands, segments, failed, device, verify,
 def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
              band_slack: int = _band.DEFAULT_SLACK,
              band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
-             stats: Optional[dict] = None, timeout_s: float = 0.0) -> int:
+             stats: Optional[dict] = None, timeout_s: float = 0.0,
+             partitioner=None) -> int:
     """Align pipeline jobs with the Hirschberg engine and install their
     CIGARs. Jobs are grouped by (band, first-round row bucket) into
     cohorts of at most COHORT jobs, so each cohort launches
@@ -615,7 +618,8 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
     Each ladder round of a cohort is an ``align.cohort`` span and checks
     the ``align.run`` fault point (under the watchdog, as the waits for
     the card are: `timeout_s`); a banded round checks ``band.hit``, whose
-    injected fault makes every banded job of the round a hit."""
+    injected fault makes every banded job of the round a hit.
+    `partitioner` stripes the kernels' launches (module note)."""
     if stats is None:
         stats = _band.new_stats()
     states = {}          # job -> band.BandState of a banded job
@@ -654,7 +658,8 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
                     res = align_pairs([pairs[job] for job in todo],
                                       device=device,
                                       band_overrides=overrides, hits=hits,
-                                      timeout_s=timeout_s)
+                                      timeout_s=timeout_s,
+                                      partitioner=partitioner)
                     if overrides:
                         try:
                             faults.check("band.hit", todo)

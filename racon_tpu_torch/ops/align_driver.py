@@ -23,7 +23,8 @@ def run_alignment_phase(pipeline, *, device="cuda", band: bool = False,
                         band_slack: int = _band.DEFAULT_SLACK,
                         band_max_widenings: int = _band.DEFAULT_MAX_WIDENINGS,
                         journal=None, report=None,
-                        device_timeout_s: float = 0.0) -> dict:
+                        device_timeout_s: float = 0.0,
+                        partitioner=None) -> dict:
     """Align every job; returns {device, host, host_seconds, band}: jobs
     whose CIGAR the kernels produced, jobs the host aligned, the host
     aligner's wall time, and the banded ladder's counts (ops/band.py;
@@ -33,7 +34,8 @@ def run_alignment_phase(pipeline, *, device="cuda", band: bool = False,
     tier (hirschberg, host, journal; they sum to the job count), the
     tiers' wall seconds and the ladder's counts under ``extra``.
     `device_timeout_s` is the watchdog's deadline on each wait for the
-    card (0: none)."""
+    card (0: none). `partitioner`, where given, stripes the kernels'
+    launches over its devices (ops/align_cuda.py)."""
     n = pipeline.num_align_jobs()
     served = 0
     counts = _band.new_stats()
@@ -51,7 +53,7 @@ def run_alignment_phase(pipeline, *, device="cuda", band: bool = False,
                 sink, jobs, lengths, device=device, band=band,
                 band_slack=band_slack,
                 band_max_widenings=band_max_widenings, stats=counts,
-                timeout_s=device_timeout_s)
+                timeout_s=device_timeout_s, partitioner=partitioner)
     t1 = time.perf_counter()
     host = n - served - len(replayed)
     with obs.span("align.host") as sp:

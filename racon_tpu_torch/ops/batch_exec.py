@@ -3,8 +3,9 @@ driver's hooks.
 
 A copy of the JAX package's shared executor (racon_tpu/ops/batch_exec.py)
 reduced to what the port runs: no degradation lattice (no retry, no
-bisection, no tier demotion: a launch that fails raises) and no sharding.
-What it keeps:
+bisection, no tier demotion: a launch that fails raises) and no sharding
+(the driver's dispatch stripes a batch over devices itself,
+parallel/partitioner.py). What it keeps:
 
 * **single-copy packing**: the driver's ``pack`` hook copies each
   window's bytes once into the batch's buffers (pinned host memory on the

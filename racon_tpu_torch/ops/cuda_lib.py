@@ -14,10 +14,14 @@ it launches its kernel and nowhere else (``count_launch``). ``LAUNCH_EVENTS``,
 when set to a list, collects two CUDA events around each polish-path
 launch call (``launch_events``), so that a caller can time the kernels
 alone; ``TRACE_EVENTS`` is a second such sink, the trace's device track
-(obs/__init__.py), so that both see every launch. The pipelined polish
-launches from two threads (alignment on one, consensus on the other), so
-all are written under one lock, and each launch goes to the calling
-thread's current stream.
+(obs/__init__.py), so that both see every launch, whose entries also
+carry the launch's device (a striped polish launches on several cards,
+and each card's events are timed against a reference event of that
+card). The pipelined polish launches from two threads (alignment on one,
+consensus on the other), so all are written under one lock, and each
+launch goes to the current stream of its tensors' device: the calling
+thread's, or the stripe's own stream, which the partitioner makes
+current together with its device (parallel/partitioner.py).
 
 Each ``nvcc`` build of a source and each first load of its library in
 the process counts ``kernel.builds.<source>`` in obs (a no-op unless a
@@ -69,7 +73,7 @@ LAUNCHES: Dict[str, int] = {"poa_consensus": 0, "poa_consensus_band": 0,
 LAUNCH_EVENTS: Optional[List[tuple]] = None
 # The same for the trace's device track (obs.arm_device_track), apart
 # from LAUNCH_EVENTS so that arming a trace never takes over a caller's
-# list.
+# list; its entries are (name, start, end, device).
 TRACE_EVENTS: Optional[List[tuple]] = None
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -227,10 +231,10 @@ def occupancy(fn, args, keys, what: str) -> Dict[str, int]:
 @contextlib.contextmanager
 def launch_events(name: str, t):
     """Around a launch call on ``t``'s stream: records its two events into
-    ``LAUNCH_EVENTS`` and ``TRACE_EVENTS``, each where it is a list, else
-    does nothing."""
-    sinks = [s for s in (LAUNCH_EVENTS, TRACE_EVENTS) if s is not None]
-    if not sinks:
+    ``LAUNCH_EVENTS`` and (with ``t``'s device) ``TRACE_EVENTS``, each
+    where it is a list, else does nothing."""
+    launch, trace = LAUNCH_EVENTS, TRACE_EVENTS
+    if launch is None and trace is None:
         yield
         return
     import torch
@@ -241,8 +245,10 @@ def launch_events(name: str, t):
     yield
     ev[1].record(stream)
     with _COUNT_LOCK:
-        for events in sinks:
-            events.append((name, ev[0], ev[1]))
+        if launch is not None:
+            launch.append((name, ev[0], ev[1]))
+        if trace is not None:
+            trace.append((name, ev[0], ev[1], t.device))
 
 
 def stream_of(t) -> ctypes.c_void_p:

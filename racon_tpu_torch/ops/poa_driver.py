@@ -3,7 +3,7 @@ a POA kernel, trims and installs the results, and re-polishes on the
 host every window the kernel flags ``failed``.
 
 A copy of the JAX package's driver (racon_tpu/ops/poa_driver.py) reduced
-to one path: no sanitizer, no sharding, and no lattice. The kernel is an
+to one path: no sanitizer and no lattice. The kernel is an
 argument, ``poa_kernel``: "ls" (ops/poa_cuda.py, the
 default, as in the JAX package, and faster than v2 on every depth bucket
 on the card) or "v2" (ops/poa_v2_cuda.py); both compute one function,
@@ -25,6 +25,16 @@ flight, less the margin (``MEMORY_MARGIN``), and at most
 ``batch_windows``. A process that shares the card (a fleet's worker)
 sizes both from its share of the card instead, where that is smaller
 (``device_memory_share``, ``sizing_bytes``).
+
+Every batch is launched through a ``partitioner`` (parallel/partitioner.py;
+by default one over `device` alone, whose stripe runs on the caller's
+current stream). Over m > 1 devices a batch's windows are cut into m
+slices, each device launches the kernel on its slice on a stream of its
+own, and the host gathers the slices in order, waiting on every stripe's
+event under the watchdog. Memory is sized per card: ``check_memory`` runs
+once for each distinct card, stripes that share a card (a virtual
+stripe) split its room between them, and a batch holds at most m times
+the smallest stripe's cap.
 
 The batches go through the shared feeder (ops/batch_exec.py) with up to
 ``pipeline_depth`` batches in flight (2, as the JAX package's
@@ -64,9 +74,9 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..parallel.partitioner import get_partitioner
 from ..resilience import faults
 from ..resilience.journal import replay_windows
-from ..resilience.watchdog import wait_event
 from . import band as _band
 from . import poa, poa_cuda
 from .batch_exec import DEFAULT_DEPTH, BatchExecutor
@@ -152,14 +162,15 @@ def largest_window(room: int, depth: int) -> int:
     return 128 * lo
 
 
-def check_memory(cfgs, free_bytes: int, poa_kernel: str) -> None:
+def check_memory(cfgs, free_bytes: int, poa_kernel: str,
+                 stripes: int = 1) -> None:
     """Before any window runs on the card: both POA kernels take every
     geometry, flat or banded (above class 10,880 through their global
     build with int32 node ids), so the one limit is memory. Raises one
     ValueError where a single window of some geometry does not fit
-    `free_bytes` less MEMORY_MARGIN, naming the largest window length
-    that fits."""
-    room = memory_room(free_bytes)
+    `free_bytes` less MEMORY_MARGIN, split between the `stripes` that
+    share the card, naming the largest window length that fits."""
+    room = memory_room(free_bytes) // max(1, stripes)
     for cfg in cfgs:
         need = window_bytes(cfg)
         if need > room:
@@ -182,12 +193,14 @@ def window_bytes(cfg: poa.PoaConfig) -> int:
     return 4 * poa_cuda.scratch_words(cfg, True) + inputs + outputs
 
 
-def batch_cap(cfg: poa.PoaConfig, free_bytes: int, depth: int = 1) -> int:
-    """How many windows of cfg's geometry a batch may hold on a card with
-    `free_bytes` free while `depth` batches are in flight: the free bytes
-    less MEMORY_MARGIN over depth x ``window_bytes``, at least 1."""
+def batch_cap(cfg: poa.PoaConfig, free_bytes: int, depth: int = 1,
+              stripes: int = 1) -> int:
+    """How many windows of cfg's geometry a batch (or one stripe of it)
+    may hold on a card with `free_bytes` free while `depth` batches are in
+    flight and `stripes` stripes share the card: the free bytes less
+    MEMORY_MARGIN over stripes x depth x ``window_bytes``, at least 1."""
     return max(1, memory_room(free_bytes) //
-               (max(1, depth) * window_bytes(cfg)))
+               (max(1, stripes) * max(1, depth) * window_bytes(cfg)))
 
 
 def free_device_bytes(device) -> int:
@@ -244,7 +257,8 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
                         pipeline_depth: int = DEFAULT_DEPTH,
                         budget=None, journal=None, report=None,
                         device_timeout_s: float = 0.0,
-                        device_memory_share: float = 1.0) -> dict:
+                        device_memory_share: float = 1.0,
+                        partitioner=None) -> dict:
     """Kernel consensus for every window with at least two layers; the
     backbone for the rest; the host POA for windows the kernel fails.
     `poa_kernel` ("ls", the default, or "v2") picks the kernel; `band`
@@ -268,8 +282,9 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     wall seconds and the extras: device_rejected, layers_dropped_maxlen,
     band, pack_wall_s, kernel_wall_s, depth_collapsed.
     `device_timeout_s` is the watchdog's deadline on each batch's wait (0:
-    none). `device_memory_share` is the share of the card this process
-    may hold (``sizing_bytes``; 1: all of it)."""
+    none). `device_memory_share` is the share of each card this process
+    may hold (``sizing_bytes``; 1: all of it). `partitioner` stripes the
+    batches over its devices (module note; default: `device` alone)."""
     device = torch.device(device)
     kernel_for(poa_kernel)
     n = pipeline.num_windows()
@@ -306,12 +321,17 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
             (i, depth, bb))
     cfgs = {key: make_config(key[1], key[0], match, mismatch, gap)
             for key in buckets}
+    part = (get_partitioner([device]) if partitioner is None
+            else partitioner)
+    cards = part.cards()
     if device.type == "cuda":
-        check_memory(cfgs.values(), sizing_bytes(device, device_memory_share),
-                     poa_kernel)
-    ops = _ConsensusOps(pipeline, device, poa_kernel, trim, stats, fallback,
-                        band, band_slack, band_max_widenings, journal,
-                        device_timeout_s)
+        for card, k in cards.items():
+            check_memory(cfgs.values(),
+                         sizing_bytes(card, device_memory_share), poa_kernel,
+                         stripes=k)
+    ops = _ConsensusOps(pipeline, device, part, poa_kernel, trim, stats,
+                        fallback, band, band_slack, band_max_widenings,
+                        journal, device_timeout_s)
     executor = BatchExecutor(ops, depth=pipeline_depth, budget=budget)
     t_dev = time.perf_counter()
     for key, bucket_jobs in sorted(buckets.items()):
@@ -326,9 +346,10 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
             bucket_jobs.sort(key=lambda job: (job[1], job[2]))
             per_batch = batch_windows
             if device.type == "cuda":
-                per_batch = min(per_batch, batch_cap(
-                    cfg, sizing_bytes(device, device_memory_share),
-                    executor.depth))
+                per_batch = min(per_batch, part.n_devices * min(
+                    batch_cap(cfg, sizing_bytes(card, device_memory_share),
+                              executor.depth, k)
+                    for card, k in cards.items()))
             for off in range(0, len(bucket_jobs), per_batch):
                 executor.submit(cfg, [i for i, _, _ in
                                       bucket_jobs[off:off + per_batch]])
@@ -368,10 +389,10 @@ class _ConsensusOps:
     whose band hit (``band``) are kept by ``install`` and handed back by
     ``widen``, to be re-run at their widened band."""
 
-    def __init__(self, pipeline, device, poa_kernel, trim, stats, fallback,
-                 band, band_slack, band_max_widenings, journal=None,
-                 timeout_s=0.0):
-        self.pipeline, self.device = pipeline, device
+    def __init__(self, pipeline, device, part, poa_kernel, trim, stats,
+                 fallback, band, band_slack, band_max_widenings,
+                 journal=None, timeout_s=0.0):
+        self.pipeline, self.device, self.part = pipeline, device, part
         self.kernel = kernel_for(poa_kernel)
         self.kernel_name = poa_kernel
         self.journal, self.timeout_s = journal, timeout_s
@@ -397,48 +418,33 @@ class _ConsensusOps:
         return _pack(chunk, cfg, widths, pin=self.device.type == "cuda")
 
     def dispatch(self, cfg, packed, chunk):
-        """Launch the batch. On the card: the pinned inputs copied to the
-        device without blocking, the kernel, its outputs copied into
-        pinned host tensors without blocking and an event recorded, all
-        on the current stream: returns (host outputs, event, window
-        indices). On the CPU (outputs, None, window indices)."""
-        dev = self.device
+        """Launch the batch through the partitioner: on the card, the
+        pinned inputs copied to each stripe's device without blocking,
+        the kernel, its outputs copied into pinned host tensors without
+        blocking and an event recorded; on the CPU the plain version.
+        Returns (the StripeRun, window indices)."""
         self.stats["batches"] += 1
-        idxs = [i for i, _, _ in chunk]
-        kw = {}
-        if dev.type == "cpu":
-            if self.band:
-                kw["wband"] = torch.from_numpy(packed[9])
-            return (self.kernel(cfg, *poa.batch_to_tensors(packed, dev),
-                                **kw), None, idxs)
-        ins = [torch.from_numpy(a).to(dev, non_blocking=True)
-               for a in packed[:9]]
-        if self.band:
-            kw["wband"] = torch.from_numpy(packed[9]).to(dev,
-                                                          non_blocking=True)
-        outs = self.kernel(cfg, *ins, **kw)
-        host = []
-        for t in outs[:4] + outs[5:]:
-            h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            h.copy_(t, non_blocking=True)
-            host.append(h)
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(dev))
-        return host, ev, idxs
+        kernel, band = self.kernel, self.band
+
+        def launch(*ins):
+            kw = {"wband": ins[9]} if band else {}
+            outs = kernel(cfg, *ins[:9], **kw)
+            return outs[:4] + outs[5:]
+
+        arrays = packed[:10] if band else packed[:9]
+        return self.part.stripe(launch, arrays), [i for i, _, _ in chunk]
 
     def unpack(self, cfg, handle):
         """Host numpy (cons_base, cons_cov, cons_len, failed, and
-        band_hit from the banded build), waiting on the batch's event
+        band_hit from the banded build), waiting on the batch's events
         alone, under the watchdog, with the run point checked inside the
         wait."""
-        outs, ev, idxs = handle
+        run, idxs = handle
         point = f"poa.run.{self.kernel_name}"
-        wait_event(ev, self.timeout_s,
-                   f"the {self.kernel_name} POA batch of {len(idxs)} windows",
-                   before=lambda: faults.check(point, idxs))
-        if ev is None:
-            return _unpack(outs)
-        return tuple(h.numpy() for h in outs)
+        return self.part.gather(
+            run, timeout_s=self.timeout_s,
+            what=f"the {self.kernel_name} POA batch of {len(idxs)} windows",
+            before=lambda: faults.check(point, idxs))
 
     def attempt(self, cfg, packed, chunk):
         return self.unpack(cfg, self.dispatch(cfg, packed, chunk))
@@ -544,12 +550,6 @@ def _pack(chunk, cfg, widths=None, pin: bool = False):
         begins[bi, :K] = wx.begins[kp]
         ends[bi, :K] = wx.ends[kp]
     return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, wband)
-
-
-def _unpack(outs):
-    """Kernel outputs -> host numpy (cons_base, cons_cov, cons_len,
-    failed, and band_hit from the banded build)."""
-    return tuple(t.cpu().numpy() for t in outs[:4] + outs[5:])
 
 
 def _install(pipeline, chunk, results, trim, stats, fallback, states=None,

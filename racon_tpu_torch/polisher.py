@@ -35,6 +35,16 @@ and its chunked FASTA then differs from its sequential one, so the port
 keeps MHAP input sequential. These choose a host-side schedule; no work
 leaves the card.
 
+TorchPolisher launches both phases' kernels through a Partitioner over
+``devices`` (parallel/partitioner.py; the JAX package shards them over a
+mesh of every device, racon_tpu/parallel): by default every visible
+card. On one device each launch runs under that device on the caller's
+current stream. With m > 1 devices each batch of the consensus phase and
+each launch of the aligner's rounds is cut into m slices by rows, one
+launch a device on a stream of its own, and gathered on the host in
+order. A device may repeat (``devices=["cuda:0", "cuda:0"]``, a virtual
+stripe: two streams on one card). The bytes do not depend on the stripe.
+
 Both polishers take the JAX package's run-time surfaces as arguments
 (racon_tpu/polisher.py):
 
@@ -80,6 +90,7 @@ from .ops.align_driver import run_alignment_phase
 from .ops.batch_exec import DEFAULT_DEPTH
 from .ops.poa_driver import (DEFAULT_POA_KERNEL, kernel_for,
                               run_consensus_phase)
+from .parallel import get_partitioner, resolve_devices
 from .pipeline import Pipeline
 from .resilience import faults
 from .resilience.budget import MemoryBudget, at_least, peak_rss_mb
@@ -268,10 +279,17 @@ class TorchPolisher:
     set a torn input degraded) and "collapsed" (the hard watermark
     collapsed the pipeline).
 
-    ``device_memory_share`` is the share of the card this polish may
+    ``device_memory_share`` is the share of each card this polish may
     hold (1: all of it; a fleet's worker holds 1 / its pool's ceiling):
     the consensus phase sizes its batches from it
     (``poa_driver.sizing_bytes``).
+
+    ``devices`` (the JAX package's ``RACON_TPU_SHARD`` and
+    ``RACON_TPU_MESH_SHAPE``) is what the kernels' launches are striped
+    over (module note; ``mesh.resolve_devices``): None, every visible
+    device of ``device``'s type; a count, the first that many; or a list
+    of devices, repeats allowed. Its first device then stands for
+    ``device``.
 
     ``journal_path``, ``resume_journal``, ``journal_fsync``,
     ``trace_path`` and ``device_timeout_s``: the module note."""
@@ -289,15 +307,19 @@ class TorchPolisher:
                  resume_journal: bool = False, journal_fsync: bool = True,
                  trace_path: Optional[str] = None,
                  device_timeout_s: float = 0.0,
-                 device_memory_share: float = 1.0, **racon_kwargs):
+                 device_memory_share: float = 1.0, devices=None,
+                 **racon_kwargs):
         _reset_run_state(trace_path)
         self.device = _resolve_device(device)
         if not 0.0 < device_memory_share <= 1.0:
             raise ValueError(f"device_memory_share must be in (0, 1], got "
                              f"{device_memory_share}")
         self.device_memory_share = float(device_memory_share)
+        self.devices = resolve_devices(devices, self.device)
+        self.device = self.devices[0]
+        self.partitioner = get_partitioner(self.devices)
         if self.device.type == "cuda":
-            obs.arm_device_track(self.device)
+            obs.arm_device_track(self.devices)
         kernel_for(poa_kernel)
         self.batch_windows = batch_windows
         self.poa_kernel = poa_kernel
@@ -365,7 +387,8 @@ class TorchPolisher:
             stats["align"] = self._timed(
                 stats, "align", run_alignment_phase, pl, device=self.device,
                 journal=self.journal, report=rep,
-                device_timeout_s=self.device_timeout_s, **self.band)
+                device_timeout_s=self.device_timeout_s,
+                partitioner=self.partitioner, **self.band)
             sp.set(device=stats["align"]["device"],
                    host=stats["align"]["host"])
         self._align_spans.append((t0, time.perf_counter()))
@@ -392,7 +415,8 @@ class TorchPolisher:
                 budget=self.budget if self.budget.enabled else None,
                 journal=self.journal, report=rep,
                 device_timeout_s=self.device_timeout_s,
-                device_memory_share=self.device_memory_share, **self.band)
+                device_memory_share=self.device_memory_share,
+                partitioner=self.partitioner, **self.band)
         with obs.span("phase.stitch", **at):
             out = self._timed(stats, "stitch", pl.stitch, drop_unpolished)
         return out, rep

@@ -7,8 +7,9 @@ not have.
 
 The deadline is the polisher's ``device_timeout_s`` (0, the default,
 turns it off, as ``RACON_TPU_DEVICE_TIMEOUT=0``). It bounds the host's
-waits on the card: the consensus feeder's wait on a batch's event
-(ops/batch_exec.py) and the aligner's copy back after each launch round
+waits on the card: the wait on each launch's events before its outputs
+are gathered (parallel/partitioner.py), for the consensus feeder's
+batches (ops/batch_exec.py) and the aligner's launch rounds
 (ops/align_cuda.py). It does not bound the host's own packing. On expiry
 it raises WatchdogTimeout, naming the wait and the deadline, and the
 polish ends with it: a wedged card cannot be recovered in-process (the
@@ -63,16 +64,17 @@ def call_with_watchdog(fn: Callable, timeout_s: float = 0.0,
     return box["result"]
 
 
-def wait_event(event, timeout_s: float, what: str,
-               before: Optional[Callable] = None) -> None:
-    """Wait for a CUDA `event` (None on the CPU: nothing to wait for)
-    under the deadline, with `before` (a run point's fault check) inside
-    it. Only the wait runs on the watchdog's thread; the caller's launches
-    and copies stay on its own thread and stream."""
+def wait_events(events, timeout_s: float, what: str,
+                before: Optional[Callable] = None) -> None:
+    """Wait for every CUDA event of `events` (a launch's, one a stripe;
+    none on the CPU: nothing to wait for) under one deadline, with
+    `before` (a run point's fault check) inside it. Only the wait runs on
+    the watchdog's thread; the caller's launches and copies stay on its
+    own thread and stream."""
     def wait():
         if before is not None:
             before()
-        if event is not None:
+        for event in events:
             event.synchronize()
 
     call_with_watchdog(wait, timeout_s, what)
