@@ -127,6 +127,22 @@ smoke started):
   port's trace reader, the device's busy share of the polish, and the
   host gaps between launches by their enclosing span (obs/__main__.py
   device_track);
+* costmodel (after trace): the cost model (obs/costmodel.py) on the
+  traced main polish: ``obs model --profile h100 --json``, then
+  validate_trace under h100: each modeled phase's predicted and measured
+  seconds and their ratio, each beside its kernels' busy time on the
+  device track (the prediction over it, and its share of the phase), and
+  the bucket joins; the DP-cell counters must equal the counts
+  recomputed from the polish's pipeline, the h100 profile's aligner cells
+  a step must lie within its bound of this run's reading, and
+  validate's ``ok`` is printed as computed (a ratio past the profile's
+  bound is a finding, not a failure);
+* kernel_bench: tools/kernel_bench.py on both POA kernels (64 windows,
+  depth 32, 3 warm calls): ms, the cost model's bound, ms over it, and
+  both kernels' outputs on 2 sampled windows equal to the plain
+  version's; then one kernel_check line per POA kernel on a batch with N
+  (code 4) at 5% in backbones and layers, every window equal to the
+  plain version;
 * watchdog: the parity set on the card with RACON_TORCH_FAULT's
   poa.run.ls:hang=60 (through faults.configure) and device_timeout_s=2:
   WatchdogTimeout within 15 s of the polish's start;
@@ -160,8 +176,11 @@ smoke started):
   polish's, each worker's chunk walls, peak RSS and peak reserved device
   memory, each worker's start-up (imports, the kernels' load, spawn to
   hello), and the card's busy share from the chunks' traces merged as
-  ``obs merge`` merges them; the coordinator must have made no CUDA
-  context. distrib_kill: the same on FLEET_SMALL (half the chunked
+  ``obs merge`` merges them, and ``obs critpath`` on the coordinator's
+  trace (its dispatches and the chunk spans the workers shipped): each
+  job's stages and unattributed share, every chunk under a job and the
+  stages summing to the job's wall (required);
+  the coordinator must have made no CUDA context. distrib_kill: the same on FLEET_SMALL (half the chunked
   cell's scale, against its own sequential polish) with
   RACON_TORCH_FAULT="worker.result:kill=1", which the coordinator hands
   to worker 0 alone: the same FASTA, one worker dead, the killed chunk
@@ -232,17 +251,14 @@ import tempfile
 import time
 from concurrent.futures import ProcessPoolExecutor
 
-ROOT = os.path.dirname(os.path.abspath(__file__))
+# The card's peaks (H100 SXM: HBM3 bytes/s, 32-bit integer ops/s) and the
+# integer ops a DP cell of each kernel does, as the cost model bills them
+# (racon_tpu_torch/obs/costmodel.py; it imports no torch).
+from racon_tpu_torch.obs.costmodel import (BASE_OPS_PER_CELL,
+                                           EDGE_OPS_PER_CELL, HBM_BYTES_S,
+                                           INT32_OPS_S, POA_OPS_PER_CELL)
 
-# H100 SXM peaks: HBM3 bytes/s, and 32-bit integer ops/s (64 INT32 lanes
-# per SM x 132 SMs x 1.98 GHz boost, Hopper architecture white paper).
-HBM_BYTES_S = 3.35e12
-INT32_OPS_S = 132 * 64 * 1.98e9
-# Integer ops per DP cell that any implementation of the recurrence does.
-POA_OPS_PER_CELL = 6    # diag add, gap add, max, -j*g, running max, +j*g
-# The edit DP kept in a frame shifted by lane and row (csrc/align.cu):
-EDGE_OPS_PER_CELL = 4   # mismatch flag, add, neighbour min, running min
-BASE_OPS_PER_CELL = 7   # the edge cell, a compare for each move bit, their pack
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 MAIN = dict(window_length=500, match=5, mismatch=-4, gap=-8)
 # The parity set: small, because its CPU polish runs the plain versions,
@@ -308,14 +324,6 @@ def emit(obj) -> None:
 def require(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke: {msg}")
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def sm_clock_mhz() -> float:
@@ -1508,8 +1516,9 @@ def distrib_run(reader, d, tmp, name, workers, fault=None):
     `fault` as RACON_TORCH_FAULT (the coordinator hands it to worker 0
     alone): (its FASTA, its wall, the coordinator's result.json, the
     device track of every chunk trace merged as ``obs merge`` merges
-    them, and the fleet breakdown of those merged with the coordinator's
-    trace, which holds the dispatches)."""
+    them, the fleet breakdown of those merged with the coordinator's
+    trace, which holds the dispatches, and critpath_summary's reading of
+    the coordinator's trace)."""
     import glob
 
     from racon_tpu_torch.serve.scheduler import child_env
@@ -1547,11 +1556,48 @@ def distrib_run(reader, d, tmp, name, workers, fault=None):
         docs.append(doc)
     track = reader.device_track(reader.merge_traces(docs[1:], traces))
     return text, wall, result, track, reader.fleet_breakdown(
-        reader.merge_traces(docs, [trace] + traces))
+        reader.merge_traces(docs, [trace] + traces)), \
+        critpath_summary(name, docs[0])
+
+
+def critpath_summary(phase, doc) -> dict:
+    """``obs critpath`` on a distrib run's coordinator trace, the merged
+    timeline of the run: its dispatches, and each chunk's spans as the
+    worker shipped them with its result (merging the chunk traces into it
+    as well would count every chunk span twice). Required: every chunk of
+    the run appears under a job, and each job's stages and unattributed
+    wall sum to its wall without overshooting it. Returns each job's
+    stages (ms) and unattributed share."""
+    from racon_tpu_torch.obs import critpath
+
+    res = critpath.analyze(doc, profile="h100")
+    chunk_ids = {(ev.get("args") or {}).get("chunk")
+                 for ev in doc["traceEvents"]
+                 if ev.get("ph") == "X" and ev.get("name") == "distrib.chunk"}
+    require(chunk_ids == set(range(DISTRIB_CHUNKS)), f"{phase}: critpath "
+            f"sees chunks {sorted(chunk_ids, key=str)}")
+    require(res["jobs"] and sum(j["chunks"] for j in res["jobs"]) ==
+            res["chunks"], f"{phase}: critpath attributes "
+            f"{[j['chunks'] for j in res['jobs']]} of {res['chunks']} "
+            "chunk spans to jobs")
+    jobs = []
+    for j in res["jobs"]:
+        staged = sum(j["path_us"].values())
+        require(abs(staged + j["unattributed_us"] - j["wall_us"]) <= 1.0 +
+                0.5 * len(j["path_us"]) and staged <= j["wall_us"] + 1.0 +
+                0.5 * len(j["path_us"]), f"{phase}: job {j['job']}'s "
+                f"stages {staged} us and unattributed {j['unattributed_us']}"
+                f" us against its wall {j['wall_us']} us")
+        jobs.append({"job": j["job"], "chunks": j["chunks"],
+                     "wall_ms": j["wall_us"] / 1e3,
+                     "stages_ms": {k: v / 1e3 for k, v in j["path_us"].items()},
+                     "unattributed_ms": j["unattributed_us"] / 1e3,
+                     "unattributed_frac": j["unattributed_frac"]})
+    return {"chunk_spans": res["chunks"], "jobs": jobs}
 
 
 def distrib_line(phase, workers, mbp, text, wall, result, track, seq_fasta,
-                 seq_wall, breakdown):
+                 seq_wall, breakdown, crit):
     """A distrib phase's line, after its checks that hold for every
     phase: the sequential FASTA, every chunk served by the fleet (none
     locally), kernel_builds 0 in every chunk, the ls POA, edge and
@@ -1603,7 +1649,7 @@ def distrib_line(phase, workers, mbp, text, wall, result, track, seq_fasta,
             "launches": launches, "device_busy_share": track["busy_share"],
             "device_busy_ms": track["busy_us"] / 1e3,
             "polish_extent_s": track["polish_us"] / 1e6,
-            "identical": True}
+            "critpath": crit, "identical": True}
 
 
 def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
@@ -1649,10 +1695,10 @@ def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
         runs += [("distrib_kill", 2, "worker.result:kill=1", *small),
                  ("distrib_w4", 4, None, *small)]
         for phase, workers, fault, data, want, want_wall, mbp in runs:
-            text, wall, result, track, breakdown = distrib_run(
+            text, wall, result, track, breakdown, crit = distrib_run(
                 reader, data, tmp, phase, workers, fault)
             line = distrib_line(phase, workers, mbp, text, wall, result,
-                                track, want, want_wall, breakdown)
+                                track, want, want_wall, breakdown, crit)
             if fault:
                 c = result["counters"]
                 redone = [r for r in result["chunk_stats"]
@@ -2141,11 +2187,21 @@ def journal_phase(racon_tpu_torch, cuda_lib, d, main_run, tmp):
 def trace_phase(torch, racon_tpu_torch, cuda_lib, d, main_run, plain_s, tmp,
                 keep):
     """The main polish traced, with its report, and a LAUNCH_EVENTS list
-    of its own beside the trace's device track."""
+    of its own beside the trace's device track. Returns its wall, its
+    trace, pipeline_cells of its pipeline (taken between initialize and
+    polish, out of the wall) and its stats."""
     from racon_tpu_torch.obs import __main__ as reader
+
+    from racon_tpu_torch.pipeline import Pipeline
 
     main_out, main_wall = main_run[0], main_run[4]
     tr = os.path.join(tmp, "main.trace.json")
+    # phase 1's job lengths, read before any alignment (a job's lengths
+    # are gone once its CIGAR is set)
+    pl = Pipeline(d["reads"], d["overlaps"], d["draft"], **MAIN)
+    pl.prepare()
+    lengths = pl.align_job_lengths()
+    del pl
     cuda_lib.reset_launches()
     cuda_lib.LAUNCH_EVENTS = events = []
     try:
@@ -2154,8 +2210,11 @@ def trace_phase(torch, racon_tpu_torch, cuda_lib, d, main_run, plain_s, tmp,
                                           trace_path=tr, **MAIN)
         t0 = time.perf_counter()
         p.initialize()
+        t1 = time.perf_counter()
+        cells = pipeline_cells(p._pipeline, lengths)
+        t2 = time.perf_counter()
         out = p.polish(True)
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - (t2 - t1)
     finally:
         cuda_lib.LAUNCH_EVENTS = None
     launches = {k: v for k, v in cuda_lib.LAUNCHES.items() if v}
@@ -2202,7 +2261,184 @@ def trace_phase(torch, racon_tpu_torch, cuda_lib, d, main_run, plain_s, tmp,
           "served": {k: v["served"] for k, v in report["phases"].items()},
           "trace_events": len(doc["traceEvents"]),
           "dropped_events": doc["otherData"]["dropped_events"]})
-    return wall
+    return wall, tr, cells, p.stats
+
+
+def pipeline_cells(pl, lengths) -> dict:
+    """The DP-cell and window counters a traced polish of pipeline `pl`
+    must count, recomputed from the pipeline once its windows are built
+    (before the consensus phase; stitching frees them) and from its
+    phase-1 job `lengths` (Pipeline.align_job_lengths after prepare, before alignment):
+    windows and admitted depth x class per POA bucket, as the consensus
+    driver buckets them, and phase 1's Hirschberg and need-band cells,
+    as the aligner's formulas give them."""
+    import numpy as np
+
+    from racon_tpu_torch.obs import costmodel
+    from racon_tpu_torch.ops import align_cuda, poa_driver
+
+    out = {}
+    for i in range(pl.num_windows()):
+        n_seqs, bb_len = pl.window_info(i)[:2]
+        if n_seqs - 1 < 2:
+            continue
+        depth = min(n_seqs - 1, poa_driver.DEPTH_CAP)
+        d = next(b for b in poa_driver.DEPTH_BUCKETS if depth <= b)
+        c = poa_driver.window_class(bb_len)
+        for name, n in ((f"poa.windows.d{d}.c{c}", 1),
+                        (f"poa.cells.d{d}.c{c}", depth * c)):
+            out[name] = out.get(name, 0) + n
+    L = np.asarray(lengths, dtype=np.int64)
+    if len(L):
+        mx = L.max(axis=1)
+        out["align.cells.total"] = int(
+            (mx * costmodel.band_need(L[:, 0], L[:, 1])).sum())
+        out["align.cells.hirschberg"] = sum(
+            2 * int(m) * align_cuda.band_for(int(a), int(b))
+            for (a, b), m in zip(L, mx))
+    return out
+
+
+def costmodel_phase(tr: str, cells: dict, stats: dict):
+    """The cost model (obs/costmodel.py) on the traced main polish (its
+    trace `tr`, its stats): ``obs model --profile h100 --json``, then
+    validate_trace under h100, each modeled phase's predicted and
+    measured seconds and their ratio, and the bucket joins. Beside each
+    phase, its kernels' busy time on the trace's device track
+    (``device_s``), the prediction over it (the model's error against the
+    card's own time) and its share of the phase's wall (how much of the
+    phase is the card's work). Required: the trace reads, both modeled
+    phases have a measured and a predicted wall above 0, the DP-cell
+    counters equal `cells` (pipeline_cells of the polish), the windows in
+    buckets equal those stats counts as the card's or the host's, and the
+    profile's ``align_step_cells`` lies within its declared bound of the
+    one this run reads (the Hirschberg cells of a serial step at the
+    aligner kernels' busy rate). Whether the prediction falls within the
+    profile's bound (``ok``) is printed, not required."""
+    import contextlib
+    import io
+
+    from racon_tpu_torch.obs import __main__ as reader
+    from racon_tpu_torch.obs import costmodel
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = reader.main(["model", "--profile", "h100", "--json"])
+    require(rc == 0, f"obs model --profile h100 exited {rc}")
+    model = json.loads(buf.getvalue())
+    doc, errors = reader.load_trace(tr)
+    require(not errors, f"the trace has schema violations: {errors[:5]}")
+    prof = costmodel.profile("h100")
+    v = costmodel.validate_trace(doc, prof)
+    for name in ("align", "poa"):
+        ph = v["phases"][name]
+        require((ph["measured_s"] or 0) > 0 and ph["predicted_s"] > 0,
+                f"costmodel: phase {name}: predicted {ph['predicted_s']} s, "
+                f"measured {ph['measured_s']} s")
+    kernels = reader.device_track(doc)["kernels"]
+    device_s = {ph: sum(k["busy_us"] for n, k in kernels.items()
+                        if n.startswith(prefix)) / 1e6
+                for ph, prefix in (("align", "hirschberg"),
+                                   ("poa", "poa_consensus"))}
+    counters = doc["racon_tpu"]["metrics"]["counters"]
+    step_cells = (counters["align.cells.hirschberg"] * prof.serial_step_s
+                  / device_s["align"])
+    off = max(step_cells / prof.align_step_cells,
+              prof.align_step_cells / step_cells)
+    require(off <= prof.error_bound_ratio, "costmodel: the h100 profile's "
+            f"align_step_cells {prof.align_step_cells} is {off:.2f}x the "
+            f"{step_cells:.1f} this run reads")
+    got = {k: n for k, n in counters.items()
+           if k.startswith(("poa.windows.d", "poa.cells.d", "align.cells."))}
+    require(got == cells, f"costmodel: the trace's counters {got}, the "
+            f"pipeline's {cells}")
+    windows = sum(n for k, n in cells.items() if k.startswith("poa.windows"))
+    cons = stats["consensus"]
+    require(windows == cons["device"] + cons["host_fallback"],
+            f"costmodel: {windows} windows in buckets, stats "
+            f"{cons['device']} on the card and {cons['host_fallback']} on "
+            "the host")
+    emit({"phase": "costmodel", "profile": prof.name,
+          "error_bound_ratio": prof.error_bound_ratio,
+          "serial_step_s": prof.serial_step_s,
+          "align_step_cells": {"profile": prof.align_step_cells,
+                               "read": step_cells},
+          "phases": {k: {**{f: ph.get(f) for f in (
+              "predicted_s", "measured_s", "ratio", "error_pct",
+              "within_bound", "verdict", "serial_steps")},
+              "device_s": device_s[k],
+              "predicted_over_device": ph["predicted_s"] / device_s[k],
+              "device_share": device_s[k] / ph["measured_s"]}
+              for k, ph in v["phases"].items()},
+          "ok": v["ok"], "buckets": v["buckets"],
+          "counters": {k: n for k, n in counters.items()
+                       if ".cells" in k or k.startswith("poa.windows")},
+          "model": model["rows"]})
+    print(costmodel.render_validation(v), flush=True)
+
+
+def kernel_bench_phase(torch):
+    """tools/kernel_bench.py on both POA kernels (B = 64 windows, depth
+    32, 3 warm calls): ms, the cost model's bound and ms over it; each
+    kernel's outputs on 2 sampled windows equal to the plain version's on
+    those windows (tolerance 0)."""
+    from racon_tpu_torch.ops import poa, poa_driver
+    from racon_tpu_torch.tools import kernel_bench
+
+    for kernel in ("v2", "ls"):
+        r = kernel_bench.run(64, 32, 3, kernel, "cuda")
+        idx = [0, 37]
+        sub = tuple(a[idx] for a in r["inputs"])
+        t0 = time.perf_counter()
+        want = poa_driver.kernel_for(kernel)(
+            r["cfg"], *poa.batch_to_tensors(sub, "cpu"))
+        plain_s = time.perf_counter() - t0
+        err = max_abs_err(want, [torch.from_numpy(o[idx])
+                                 for o in r["outputs"]])
+        require(err == 0, f"kernel_bench: the {kernel} kernel differs from "
+                f"its plain version by {err} on windows {idx}")
+        emit({"phase": "kernel_bench",
+              **{k: v for k, v in r.items()
+                 if k not in ("inputs", "outputs", "cfg")},
+              "plain_windows": idx, "plain_s": plain_s, "max_abs_err": err})
+
+
+def check_n_bases(torch, ex):
+    """Both POA kernels on a batch with N (code 4) at 5% in backbones and
+    layers (tools.batches.poa_batch, 32 windows of -w 500 and 2..32
+    layers), each held against the plain version on every window
+    (tolerance 0; the plain version on the pool `ex`): one kernel_check
+    line a kernel."""
+    from racon_tpu_torch.ops import poa, poa_driver
+    from racon_tpu_torch.tools.batches import plain_poa_parallel, poa_batch
+
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    packed = poa_batch(cfg, 32, 41, 500, n_rate=0.05)
+    dev_in = poa.batch_to_tensors(packed, "cuda")
+    t0 = time.perf_counter()
+    ((want, pst),) = plain_poa_parallel([(cfg, dev_in)], PLAIN_PROCS, ex=ex)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    for kernel, name in POA_NAME.items():
+        fn = poa_driver.kernel_for(kernel)
+        st = {}
+        got = fn(cfg, *dev_in, stats=st)
+        torch.cuda.synchronize()
+        err = max_abs_err(want, got)
+        require(err == 0 and st["cells"] == pst["cells"], f"the {kernel} POA "
+                f"kernel on the N batch: max_abs_err {err}, cells "
+                f"{st['cells']} against the plain version's {pst['cells']}")
+        ms = cuda_ms(torch, lambda: fn(cfg, *dev_in), 3)
+        b_ms, b_by = bound(poa_bytes(dev_in, got),
+                           POA_OPS_PER_CELL * st["cells"])
+        emit({"phase": "kernel_check", "kernel": name,
+              "input": "tools.batches.poa_batch(n_rate=0.05): N (code 4) "
+              "in backbones and layers", "windows": int(packed[0].shape[0]),
+              "depth": cfg.depth,
+              "n_codes": int((packed[0] == 4).sum() + (packed[4] == 4).sum()),
+              "dp_cells": st["cells"], "failed": int(got[3].sum()),
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "plain_on": f"host, {PLAIN_PROCS} processes, every window",
+              "bound_ms": b_ms, "bound_by": b_by})
 
 
 def watchdog_phase(racon_tpu_torch, d):
@@ -2408,6 +2644,7 @@ def main() -> int:
     from racon_tpu_torch.tools import dp_cost_probe as probe
     from racon_tpu_torch.tools import simulate
     from racon_tpu_torch.tools.batches import plain_poa_pool
+    from racon_tpu_torch.tools.kernel_bench import nvidia_smi
 
     smi = nvidia_smi()
     t0 = time.perf_counter()
@@ -2471,8 +2708,12 @@ def main() -> int:
         # main cell (the watchdog on the parity set)
         plain_s = journal_phase(racon_tpu_torch, cuda_lib, d, runs[first],
                                 tmp)
-        trace_wall = trace_phase(torch, racon_tpu_torch, cuda_lib, d,
-                                 runs[first], plain_s, tmp, keep)
+        trace_wall, trace_path, cells, trace_stats = trace_phase(
+            torch, racon_tpu_torch, cuda_lib, d, runs[first], plain_s, tmp,
+            keep)
+        costmodel_phase(trace_path, cells, trace_stats)
+        kernel_bench_phase(torch)
+        check_n_bases(torch, plain_ex)
         watchdog_phase(racon_tpu_torch, d_par)
         # serve: the resident daemon on the main cell
         serve_phase(torch, racon_tpu_torch, d, d_par, runs[first], plain_s,

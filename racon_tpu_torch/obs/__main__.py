@@ -5,29 +5,44 @@ The JAX package's reader (racon_tpu/obs/__main__.py) in its flag form::
     python -m racon_tpu_torch.obs run.json              # breakdown
     python -m racon_tpu_torch.obs --validate run.json   # schema check
     python -m racon_tpu_torch.obs --diff old.json new.json
+    python -m racon_tpu_torch.obs --overlap A:B run.json
     python -m racon_tpu_torch.obs --device run.json     # the device track
 
-``--device`` is the port's own: the card's busy share of the polish from
-the device track (obs/__init__.py), launches and busy time per kernel,
-and the longest host gaps between launches with the span that encloses
-each. Two of the JAX reader's subcommands::
+``--overlap NAME_A:NAME_B`` gives the wall during which spans of the two
+names were open at once (``align.cohort:poa.bucket`` in a chunked
+polish); exit 3 where they never were. ``--device`` is the port's own:
+the card's busy share of the polish from the device track
+(obs/__init__.py), launches and busy time per kernel, and the longest
+host gaps between launches with the span that encloses each.
+Subcommands, as the JAX reader's::
 
+    python -m racon_tpu_torch.obs model [--profile P] [--window-length W]
+    python -m racon_tpu_torch.obs validate run.json [--profile P]
     python -m racon_tpu_torch.obs merge a.json b.json ... --out m.json
     python -m racon_tpu_torch.obs fleet m.json [--json]
+    python -m racon_tpu_torch.obs critpath m.json [--json]
 
-``merge`` folds per-process traces (a distrib coordinator's or a fleet
-plane's and its workers' chunk traces) into one timeline on the earliest
-monotonic epoch; ``fleet`` gives each process's chunks, dispatches,
-chunk and kernel wall and peak RSS, and checks that every chunk span's
-parent is a dispatch event and that the run has one trace id (exit 1
-where not). On a merged fleet trace ``--device`` gives the card's busy
-share over all workers. The others (model, validate, bench, critpath)
-wait: the cost model's machine profiles are the TPU's.
+``model`` prints the cost model's grid (obs/costmodel.py) under a machine
+profile (``h100``, ``cpu-host``); ``validate`` joins its predictions with
+the DP cells and phase walls of a trace (the profile from the trace's
+platform by default: h100 for a trace taken on the card); ``merge`` folds
+per-process traces (a distrib coordinator's or a fleet plane's and its
+workers' chunk traces) into one timeline on the earliest monotonic epoch;
+``fleet`` gives each process's chunks, dispatches, chunk and kernel wall
+and peak RSS, and checks that every chunk span's parent is a dispatch
+event and that the run has one trace id (exit 1 where not); ``critpath``
+splits each job's wall over its stages along the dispatch -> chunk
+parenting (obs/critpath.py). On a merged fleet trace ``--device`` gives
+the card's busy share over all workers. ``bench`` waits for the port's
+bench history.
 
-Exit codes: 0 valid; 1 schema violation(s) in a readable trace (or a
-``fleet`` parenting violation); 2 file unreadable, not JSON, not a trace
-object, or bad arguments; 3 a ``--diff`` phase regression past
-``--threshold``.
+Exit codes: 0 valid, or a prediction within the profile's declared bound;
+1 schema violation(s) in a readable trace (or a ``fleet`` parenting
+violation); 2 file unreadable, not JSON, not a trace object, an unknown
+profile, or bad arguments; 3 a regression: a ``--diff`` phase regression
+past ``--threshold``, a ``validate`` prediction error past the profile's
+bound, a ``critpath`` job whose unattributed wall passes
+``--max-unattributed``, or an ``--overlap`` of zero.
 """
 
 from __future__ import annotations
@@ -37,7 +52,9 @@ import json
 import sys
 from typing import Dict, List, Tuple
 
-from . import PHASES
+from . import PHASES, costmodel, critpath
+from .costmodel import (overlap_us, phase_overlaps_us, span_intervals,
+                        union_intervals)
 from .metrics import hist_quantile
 
 _VALID_PH = {"X", "B", "E", "i", "I", "M", "C"}
@@ -137,64 +154,6 @@ def dropped_events(doc: dict) -> int:
         except (TypeError, ValueError):
             return 0
     return 0
-
-
-def span_intervals(doc: dict, name: str) -> List[tuple]:
-    """Sorted [(start_us, end_us)] of every complete event named
-    `name`."""
-    out = []
-    for ev in doc.get("traceEvents", []):
-        if isinstance(ev, dict) and ev.get("ph") == "X" \
-                and ev.get("name") == name:
-            ts = float(ev.get("ts", 0))
-            out.append((ts, ts + float(ev.get("dur", 0))))
-    return sorted(out)
-
-
-def union_intervals(intervals) -> List[tuple]:
-    """Merge possibly-overlapping intervals into disjoint ones."""
-    merged: List[list] = []
-    for s, e in sorted(intervals):
-        if merged and s <= merged[-1][1]:
-            merged[-1][1] = max(merged[-1][1], e)
-        else:
-            merged.append([s, e])
-    return [tuple(iv) for iv in merged]
-
-
-def overlap_us(doc: dict, name_a: str, name_b: str) -> float:
-    """Wall (µs) during which a span named `name_a` and one named
-    `name_b` were open at once."""
-    a = union_intervals(span_intervals(doc, name_a))
-    b = union_intervals(span_intervals(doc, name_b))
-    total = 0.0
-    i = j = 0
-    while i < len(a) and j < len(b):
-        lo = max(a[i][0], b[j][0])
-        hi = min(a[i][1], b[j][1])
-        if hi > lo:
-            total += hi - lo
-        if a[i][1] <= b[j][1]:
-            i += 1
-        else:
-            j += 1
-    return total
-
-
-def phase_overlaps_us(doc: dict) -> Dict[str, float]:
-    """Nonzero pairwise overlaps between ``phase.*`` span families,
-    keyed ``"a+b"`` ({} for a sequential polish)."""
-    names = sorted({ev["name"] for ev in doc.get("traceEvents", [])
-                    if isinstance(ev, dict) and ev.get("ph") == "X"
-                    and isinstance(ev.get("name"), str)
-                    and ev["name"].startswith("phase.")})
-    out: Dict[str, float] = {}
-    for i, na in enumerate(names):
-        for nb in names[i + 1:]:
-            ov = overlap_us(doc, na, nb)
-            if ov > 0:
-                out[f"{na[len('phase.'):]}+{nb[len('phase.'):]}"] = ov
-    return out
 
 
 def breakdown(doc: dict) -> dict:
@@ -488,9 +447,99 @@ def cmd_fleet(args) -> int:
     return 1 if b["violations"] else 0
 
 
+def _profile_for(doc: dict, name: str) -> costmodel.MachineProfile:
+    """'auto' resolves from the platform stamped in the trace (cpu-host
+    where it has none)."""
+    od = doc.get("otherData")
+    platform = od.get("platform") if isinstance(od, dict) else None
+    return costmodel.resolve_profile(name, platform)
+
+
+def cmd_model(args) -> int:
+    try:
+        prof = costmodel.profile(args.profile if args.profile != "auto"
+                                 else "cpu-host")
+    except KeyError as e:
+        print(f"[obs] {e}", file=sys.stderr)
+        return 2
+    rows = costmodel.model_rows(
+        prof, window_lengths=args.window_length or
+        costmodel.AUDIT_WINDOW_LENGTHS)
+    if args.as_json:
+        print(json.dumps({"profile": prof.name, "rows": rows}, indent=2))
+    else:
+        print(costmodel.render_model(rows, prof))
+    return 0
+
+
+def cmd_validate(args) -> int:
+    doc, rc = _read_valid(args.trace)
+    if doc is None:
+        return rc
+    try:
+        prof = _profile_for(doc, args.profile)
+    except KeyError as e:
+        print(f"[obs] {e}", file=sys.stderr)
+        return 2
+    v = costmodel.validate_trace(doc, prof)
+    if args.as_json:
+        print(json.dumps(v, indent=2))
+    else:
+        print(costmodel.render_validation(v))
+    return 0 if v["ok"] else 3
+
+
+def cmd_critpath(args) -> int:
+    doc, rc = _read_valid(args.trace)
+    if doc is None:
+        return rc
+    try:
+        result = critpath.analyze(doc, profile=args.profile)
+    except KeyError as e:
+        print(f"[obs] {e}", file=sys.stderr)
+        return 2
+    if args.as_json:
+        print(json.dumps(result, indent=2))
+    else:
+        print(critpath.render(result, args.trace, args.max_unattributed))
+    over = [j for j in result["jobs"]
+            if j["unattributed_frac"] > args.max_unattributed]
+    if over:
+        for j in over:
+            print(f"[obs] UNATTRIBUTED: job {j['job']}: "
+                  f"{100 * j['unattributed_frac']:.1f}% of "
+                  f"{j['wall_us'] / 1e3:.2f} ms wall unexplained "
+                  f"(threshold {100 * args.max_unattributed:.0f}%)",
+                  file=sys.stderr)
+        return 3
+    if result["jobs"] and not args.as_json:
+        print(f"[obs] OK: every job attributed to within "
+              f"{100 * args.max_unattributed:.0f}% of its wall")
+    return 0
+
+
 def _sub_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m racon_tpu_torch.obs")
     sub = p.add_subparsers(dest="cmd", required=True)
+    m = sub.add_parser("model", help="print the predicted cost grid")
+    m.add_argument("--profile", default="cpu-host",
+                   help="machine profile (%s)" % ", ".join(
+                       sorted(costmodel.PROFILES)))
+    m.add_argument("--window-length", type=int, action="append",
+                   help="window length(s) to tabulate (repeatable; "
+                        "default: 500 and 1000)")
+    m.add_argument("--json", action="store_true", dest="as_json")
+    m.set_defaults(fn=cmd_model)
+    v = sub.add_parser("validate",
+                       help="join the predictions against a measured "
+                            "trace; exit 3 when the error passes the "
+                            "profile's declared bound")
+    v.add_argument("trace")
+    v.add_argument("--profile", default="auto",
+                   help="machine profile, or 'auto' to pick from the "
+                        "platform stamped in the trace (default)")
+    v.add_argument("--json", action="store_true", dest="as_json")
+    v.set_defaults(fn=cmd_validate)
     mg = sub.add_parser("merge",
                         help="fold per-process traces (coordinator and "
                         "workers) into one multi-track timeline, re-based "
@@ -507,6 +556,21 @@ def _sub_parser() -> argparse.ArgumentParser:
     fl.add_argument("trace")
     fl.add_argument("--json", action="store_true", dest="as_json")
     fl.set_defaults(fn=cmd_fleet)
+    cp = sub.add_parser("critpath",
+                        help="critical-path attribution over a merged "
+                             "fleet trace: each job's wall over its stages "
+                             "along the dispatch -> chunk parenting; exit "
+                             "3 when unattributed wall passes "
+                             "--max-unattributed")
+    cp.add_argument("trace")
+    cp.add_argument("--profile", default="auto",
+                    help="machine profile for the cost-model cross-check "
+                         "(default: auto from the trace)")
+    cp.add_argument("--max-unattributed", type=float, default=0.10,
+                    help="tolerated unattributed fraction of each job's "
+                         "wall (default 0.10)")
+    cp.add_argument("--json", action="store_true", dest="as_json")
+    cp.set_defaults(fn=cmd_critpath)
     return p
 
 
@@ -606,7 +670,8 @@ def diff(old: dict, new: dict, threshold: float,
 def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
-    if argv and argv[0] in ("merge", "fleet"):
+    if argv and argv[0] in ("model", "validate", "merge", "fleet",
+                            "critpath"):
         try:
             args = _sub_parser().parse_args(argv)
         except SystemExit as e:
@@ -622,6 +687,10 @@ def main(argv=None) -> int:
                    help="schema validation only, no breakdown")
     p.add_argument("--diff", action="store_true",
                    help="compare two traces; exit 3 on phase regression")
+    p.add_argument("--overlap", metavar="NAME_A:NAME_B",
+                   help="the wall during which spans of the two names were "
+                        "open at once (e.g. align.cohort:poa.bucket in a "
+                        "chunked polish); exit 3 when it is zero")
     p.add_argument("--device", action="store_true",
                    help="the device track: busy share, launches per "
                         "kernel and host gaps by enclosing span")
@@ -678,6 +747,25 @@ def main(argv=None) -> int:
         return 3 if regressions else 0
 
     doc = docs[0]
+    if args.overlap:
+        if ":" not in args.overlap:
+            print("[obs] --overlap expects NAME_A:NAME_B", file=sys.stderr)
+            return 2
+        name_a, name_b = args.overlap.split(":", 1)
+        ov_us = overlap_us(doc, name_a, name_b)
+        n_a = len(span_intervals(doc, name_a))
+        n_b = len(span_intervals(doc, name_b))
+        if args.as_json:
+            print(json.dumps({"a": name_a, "b": name_b, "spans_a": n_a,
+                              "spans_b": n_b, "overlap_us": ov_us}))
+        elif ov_us > 0:
+            print(f"[obs] OK: {name_a} ({n_a} spans) and {name_b} "
+                  f"({n_b} spans) overlap for {ov_us / 1e3:.2f} ms")
+        else:
+            print(f"[obs] NO OVERLAP: {name_a} ({n_a} spans) and "
+                  f"{name_b} ({n_b} spans) never ran concurrently",
+                  file=sys.stderr)
+        return 0 if ov_us > 0 else 3
     if args.validate:
         dropped = dropped_events(doc)
         if args.as_json:

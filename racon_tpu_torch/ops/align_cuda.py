@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..obs import costmodel
 from ..parallel.partitioner import get_partitioner
 from ..resilience import faults
 from ..resilience.watchdog import call_with_watchdog
@@ -85,7 +86,7 @@ SCRATCH_BUDGET = 512 << 20   # bytes of base-case moves scratch a launch
 def band_for(n: int, m: int, band_hint: int = 0) -> int:
     """Band bucket: 10% of the larger side plus the diagonal drift; 0 when
     no bucket is wide enough (the host aligns the pair)."""
-    need = max(band_hint, abs(m - n) + max(n, m) // 10 + 2)
+    need = max(band_hint, costmodel.band_need(n, m))
     for b in BANDS:
         if need <= b:
             return b
@@ -644,6 +645,20 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
             for job in group:
                 qa, ta = pipeline.align_job(job)
                 pairs[job] = (encode(qa), encode(ta))
+            if obs.enabled():
+                # the cost model's cells (obs/costmodel.py): forward and
+                # backward passes over the recursion tree, about twice
+                # the max(n, m) x flat band DP; align.cells.banded is what
+                # the banded plan iterates
+                dims = {job: (int(lengths[job, 0]), int(lengths[job, 1]))
+                        for job in group}
+                obs.count("align.cells.hirschberg", sum(
+                    2 * max(n, m) * band_for(n, m)
+                    for n, m in dims.values()))
+                banded = sum(2 * max(dims[j]) * states[j].k
+                             for j in group if j in states)
+                if banded:
+                    obs.count("align.cells.banded", banded)
             todo = group
             rnd = 0
             while todo:
@@ -672,6 +687,9 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
                         n, m = int(lengths[job, 0]), int(lengths[job, 1])
                         states[job].widen(n, m, band_for(n, m), stats,
                                           band_max_widenings, band_slack)
+                        if states[job].k is not None and obs.enabled():
+                            obs.count("align.cells.banded",
+                                      2 * max(n, m) * states[job].k)
                         retry.append(job)
                         continue
                     if ops is None:

@@ -13,7 +13,10 @@ from __future__ import annotations
 
 import time
 
+import numpy as np
+
 from .. import obs
+from ..obs import costmodel
 from ..resilience.journal import CigarTap, replay_cigars
 from . import align_cuda
 from . import band as _band
@@ -43,6 +46,13 @@ def run_alignment_phase(pipeline, *, device="cuda", band: bool = False,
     t0 = time.perf_counter()
     if n:
         lengths = pipeline.align_job_lengths()
+        if obs.enabled() and len(lengths):
+            # the cost model's need-band cells over ALL phase-1 jobs, the
+            # host's share included: max(n, m) rows x the 10%-rule band
+            L = np.asarray(lengths, dtype=np.int64)[:n]
+            need = costmodel.band_need(L[:, 0], L[:, 1])
+            obs.count("align.cells.total",
+                      int((L.max(axis=1) * need).sum()))
         jobs = [i for i in range(n) if i not in replayed
                 and align_cuda.band_for(int(lengths[i, 0]),
                                         int(lengths[i, 1])) > 0]

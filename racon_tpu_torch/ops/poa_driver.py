@@ -337,6 +337,11 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     for key, bucket_jobs in sorted(buckets.items()):
         cfg = cfgs[key]
         obs.count(f"poa.windows.d{key[0]}.c{key[1]}", len(bucket_jobs))
+        # the cost model's cells (obs/costmodel.py): the admitted depth
+        # times the class, summed over the bucket's windows (the rank
+        # steps at graph growth 1; padding layers are not DP work)
+        obs.count(f"poa.cells.d{key[0]}.c{key[1]}",
+                  sum(d for _, d, _ in bucket_jobs) * key[1])
         # the bucket's span covers its submissions; with batches in
         # flight, a batch of one bucket may resolve in the next one's
         with obs.span("poa.bucket", depth=key[0], wl_class=key[1],
@@ -407,9 +412,10 @@ class _ConsensusOps:
                               self.stats)
         if self.band:
             for i, wx, keep in chunk:
-                self.states[i] = _band.BandState(
+                st = self.states[i] = _band.BandState(
                     initial_poa_band(wx, keep, cfg, self.band_slack))
-                self.stats["band"]["jobs"] += bool(self.states[i].k)
+                self.stats["band"]["jobs"] += bool(st.k)
+                _count_banded_cells(st, keep)
         return chunk
 
     def pack(self, cfg, chunk):
@@ -472,6 +478,14 @@ class _ConsensusOps:
     def done(self, cfg, chunk):
         for i, _, _ in chunk:
             self.states.pop(i, None)
+
+
+def _count_banded_cells(st, keep) -> None:
+    """``poa.cells.banded``: the cells of a banded window's next run, its
+    layers times its band's 2k + 1 columns, counted where its band is set
+    or widened (not where it runs flat), as the JAX driver counts them."""
+    if st.k and obs.enabled():
+        obs.count("poa.cells.banded", len(keep) * (2 * st.k + 1))
 
 
 def _export_chunk(pipeline, idxs, cfg, fallback, stats):
@@ -567,6 +581,7 @@ def _install(pipeline, chunk, results, trim, stats, fallback, states=None,
         if st is not None and st.k:
             if force_hit or results[4][bi] or failed[bi]:
                 st.widen_width(band_cap, stats["band"], max_widenings)
+                _count_banded_cells(st, keep)
                 retry.append((i, wx, keep))
                 continue
         if failed[bi]:

@@ -37,12 +37,15 @@ def mutate(rng: np.random.Generator, seq: np.ndarray, rate: float):
 
 
 def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
-              rate: float = 0.1, layers=None, shortest=None):
+              rate: float = 0.1, layers=None, shortest=None,
+              n_rate: float = 0.0):
     """B windows of about `window` bases (from `shortest`, else 4/5 of
     it) with 2..cfg.depth layers each, or `layers` = (lo, hi) layers,
     lo..hi inclusive (one partial-span layer where there are three or
     more), per-base weights, and backbone weights: the nine numpy arrays
-    ``poa.batch_to_tensors`` takes, as a tuple with a trailing None."""
+    ``poa.batch_to_tensors`` takes, as a tuple with a trailing None.
+    With `n_rate`, each backbone and layer base becomes an N (code 4) at
+    that rate, from a stream of its own (``with_n``)."""
     rng = np.random.default_rng(seed)
     D, ML, MB = cfg.depth, cfg.max_len, cfg.max_backbone
     bb = np.zeros((B, MB), np.uint8)
@@ -77,7 +80,19 @@ def poa_batch(cfg: PoaConfig, B: int, seed: int, window: int,
             ws[b, li, :len(lay)] = rng.integers(1, 60, len(lay))
             lens[b, li] = len(lay)
             begins[b, li], ends[b, li] = beg, end
+    if n_rate:
+        with_n((bb, bb_len), (seqs, lens), seed=seed, rate=n_rate)
     return (bb, bbw, bb_len, n_layers, seqs, ws, lens, begins, ends, None)
+
+
+def with_n(*pairs, seed: int, rate: float) -> None:
+    """Sets each code of the (codes, lengths) pairs that lies within its
+    row's length to 4 (N) at `rate`, in place, from a numpy stream of its
+    own (seed [seed, 4]), so the batch's other draws do not move."""
+    rng = np.random.default_rng([seed, 4])
+    for codes, n in pairs:
+        inside = np.arange(codes.shape[-1]) < np.asarray(n)[..., None]
+        codes[inside & (rng.random(codes.shape) < rate)] = 4
 
 
 #: wide_id_batch's backbone length and layer span.

@@ -765,11 +765,13 @@ def test_edge_kernel_occupancy(card, K):
         assert occ["local_bytes"] >= 0
 
 
-def _base_tasks(K, B, seed):
+def _base_tasks(K, B, seed, n_rate=0.0):
     """B base tasks at band K: full 256-row tasks with S up to 256 + K,
     tasks of random size near the band's middle, tasks whose path leaves
     the band, R = 1 / S = 0, and a padding task last (R = 1, S = 0,
-    dmin = 0). The target is the query with 10% of its codes changed."""
+    dmin = 0). The target is the query with 10% of its codes changed.
+    With `n_rate`, query and target codes within R and S become N (code
+    4) at that rate (batches.with_n: the other draws do not move)."""
     rng = np.random.default_rng(seed)
     RB = ac.BASE_ROWS
     scal = np.zeros((B, 4), np.int32)
@@ -797,6 +799,9 @@ def _base_tasks(K, B, seed):
         src[flip] = rng.integers(0, 4, int(flip.sum()))
         t[b, :S] = src
     scal[-1] = (1, 0, 0, 0)
+    if n_rate:
+        batches.with_n((q, scal[:, 0]), (t, scal[:, 1]), seed=seed,
+                       rate=n_rate)
     return scal, q, t
 
 
@@ -821,6 +826,42 @@ def test_base_kernel_equals_plain(card, K, seed):
     ok = want[2].numpy()
     assert ok.any() and not ok.all()        # paths in and out of band
     assert (scal[:, 0] == ac.BASE_ROWS).any()
+
+
+@pytest.mark.parametrize("K", [128, 2048])
+def test_base_kernel_equals_plain_with_n_bases(card, K):
+    """Query and target codes 4 (N) at 5%, at the narrowest and the
+    widest band."""
+    scal, q, t = _base_tasks(K, 41, 3 * K, n_rate=0.05)
+    assert (q == 4).any() and (t == 4).any()
+    want = _assert_base_equal(card, scal, q, t, K)
+    assert want[2].numpy().any()
+
+
+@pytest.mark.parametrize("kernel", ["ls", "v2"])
+@pytest.mark.parametrize("band", [False, True], ids=["flat", "band"])
+def test_poa_kernels_equal_plain_with_n_bases(card, kernel, band):
+    """Backbone and layer codes 4 (N) at 5% on mutated -w 500 windows of
+    2..32 layers, through each POA kernel's flat build and its banded
+    build (half bands from 0 to 100, some that hit)."""
+    cfg = poa_driver.make_config(500, 32, 5, -4, -8)
+    packed = batches.poa_batch(cfg, 8, 41, 500, n_rate=0.05)
+    assert (packed[0] == 4).any() and (packed[4] == 4).any()
+    if band:
+        _assert_band_build_equal(card, cfg, packed,
+                                 [0, 1, 3, 6, 12, 24, 48, 100], kernel)
+        return
+    fn = poa_driver.kernel_for(kernel)
+    want = fn(cfg, *poa.batch_to_tensors(packed, "cpu"))
+    name = fn.__name__
+    n0 = cuda_lib.LAUNCHES[name]
+    got = fn(cfg, *poa.batch_to_tensors(packed, card))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES[name] == n0 + 1
+    for k, (w, g) in enumerate(zip(want, got)):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(),
+                                      err_msg=f"output {k}")
+    assert not want[3].all()
 
 
 def test_base_kernel_equals_plain_across_waves(card):
