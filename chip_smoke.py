@@ -213,6 +213,16 @@ smoke started):
   racon_tpu_torch.tools.wrapper --split <bytes>`` (one contig a chunk)
   on the card, sequentially and with --jobs 2: the same four contigs,
   byte for byte;
+* analysis_plans, analysis_occupancy, analysis (after the parity
+  phases): ``python -m racon_tpu_torch.analysis --plans`` (the lint, the
+  CUDA-source audit, and the launch-plan audit over every window class up
+  to the card's largest at each depth bucket; no violation) and each
+  build's resources; the parity set polished unarmed and with the runtime
+  sanitizer armed (parity 1 and 8), in turns, and armed under each of
+  sanitize.nan and sanitize.stats: the parity phase's bytes every time, no
+  finding where no fault is injected (an unarmed report has no sanitize
+  section) and only the fault's kind where one is, --sanitize-report exit
+  0 and 1 (analysis_phase);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -1938,6 +1948,120 @@ def host_phase(racon_tpu_torch, native, d, gpu, procs):
             f"distance ({ed[0]} -> {ed[1]})")
 
 
+def armed_polish(racon_tpu_torch, d, kernel, tmp, name, fault=None,
+                 **kw):
+    """One polish of `d` on the card with `kw` (MAIN's with `kernel`), its
+    report written to tmp/<name>.json and, where `fault` is given, under
+    that RACON_TORCH_FAULT spec (faults.configure). Returns (FASTA
+    records, wall seconds, the report's sanitize section, report path,
+    the run's kernel.builds counters)."""
+    from racon_tpu_torch.analysis import build_audit
+    from racon_tpu_torch.resilience import faults
+
+    path = os.path.join(tmp, f"{name}.json")
+    faults.configure(fault)
+    try:
+        p = racon_tpu_torch.TorchPolisher(
+            d["reads"], d["overlaps"], d["draft"], device="cuda",
+            poa_kernel=kernel, trace_path=os.path.join(tmp, f"{name}.trace"),
+            **MAIN, **kw)
+        t0 = time.perf_counter()
+        p.initialize()
+        out = p.polish(True)
+        wall = time.perf_counter() - t0
+    finally:
+        faults.configure(None)
+    p.report.write(path)
+    from racon_tpu_torch import obs
+
+    builds = build_audit.build_counts(obs.snapshot())
+    with open(path) as f:
+        section = json.load(f).get("sanitize")
+    return out, wall, section, path, builds
+
+
+def analysis_phase(torch, racon_tpu_torch, d, kernel, gpu, tmp):
+    """The analysis layer on the card. analysis_plans: ``python -m
+    racon_tpu_torch.analysis --plans --json`` (the lint, the CUDA-source
+    audit and the launch-plan audit over every window class up to the
+    card's largest at each depth bucket, both POA kernels flat and
+    banded): no violation; the line gives the grid, the variants against
+    their cap, the largest shared bytes against the card's limit and its
+    seconds, and an analysis_occupancy line each build's registers,
+    spills and blocks per SM. analysis: the parity set `d` polished with
+    `kernel` unarmed, armed at sanitize_parity 1 and at the default,
+    unarmed again (the walls in turns), then armed under
+    RACON_TORCH_FAULT=sanitize.nan and =sanitize.stats. Every run gives
+    the parity phase's card bytes `gpu`; the armed runs no finding, the
+    fault runs only findings of their kind (nonfinite; racy-stats, one a
+    guarded phase); --sanitize-report exits 0 on the clean report and 1
+    on a fault run's. No polish here builds or loads a kernel
+    (kernel.builds.* 0: the smoke loaded them all)."""
+    from racon_tpu_torch.analysis.__main__ import main as analysis_main
+
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()   # the audit sizes from the card's free memory
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (ROOT, os.environ.get("PYTHONPATH")) if p))
+    r = subprocess.run([sys.executable, "-m", "racon_tpu_torch.analysis",
+                        "--plans", "--json"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    require(r.returncode == 0, f"analysis --plans exited {r.returncode}: "
+            f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    doc = json.loads(r.stdout)
+    plans = doc["plans"]
+    require(doc["new"] == [] and plans["violations"] == 0,
+            f"analysis --plans: {doc['new']}")
+    emit({"phase": "analysis_plans", "wall_s": time.perf_counter() - t0,
+          **{k: v for k, v in plans.items() if k != "occupancy"},
+          "lint_and_source_violations": doc["total"]})
+    emit({"phase": "analysis_occupancy", "builds": plans["occupancy"]})
+
+    runs = {}
+    for name, kw in (("unarmed", {}),
+                     ("armed_p1", dict(sanitize=True, sanitize_parity=1)),
+                     ("armed_p8", dict(sanitize=True)),
+                     ("unarmed_2", {})):
+        runs[name] = armed_polish(racon_tpu_torch, d, kernel, tmp, name,
+                                  **kw)
+    for name, (out, _, section, _, builds) in runs.items():
+        require(out == gpu, f"the {name} polish differs from the parity "
+                "phase's card bytes")
+        want = ({"armed": True, "findings": []} if name.startswith("armed")
+                else None)
+        require(section == want, f"the {name} report's sanitize section "
+                f"is {section}, not {want}")
+        require(not any(builds.values()), f"the {name} polish built or "
+                f"loaded kernels: {builds}")
+    faulted = {}
+    for point, kind in (("sanitize.nan", "nonfinite"),
+                        ("sanitize.stats", "racy-stats")):
+        out, wall, section, path, _ = armed_polish(
+            racon_tpu_torch, d, kernel, tmp, point, fault=point,
+            sanitize=True, sanitize_parity=1)
+        kinds = sorted({f["kind"] for f in section["findings"]})
+        require(out == gpu, f"the polish under {point} changed the bytes")
+        require(kinds == [kind], f"the polish under {point} found {kinds}")
+        faulted[point] = {"wall_s": wall,
+                          "findings": [(f["kind"], f["where"], f["count"])
+                                       for f in section["findings"]],
+                          "report": path}
+    rcs = {"clean": analysis_main(["--sanitize-report",
+                                   runs["armed_p1"][3]]),
+           "faulted": analysis_main(["--sanitize-report",
+                                     faulted["sanitize.nan"]["report"]])}
+    require(rcs == {"clean": 0, "faulted": 1},
+            f"--sanitize-report exit codes {rcs}")
+    emit({"phase": "analysis", "mbp": PARITY_MBP, "poa_kernel": kernel,
+          "identical": True,
+          "wall_s": {k: v[1] for k, v in runs.items()},
+          "faults": {k: {"wall_s": v["wall_s"], "findings": v["findings"]}
+                     for k, v in faulted.items()},
+          "sanitize_report_rc": rcs,
+          "phase_s": time.perf_counter() - t0})
+
+
 def start_global(torch, rec, procs, ex):
     """Both POA kernels' flat global builds on the ls -w 3000 run's
     largest global launch of each depth bucket, every window held against
@@ -2886,6 +3010,9 @@ def main() -> int:
                        "consensus": lbstats["consensus"]["band"]},
               "align_device": lbstats["align"]["device"],
               "windows_device": lbstats["consensus"]["device"]})
+        # analysis: the plan audit, and the armed polish of the parity
+        # set against its card bytes
+        analysis_phase(torch, racon_tpu_torch, d_par, first, gpu, tmp)
         # host: the host backend on the parity set
         host_phase(racon_tpu_torch, native, d_par, gpu, procs)
         # the fleet: the chunked cell through worker processes that share

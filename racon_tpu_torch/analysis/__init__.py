@@ -1,0 +1,34 @@
+"""The port's analysis layer, part 1: the runtime sanitizer, the AST
+lint, and the build audit; one CLI, ``python -m racon_tpu_torch.analysis``.
+
+The counterpart of the JAX package's ``racon_tpu/analysis``:
+
+* **runtime sanitizer** (`sanitize.py`): checks at the partitioner's
+  gather and the drivers' install seams, a sampled host recompute, and
+  stats-dict guards; armed by arguments (``TorchPolisher(sanitize=True,
+  sanitize_parity=N)``, ``--sanitize``), read back with
+  ``--sanitize-report``;
+* **AST lint** (`lint.py` and `rules/`): the port's five rules
+  (``env-registry``, ``knob-docs``, ``fault-point``, ``device-except``,
+  ``wall-clock``) over ``racon_tpu_torch/`` and ``chip_smoke.py``;
+* **build audit** (`build_audit.py`), in place of the jaxpr audit: the
+  CUDA-source audit on the CPU, and on the card (``--plans``) the
+  launch-plan audit over the driver's whole window-class grid.
+
+Part 2 adds the concurrency auditor and its contracts (with the
+``thread-discipline`` rule), the protocol model checker and the
+determinism taint audit.
+
+Suppression: append ``# lint: disable=<rule-id>`` to the flagged line,
+or record accepted debt in a baseline file (``--write-baseline``): the
+CLI then fails only on new violations.
+
+Importing this package, running the lint, the source audit or
+``--sanitize-report`` imports no torch; only the plan audit and an armed
+polish do.
+"""
+
+from .lint import Violation, iter_source_files, run_lint  # noqa: F401
+from .build_audit import run_source_audit  # noqa: F401
+
+__all__ = ["Violation", "iter_source_files", "run_lint", "run_source_audit"]

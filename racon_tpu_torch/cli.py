@@ -21,6 +21,7 @@ import argparse
 import sys
 
 from . import __version__
+from .analysis.sanitize import DEFAULT_PARITY
 from .native import NativeError
 from .ops import band as _band
 from .ops.batch_exec import DEFAULT_DEPTH
@@ -124,6 +125,18 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--report", metavar="PATH", default=None,
                    help="write a JSON run report (served counts by tier for "
                    "each phase, wall seconds, the armed fault spec) to PATH")
+    p.add_argument("--sanitize", action="store_true",
+                   help="arm the runtime sanitizer (not with --host): "
+                   "check each launch's "
+                   "outputs and each install seam, recompute sampled "
+                   "windows on the host, guard the stats dicts (same "
+                   "output); read its findings from --report with `python "
+                   "-m racon_tpu_torch.analysis --sanitize-report PATH`")
+    p.add_argument("--sanitize-parity", type=int, metavar="N",
+                   default=DEFAULT_PARITY,
+                   help="with --sanitize, recompute every Nth window the "
+                   f"card served on the host (default {DEFAULT_PARITY}; 0: "
+                   "none)")
     p.add_argument("--trace", metavar="PATH", default=None,
                    help="write a Chrome-trace JSON timeline of the run "
                    "(phase spans, align cohorts, POA buckets and batches, "
@@ -173,6 +186,16 @@ def main(argv=None) -> int:
     run = dict(journal_path=args.resume_journal or args.journal,
                resume_journal=args.resume_journal is not None,
                trace_path=args.trace)
+    if args.sanitize_parity < 0:
+        print(f"--sanitize-parity must be >= 0, got {args.sanitize_parity}",
+              file=sys.stderr)
+        return 1
+    if args.sanitize and args.host:
+        print("--sanitize needs the card's path: --host passes no seam the "
+              "sanitizer checks", file=sys.stderr)
+        return 1
+    armed = dict(sanitize=args.sanitize,
+                 sanitize_parity=args.sanitize_parity)
     card = dict(device=args.device, poa_kernel=args.poa_kernel,
                 band=args.band, band_slack=args.band_slack,
                 band_max_widenings=args.band_max_widenings,
@@ -196,7 +219,8 @@ def main(argv=None) -> int:
                                        **racon)
         else:
             polisher = create_polisher(args.sequences, args.overlaps,
-                                       args.targets, **card, **run, **racon)
+                                       args.targets, **card, **run, **armed,
+                                       **racon)
         polisher.initialize()
         for name, data in polisher.polish(not args.include_unpolished):
             sys.stdout.write(f">{name}\n{data}\n")

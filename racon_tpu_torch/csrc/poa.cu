@@ -1346,6 +1346,28 @@ int rt_poa_plan(int N, int ML, int E, int band, int* out) {
   return (int)err;
 }
 
+// The dynamic shared bytes of this kernel's layout at (N, ML, E) with a
+// ring of `ring` rows and the in-edge sources in the global scratch where
+// gsrc, the same for the flat and the banded build (band): what plan
+// holds against the card's limit, for the plan audit
+// (racon_tpu_torch/analysis/build_audit.py).
+long long rt_poa_layout_bytes(int N, int ML, int E, int band, int ring,
+                              int gsrc) {
+  (void)band;
+  return (long long)shared_bytes(N, ML, edge_stride(E), ring, gsrc != 0);
+}
+
+// The card's opt-in shared memory a block, the limit plan fits a layout
+// into: out[0].
+int rt_poa_shared_limit(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        out, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
 // One block per window. Inputs: bb u8[B,MB], bbw i32[B,MB], bb_len i32[B],
 // n_layers i32[B], seqs u8[B,D,ML], ws i32[B,D,ML], lens/begins/ends
 // i32[B,D], and wband i32[B] or null: each window's half band (the banded

@@ -1378,6 +1378,17 @@ int rt_poa_v2_plan(int N, int ML, int E, int band, int* out) {
   return (int)err;
 }
 
+// The dynamic shared bytes of the flat or (band) the banded build's layout
+// at (N, ML, E) with a ring of `ring` rows and the in-edge sources in the
+// global scratch where gsrc: what plan holds against the card's limit, for
+// the plan audit (racon_tpu_torch/analysis/build_audit.py).
+long long rt_poa_v2_layout_bytes(int N, int ML, int E, int band, int ring,
+                                 int gsrc) {
+  const int ES = edge_stride(E);
+  return (long long)(band ? shared_bytes<true>(N, ML, ES, ring, gsrc != 0)
+                          : shared_bytes<false>(N, ML, ES, ring, gsrc != 0));
+}
+
 // One block per window. Inputs as rt_poa_launch (csrc/poa.cu), and wband
 // i32[B] or null: each window's half band (the banded build; null runs the
 // flat build); colstep pairs same-column ranks per serial step (the flat

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis import sanitize
 from ..obs import costmodel
 from ..parallel.partitioner import get_partitioner
 from ..resilience import faults
@@ -534,7 +535,8 @@ def _split_round(pairs, tasks, bands, failed, part, verify, timeout_s):
             _task_arrays(pairs, b_tasks, bands, rcap, K, True))
         F, Bv = part.gather(
             fwd, bwd, timeout_s=timeout_s,
-            what=f"the edge kernel's round at K={K}, {len(group)} tasks")
+            what=f"the edge kernel's round at K={K}, {len(group)} tasks",
+            name="align.edge")
         for gi, t in enumerate(group):
             imid = (t.ia + t.ib) // 2
             K_, gdmin = bands[t.pair]
@@ -587,7 +589,8 @@ def _solve_base(pairs, tasks, bands, segments, failed, partitioner, verify,
                 partitioner.stripe(
                     lambda s, q, t, K=K: base_case(s, q, t, K),
                     (scal, qs, ts)),
-                timeout_s=timeout_s, what=f"the base case at K={K}, {B} tasks")
+                timeout_s=timeout_s, what=f"the base case at K={K}, {B} tasks",
+                name="align.base")
             for bi, t in enumerate(part):
                 if not ok[bi] or not _root_certified(t, verify,
                                                      int(dist[bi])):
@@ -620,7 +623,10 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
     the ``align.run`` fault point (under the watchdog, as the waits for
     the card are: `timeout_s`); a banded round checks ``band.hit``, whose
     injected fault makes every banded job of the round a hit.
-    `partitioner` stripes the kernels' launches (module note)."""
+    `partitioner` stripes the kernels' launches (module note). With the
+    runtime sanitizer armed (analysis/sanitize.py), each round's served
+    op arrays are checked before they become CIGARs; `stats` is the
+    caller's, which the alignment driver guards."""
     if stats is None:
         stats = _band.new_stats()
     states = {}          # job -> band.BandState of a banded job
@@ -681,7 +687,7 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
                         except faults.InjectedFault:
                             hits.update(overrides)
                 rnd += 1
-                retry = []
+                retry, installs = [], []
                 for bi, (job, ops) in enumerate(zip(todo, res)):
                     if bi in hits:
                         n, m = int(lengths[job, 0]), int(lengths[job, 1])
@@ -692,9 +698,18 @@ def run_jobs(pipeline, jobs, lengths, *, device="cuda", band: bool = False,
                                       2 * max(n, m) * states[job].k)
                         retry.append(job)
                         continue
-                    if ops is None:
-                        continue
+                    if ops is not None:
+                        installs.append((job, ops))
+                if installs and sanitize.enabled():
+                    top = max((int(ops.max()) for _, ops in installs
+                               if len(ops)), default=0)
+                    if top > 2:
+                        sanitize.record("cigar-op-range",
+                                        "align_cuda.run_jobs",
+                                        f"op code {top} > 2 on a served row")
+                for job, ops in installs:
                     pipeline.set_job_cigar(job, ops_to_cigar(ops))
                     served += 1
                 todo = retry
     return served
+

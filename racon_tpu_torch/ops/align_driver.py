@@ -16,6 +16,7 @@ import time
 import numpy as np
 
 from .. import obs
+from ..analysis import sanitize
 from ..obs import costmodel
 from ..resilience.journal import CigarTap, replay_cigars
 from . import align_cuda
@@ -41,7 +42,9 @@ def run_alignment_phase(pipeline, *, device="cuda", band: bool = False,
     launches over its devices (ops/align_cuda.py)."""
     n = pipeline.num_align_jobs()
     served = 0
-    counts = _band.new_stats()
+    # the ladder's counts, written by align_cuda.run_jobs on this thread;
+    # with the sanitizer armed, a write from another thread is a finding
+    counts = sanitize.guard_stats(_band.new_stats(), "align_cuda.run_jobs")
     replayed = replay_cigars(pipeline, journal, n, report)
     t0 = time.perf_counter()
     if n:

@@ -82,6 +82,10 @@ def _lib():
         lib.rt_poa_launch.argtypes = [ci] * 8 + [vp] * 19 + [ci, vp]
         lib.rt_poa_plan.restype = ci
         lib.rt_poa_plan.argtypes = [ci, ci, ci, ci, vp]
+        lib.rt_poa_layout_bytes.restype = ctypes.c_longlong
+        lib.rt_poa_layout_bytes.argtypes = [ci] * 6
+        lib.rt_poa_shared_limit.restype = ci
+        lib.rt_poa_shared_limit.argtypes = [vp]
         _LIB = lib
     return _LIB
 
@@ -117,6 +121,24 @@ def plan(cfg: PoaConfig, band: bool = False) -> dict:
     build's. Raises ValueError beyond the kernel's limits (needs the
     card)."""
     return plan_with(_lib().rt_poa_plan, cfg, band, "POA kernel")
+
+
+def layout_bytes(cfg: PoaConfig, band: bool, ring: int, gsrc: bool) -> int:
+    """The dynamic shared bytes of the kernel's layout at cfg's geometry
+    with a ring of `ring` rows and the in-edge sources in the global
+    scratch where `gsrc`, as ``plan`` holds it against the card's limit
+    (the banded build's is the flat build's; needs the card)."""
+    return int(_lib().rt_poa_layout_bytes(cfg.max_nodes, cfg.max_len,
+                                          cfg.max_edges, int(band), ring,
+                                          int(gsrc)))
+
+
+def shared_limit() -> int:
+    """The card's opt-in shared memory a block: the limit ``plan`` fits a
+    layout into (needs the card)."""
+    out = (ctypes.c_int * 1)()
+    cuda_lib.check(_lib().rt_poa_shared_limit(out), "shared memory limit")
+    return int(out[0])
 
 
 def wide_ids(cfg: PoaConfig, global_build: bool) -> bool:

@@ -3,7 +3,7 @@ a POA kernel, trims and installs the results, and re-polishes on the
 host every window the kernel flags ``failed``.
 
 A copy of the JAX package's driver (racon_tpu/ops/poa_driver.py) reduced
-to one path: no sanitizer and no lattice. The kernel is an
+to one path: no lattice. The kernel is an
 argument, ``poa_kernel``: "ls" (ops/poa_cuda.py, the
 default, as in the JAX package, and faster than v2 on every depth bucket
 on the card) or "v2" (ops/poa_v2_cuda.py); both compute one function,
@@ -63,6 +63,17 @@ windows ("backbone"), all on this thread. The run point
 ``poa.run.<kernel>`` is checked for each batch where the host waits for
 it, under the watchdog (``device_timeout_s``), so a ``hang=`` fault is a
 card that does not answer; a ``raise`` there ends the polish.
+
+With the runtime sanitizer armed (analysis/sanitize.py; the polisher's
+``sanitize``), the install seam checks each chunk's outputs before it
+installs any of them, and every ``sanitize_parity``-th window the card
+serves (counted by ``stats["device"]``) whose every layer was admitted is
+recomputed on the host (``pipeline.consensus_cpu_one``) and its bytes
+compared with the card's, trimmed, before the card's are installed over
+them: a mismatch is a finding, never a host install or a host fallback,
+and the recompute is neither journaled nor counted as served. A banded
+window that widens is checked where it is finally installed. The phase's
+stats dict is guarded against writes from other threads.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis import sanitize
 from ..parallel.partitioner import get_partitioner
 from ..resilience import faults
 from ..resilience.journal import replay_windows
@@ -94,6 +106,15 @@ DEFAULT_POA_KERNEL = "ls"
 #: tensors and whatever else runs on the card (in a pipelined polish, the
 #: alignment of the next chunk).
 MEMORY_MARGIN = (1 << 30, 0.1)
+#: The most distinct (build, plan) variants, over both POA kernels flat
+#: and banded, that the window classes 128 .. the card's largest and the
+#: DEPTH_BUCKETS may reach: the plan audit's cap
+#: (analysis/build_audit.py), the counterpart of the JAX package's
+#: POA_RECOMPILE_BUDGET. A variant is a launch name (kernel, band, global
+#: build, int32 ids), the wide build or not, the ring's rows and where the
+#: in-edge sources live. An NVIDIA H100 80GB HBM3 (232,448 shared bytes a
+#: block) reaches 29 over classes 128 .. 57,600.
+POA_BUILD_VARIANTS = 29
 
 
 def window_class(bb_len: int) -> int:
@@ -288,8 +309,10 @@ def run_consensus_phase(pipeline, *, match: int, mismatch: int, gap: int,
     device = torch.device(device)
     kernel_for(poa_kernel)
     n = pipeline.num_windows()
-    stats = {"device": 0, "host_fallback": 0, "backbone": 0, "failed": 0,
-             "layers_dropped": 0, "batches": 0, "band": _band.new_stats()}
+    stats = sanitize.guard_stats(
+        {"device": 0, "host_fallback": 0, "backbone": 0, "failed": 0,
+         "layers_dropped": 0, "batches": 0, "band": _band.new_stats()},
+        "poa_driver.run_consensus_phase")
     fallback: List[int] = []
     replayed = replay_windows(pipeline, journal, n, report)
 
@@ -450,7 +473,8 @@ class _ConsensusOps:
         return self.part.gather(
             run, timeout_s=self.timeout_s,
             what=f"the {self.kernel_name} POA batch of {len(idxs)} windows",
-            before=lambda: faults.check(point, idxs))
+            before=lambda: faults.check(point, idxs),
+            name=f"poa.{self.kernel_name}")
 
     def attempt(self, cfg, packed, chunk):
         return self.unpack(cfg, self.dispatch(cfg, packed, chunk))
@@ -573,8 +597,15 @@ def _install(pipeline, chunk, results, trim, stats, fallback, states=None,
     With band `states`, a window run under a band that hit or failed
     (or every banded window, with `force_hit`) widens instead; returns
     those windows, to be re-run. Each installed window, and only those,
-    is journaled under `tier`."""
+    is journaled under `tier`. With the sanitizer armed, the chunk's
+    outputs are checked first and sampled windows are recomputed on the
+    host before the card's bytes are installed (module note)."""
     cons_base, cons_cov, cons_len, failed = results[:4]
+    where = f"poa._install[{tier}]"
+    sanitizing = sanitize.enabled()
+    if sanitizing:
+        sanitize.check_consensus_outputs(results[:4],
+                                         [i for i, _, _ in chunk], where)
     retry = []
     for bi, (i, wx, keep) in enumerate(chunk):
         st = states.get(i) if states else None
@@ -596,6 +627,13 @@ def _install(pipeline, chunk, results, trim, stats, fallback, states=None,
             # added to its batch (src/cuda/cudabatch.cpp:139-163,233)
             codes = tgs_trim(codes, cons_cov[bi, :cl], len(keep) + 1)
         payload = decode(codes)
+        if sanitizing and sanitize.parity_due(stats["device"]) and \
+                len(keep) + 1 == pipeline.window_info(i)[0]:
+            # the host's trim counts every sequence, the card's the
+            # admitted ones: they agree where every layer was admitted
+            pipeline.consensus_cpu_one(i)
+            sanitize.check_parity(payload, pipeline.get_consensus(i), i,
+                                  where)
         pipeline.set_consensus(i, payload, True)
         if journal is not None:
             journal.append_window(i, wx.target_id, wx.rank, tier, payload,

@@ -76,6 +76,8 @@ def _lib():
         lib.rt_poa_v2_launch.argtypes = [ci] * 9 + [vp] * 20 + [ci, vp]
         lib.rt_poa_v2_plan.restype = ci
         lib.rt_poa_v2_plan.argtypes = [ci, ci, ci, ci, vp]
+        lib.rt_poa_v2_layout_bytes.restype = ctypes.c_longlong
+        lib.rt_poa_v2_layout_bytes.argtypes = [ci] * 6
         _LIB = lib
     return _LIB
 
@@ -97,6 +99,16 @@ def plan(cfg: PoaConfig, band: bool = False) -> dict:
     fits, so that the global build runs ("global_build"). Raises
     ValueError beyond the kernel's limits (needs the card)."""
     return plan_with(_lib().rt_poa_v2_plan, cfg, band, "v2 POA kernel")
+
+
+def layout_bytes(cfg: PoaConfig, band: bool, ring: int, gsrc: bool) -> int:
+    """The dynamic shared bytes of the flat or (`band`) the banded build's
+    layout at cfg's geometry with a ring of `ring` rows and the in-edge
+    sources in the global scratch where `gsrc`, as ``plan`` holds it
+    against the card's limit (needs the card)."""
+    return int(_lib().rt_poa_v2_layout_bytes(cfg.max_nodes, cfg.max_len,
+                                             cfg.max_edges, int(band), ring,
+                                             int(gsrc)))
 
 
 def poa_consensus_v2(cfg: PoaConfig, bb, bbw, bb_len, n_layers, seqs, ws,

@@ -25,7 +25,12 @@ one program, its rows placed by XLA, padded to equal shards. Here a
   pipelined polish launches from two threads);
 * ``gather`` waits on every stripe's event, under the watchdog
   (resilience/watchdog.py), and concatenates the outputs on the host in
-  stripe order.
+  stripe order. With the runtime sanitizer armed (analysis/sanitize.py)
+  it first checks each stripe's outputs, as numpy views of the host
+  copies it waited for: float outputs finite, one row a row launched.
+  Every launch of the polish passes here, so this is the port's
+  counterpart of the JAX package's checking proxy around each built
+  kernel (ops/kernel_cache.py), which the port does not have.
 
 Every launch of the polish path goes through ``stripe``, one device or
 many. A striped launch (m > 1) counts ``shard.chunks`` and each device
@@ -54,6 +59,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from ..analysis import sanitize
 from ..resilience.watchdog import wait_events
 from .mesh import device_mesh
 
@@ -61,12 +67,13 @@ from .mesh import device_mesh
 class StripeRun:
     """One striped launch in flight: per stripe, its outputs (pinned host
     tensors being filled on the card, or CPU tensors) and its event (None
-    on the CPU)."""
+    on the CPU); ``rows``, the rows each stripe launched."""
 
-    __slots__ = ("parts",)
+    __slots__ = ("parts", "rows")
 
-    def __init__(self, parts):
+    def __init__(self, parts, rows):
         self.parts = parts
+        self.rows = rows
 
     def events(self):
         return [ev for _, ev in self.parts if ev is not None]
@@ -141,7 +148,8 @@ class Partitioner:
             if any(d.type == "cuda" for d in self.devices[:m]):
                 streams = self._streams()
         parts = []
-        for i, (lo, hi) in enumerate(split_rows(rows, m)):
+        bounds = split_rows(rows, m)
+        for i, (lo, hi) in enumerate(bounds):
             dev = self.devices[i]
             if m > 1:
                 obs.count(f"shard.rows.d{i}", hi - lo)
@@ -166,17 +174,25 @@ class Partitioner:
                     ev = torch.cuda.Event()
                     ev.record(s)
             parts.append((tuple(host), ev))
-        return StripeRun(parts)
+        return StripeRun(parts, [hi - lo for lo, hi in bounds])
 
     @staticmethod
     def gather(*runs: StripeRun, timeout_s: float = 0.0,
-               what: str = "a striped launch", before=None) -> Tuple:
+               what: str = "a striped launch", before=None,
+               name: str = "launch") -> Tuple:
         """Wait for every stripe of `runs` (under the watchdog's deadline
         `timeout_s`, with `before`, a run point's fault check, inside the
         wait), then the outputs of each run in turn as numpy arrays,
-        concatenated in stripe order."""
+        concatenated in stripe order. With the sanitizer armed, each
+        stripe's outputs are checked first, findings under `name`."""
         wait_events([ev for run in runs for ev in run.events()], timeout_s,
                     what, before=before)
+        if sanitize.enabled():
+            for run in runs:
+                for (outs, _), rows in zip(run.parts, run.rows):
+                    sanitize.check_kernel_outputs(
+                        f"partitioner.gather[{name}]",
+                        [h.numpy() for h in outs], rows)
         return tuple(a for run in runs for a in run.outputs())
 
 

@@ -63,10 +63,19 @@ Both polishers take the JAX package's run-time surfaces as arguments
 * ``device_timeout_s`` (TorchPolisher; resilience/watchdog.py): the
   deadline on each wait for the card; 0 turns it off;
 * ``self.report`` (resilience/report.py): served counts by tier for each
-  phase, finalized by polish().
+  phase, finalized by polish();
+* ``sanitize`` with ``sanitize_parity`` (TorchPolisher and
+  create_polisher; the JAX package's ``RACON_TPU_SANITIZE`` and
+  ``RACON_TPU_SANITIZE_PARITY``): arms the runtime sanitizer
+  (analysis/sanitize.py) for the run. It checks each gathered launch,
+  each install seam, every N-th window against a host recompute, and the
+  drivers' stats dicts against writes from other threads; its findings
+  go to the report's ``sanitize`` section. The bytes are the unarmed
+  run's, in the chunked modes too. Daemon and fleet jobs run unarmed.
 
 Each constructor first resets the fault schedule (resilience/faults.py),
-the obs state and the device track's launch sink. An injected fault at a
+the obs state, the device track's launch sink and the sanitizer's arming
+and findings. An injected fault at a
 run point ends the polish with its error: nothing falls back to a plain
 version or to the host.
 """
@@ -85,6 +94,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from . import obs
+from .analysis import sanitize as _sanitize
 from .ops import band as _band
 from .ops.align_driver import run_alignment_phase
 from .ops.batch_exec import DEFAULT_DEPTH
@@ -180,14 +190,17 @@ def _note(msg: str) -> None:
     print(f"[racon_tpu_torch::polisher] {msg}", file=sys.stderr)
 
 
-def _reset_run_state(trace_path: Optional[str]) -> None:
+def _reset_run_state(trace_path: Optional[str], sanitize: bool = False,
+                     sanitize_parity: int = _sanitize.DEFAULT_PARITY) -> None:
     """Per-run reset of the process-wide state, first in each polisher
-    constructor: the fault schedule, the obs state and the device
-    track's sink start afresh (a caller's cuda_lib.LAUNCH_EVENTS list is
-    left as it is), then tracing is armed where a trace is asked for."""
+    constructor: the fault schedule, the obs state, the device track's
+    sink and the sanitizer's findings start afresh (a caller's
+    cuda_lib.LAUNCH_EVENTS list is left as it is), then tracing is armed
+    where a trace is asked for, and the sanitizer where `sanitize`."""
     faults.reset()
     obs.reset()
     obs.configure(trace_path=trace_path)
+    _sanitize.arm(sanitize, sanitize_parity)
 
 
 def _racon_params(racon_kwargs: dict) -> dict:
@@ -292,7 +305,8 @@ class TorchPolisher:
     ``device``.
 
     ``journal_path``, ``resume_journal``, ``journal_fsync``,
-    ``trace_path`` and ``device_timeout_s``: the module note."""
+    ``trace_path``, ``device_timeout_s``, ``sanitize`` and
+    ``sanitize_parity``: the module note."""
 
     def __init__(self, sequences: str, overlaps: str, target: str, *,
                  device="cuda", batch_windows: int = 256,
@@ -308,8 +322,10 @@ class TorchPolisher:
                  trace_path: Optional[str] = None,
                  device_timeout_s: float = 0.0,
                  device_memory_share: float = 1.0, devices=None,
+                 sanitize: bool = False,
+                 sanitize_parity: int = _sanitize.DEFAULT_PARITY,
                  **racon_kwargs):
-        _reset_run_state(trace_path)
+        _reset_run_state(trace_path, sanitize, sanitize_parity)
         self.device = _resolve_device(device)
         if not 0.0 < device_memory_share <= 1.0:
             raise ValueError(f"device_memory_share must be in (0, 1], got "
@@ -740,14 +756,23 @@ BACKENDS = ("cuda", "host")
 
 
 def create_polisher(sequences: str, overlaps: str, target: str, *,
-                    backend: str = "cuda", **kwargs):
+                    backend: str = "cuda", sanitize: bool = False,
+                    sanitize_parity: int = _sanitize.DEFAULT_PARITY,
+                    **kwargs):
     """Factory, as the JAX package's create_polisher: backend "cuda" (the
     default) returns TorchPolisher with `kwargs`; "host" returns
     CpuPolisher, the native host pipeline, with racon's keyword
     arguments. It is not named "cpu": ``device="cpu"`` already means the
-    kernels' plain PyTorch versions."""
+    kernels' plain PyTorch versions. `sanitize` arms the sanitizer for
+    "cuda" only (module note): the host backend passes none of its
+    seams, so it refuses `sanitize` rather than report a clean run
+    it never checked."""
     if backend == "cuda":
-        return TorchPolisher(sequences, overlaps, target, **kwargs)
+        return TorchPolisher(sequences, overlaps, target, sanitize=sanitize,
+                             sanitize_parity=sanitize_parity, **kwargs)
     if backend == "host":
+        if sanitize:
+            raise ValueError("sanitize needs the cuda backend: the host "
+                             "backend passes no seam the sanitizer checks")
         return CpuPolisher(sequences, overlaps, target, **kwargs)
     raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")

@@ -36,7 +36,9 @@ failure does. ``band.hit`` makes every banded job or window of the
 checked attempt a hit, which drives the ladder to flat; ``mem.pressure``
 forces the hard watermark at a poll; ``mem.spill`` aborts a park. Those
 three give the same bytes. ``slo.burn`` (the serve daemon's SLO engine,
-obs/slo.py) absorbs a raise as a forced burn rate.
+obs/slo.py) absorbs a raise as a forced burn rate. ``sanitize.nan`` and
+``sanitize.stats`` fire only where the runtime sanitizer is armed
+(analysis/sanitize.py): each leaves one finding and the same bytes.
 
 The distributed points mean what the JAX package's do
 (racon_tpu/resilience/faults.py): ``kill=1`` on ``worker.heartbeat``,
@@ -78,6 +80,11 @@ KNOWN_POINTS = frozenset({
     "mem.spill",        # before each park of a working set: aborted park
     "slo.burn",         # each SLO evaluation (obs/slo.py): a raise is
                         # absorbed as a forced burn
+    "sanitize.nan",     # the armed sanitizer's consensus check: poisons
+                        # the checker's copy of the chunk (the installed
+                        # consensus is untouched)
+    "sanitize.stats",   # each stats guard the armed sanitizer makes: one
+                        # real cross-thread write through it
     # the distributed seams (distrib/, fleet/), as the JAX package's:
     "worker.spawn",     # before each worker process is launched: a raise
                         # is a spawn failure, which shrinks the fleet

@@ -2,10 +2,15 @@
 
 A copy of the JAX package's report (racon_tpu/resilience/report.py) with
 the keys the port can fill: ``phases``, ``fault_spec``, ``obs``,
-``wall_s``, and ``ledger`` where a serve job stamped one (obs/ledger.py).
-The sanitizer, flight-recorder and unknown-knob keys have no module in
-the port and are left out (not written as null); ``summary()`` is the
-compact view a serve job returns.
+``wall_s``, ``ledger`` where a serve job stamped one (obs/ledger.py), and
+``sanitize`` where the run armed the runtime sanitizer
+(analysis/sanitize.py): its ``armed`` flag and ``findings`` in the JAX
+schema, read by ``python -m racon_tpu_torch.analysis --sanitize-report``.
+An unarmed run's report has no ``sanitize`` key, which that reader takes
+for a report without the section (exit 2). The flight-recorder and
+unknown-knob keys are left out (not written as null): the report carries
+no flight dump, and the port reads no knob; ``summary()`` is the compact
+view a serve job returns.
 
 Each phase produces a ``PhaseReport``: served counts per tier, failure
 causes, wall seconds per tier and the phase's extras. The tiers:
@@ -157,8 +162,10 @@ class RunReport:
         return self
 
     def as_dict(self) -> dict:
+        from ..analysis import sanitize
         from .faults import active_spec
 
+        findings = sanitize.as_dicts()
         return {
             "phases": {k: v.as_dict() for k, v in self.phases.items()},
             "fault_spec": active_spec(),
@@ -169,6 +176,9 @@ class RunReport:
             "wall_s": round(self.wall_s if self.wall_s is not None
                             else time.monotonic() - self._t0, 3),
             **({"ledger": dict(self.ledger)} if self.ledger else {}),
+            **({"sanitize": {"armed": sanitize.enabled(),
+                             "findings": findings}}
+               if sanitize.enabled() or findings else {}),
         }
 
     def summary(self) -> dict:
