@@ -213,16 +213,23 @@ smoke started):
   racon_tpu_torch.tools.wrapper --split <bytes>`` (one contig a chunk)
   on the card, sequentially and with --jobs 2: the same four contigs,
   byte for byte;
-* analysis_plans, analysis_occupancy, analysis (after the parity
-  phases): ``python -m racon_tpu_torch.analysis --plans`` (the lint, the
-  CUDA-source audit, and the launch-plan audit over every window class up
-  to the card's largest at each depth bucket; no violation) and each
-  build's resources; the parity set polished unarmed and with the runtime
-  sanitizer armed (parity 1 and 8), in turns, and armed under each of
-  sanitize.nan and sanitize.stats: the parity phase's bytes every time, no
-  finding where no fault is injected (an unarmed report has no sanitize
+* analysis_plans, analysis_occupancy, analysis, analysis_threads (after
+  the parity phases): ``python -m racon_tpu_torch.analysis --plans`` (the
+  lint, the CUDA-source audit, the concurrency auditor and its contracts,
+  and the launch-plan audit over every window class up to the card's
+  largest at each depth bucket; no violation, each rule's count, the
+  thread roles the concurrency model found and the audits' seconds) and
+  each build's resources; the parity set polished unarmed and with the
+  runtime sanitizer armed (parity 1 and 8), in turns, and armed under each
+  of sanitize.nan and sanitize.stats: the parity phase's bytes every time,
+  no finding where no fault is injected (an unarmed report has no sanitize
   section) and only the fault's kind where one is, --sanitize-report exit
-  0 and 1 (analysis_phase);
+  0 and 1; then the thread census: every thread the port's code started
+  in this process since the smoke began (a wrapper on
+  threading.Thread.start records each one's name, its target's source
+  file and its starter's) has a name of a registered role
+  (concurrency/roles.py) that the model found among its thread entries
+  (analysis_phase);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -321,6 +328,46 @@ LOWERR = dict(mbp=0.5, coverage=30, mean_read=8000, sub=0.005, ins=0.0025,
 
 
 _T0 = time.perf_counter()
+
+#: The thread census: (name, target's source file, starter's source file)
+#: of each thread started in this process, recorded by the wrapper that
+#: install_thread_census puts on threading.Thread.start.
+STARTED_THREADS = []
+
+
+def _code_file(fn):
+    """The source file of a thread target (through functools.partial and
+    bound methods), or None for a builtin such as dict.__setitem__."""
+    fn = getattr(fn, "func", fn)
+    fn = getattr(fn, "__func__", fn)
+    code = getattr(fn, "__code__", None)
+    return code.co_filename if code is not None else None
+
+
+def install_thread_census() -> None:
+    import threading
+
+    start = threading.Thread.start
+
+    def census_start(self):
+        STARTED_THREADS.append((self.name,
+                                _code_file(getattr(self, "_target", None)),
+                                sys._getframe(1).f_code.co_filename))
+        return start(self)
+
+    threading.Thread.start = census_start
+
+
+def port_threads():
+    """The census's threads that the port's code started: a target under
+    racon_tpu_torch/, or a start() called from there (a builtin target)."""
+    pkg = os.path.join(ROOT, "racon_tpu_torch") + os.sep
+
+    def in_port(path):
+        return bool(path) and os.path.realpath(path).startswith(pkg)
+
+    return [name for name, target, starter in STARTED_THREADS
+            if in_port(target) or in_port(starter)]
 
 
 def emit(obj) -> None:
@@ -1690,7 +1737,8 @@ def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
             daemon["error"] = repr(e)
         daemon["ready_s"] = time.perf_counter() - t0
 
-    starter = threading.Thread(target=start_daemon, name="serve-fleet")
+    starter = threading.Thread(target=start_daemon, name="smoke-serve-fleet",
+                               daemon=True)
     starter.start()
     try:
         runs = [("distrib", 2, None, d, fasta_text(seq), seq_wall,
@@ -2013,9 +2061,20 @@ def analysis_phase(torch, racon_tpu_torch, d, kernel, gpu, tmp):
     plans = doc["plans"]
     require(doc["new"] == [] and plans["violations"] == 0,
             f"analysis --plans: {doc['new']}")
+    audit_rules = ("thread-discipline", "unguarded-mutation",
+                   "lock-order-cycle", "lattice-drill", "lattice-docs",
+                   "fault-drill", "fault-docs", "protocol-mismatch")
+    rules = {r: doc["rules"].get(r) for r in audit_rules}
+    require(all(n == 0 for n in rules.values()),
+            f"analysis: the new rules counted {rules}")
+    conc = doc["concurrency"]
     emit({"phase": "analysis_plans", "wall_s": time.perf_counter() - t0,
           **{k: v for k, v in plans.items() if k != "occupancy"},
-          "lint_and_source_violations": doc["total"]})
+          "lint_and_source_violations": doc["total"], "rules": rules,
+          "thread_entries": len(conc["thread_entries"]),
+          "roles": conc["roles"],
+          "audit_s": {"concurrency": conc["seconds"],
+                      "contracts": doc["contracts"]["seconds"]}})
     emit({"phase": "analysis_occupancy", "builds": plans["occupancy"]})
 
     runs = {}
@@ -2060,6 +2119,32 @@ def analysis_phase(torch, racon_tpu_torch, d, kernel, gpu, tmp):
                      for k, v in faulted.items()},
           "sanitize_report_rc": rcs,
           "phase_s": time.perf_counter() - t0})
+    thread_census(conc["roles"])
+
+
+def thread_census(model_roles) -> None:
+    """analysis_threads: every thread the port's code started in this
+    process has a name of a registered role that the concurrency model
+    found among its thread entries (`model_roles`, from the analysis
+    run). The card polishes before this phase start at least align-worker
+    (chunked, pipelined), racon-torch-watchdog-call (watchdog) and
+    sanitize-stats-probe (analysis, under sanitize.stats)."""
+    from racon_tpu_torch.analysis.concurrency.roles import role_of
+
+    names = port_threads()
+    found = {role_of(r) for r in model_roles}
+    seen = sorted({role_of(n) or n for n in names})
+    unregistered = sorted({n for n in names
+                           if role_of(n) is None or role_of(n) not in found})
+    require(not unregistered, f"threads of unregistered roles: {unregistered}")
+    want = {"align-worker", "racon-torch-watchdog-call",
+            "sanitize-stats-probe"}
+    require(want <= set(seen), f"the census saw {seen}, not {sorted(want)}")
+    emit({"phase": "analysis_threads", "roles_seen": seen,
+          "started": len(names), "started_all": len(STARTED_THREADS),
+          "unregistered": unregistered,
+          "scope": "this process only: the serve daemons' and the fleet "
+                   "workers' threads run in other processes"})
 
 
 def start_global(torch, rec, procs, ex):
@@ -2661,7 +2746,8 @@ def serve_phase(torch, racon_tpu_torch, d, d_par, main_run, plain_s, tmp):
             except Exception as e:  # noqa: BLE001 - reported below
                 done[name] = (None, repr(e))
 
-        threads = [threading.Thread(target=client, args=a, kwargs=k)
+        threads = [threading.Thread(target=client, args=a, kwargs=k,
+                                    name=f"smoke-client-{a[0]}", daemon=True)
                    for a, k in ((("resumed", d_par), {"job_id": jid}),
                                 (("main_a", d), {}), (("main_b", d), {}),
                                 (("budget", d_par), {"window_budget": 1}))]
@@ -2759,6 +2845,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
         return 2
+    install_thread_census()
     sys.path.insert(0, ROOT)
     import racon_tpu_torch
     from racon_tpu_torch import native

@@ -1,5 +1,6 @@
-"""The port's analysis layer, part 1: the runtime sanitizer, the AST
-lint, and the build audit; one CLI, ``python -m racon_tpu_torch.analysis``.
+"""The port's analysis layer: the runtime sanitizer, the AST lint, the
+build audit and the concurrency auditor; one CLI, ``python -m
+racon_tpu_torch.analysis``.
 
 The counterpart of the JAX package's ``racon_tpu/analysis``:
 
@@ -8,24 +9,27 @@ The counterpart of the JAX package's ``racon_tpu/analysis``:
   stats-dict guards; armed by arguments (``TorchPolisher(sanitize=True,
   sanitize_parity=N)``, ``--sanitize``), read back with
   ``--sanitize-report``;
-* **AST lint** (`lint.py` and `rules/`): the port's five rules
+* **AST lint** (`lint.py` and `rules/`): the port's six rules
   (``env-registry``, ``knob-docs``, ``fault-point``, ``device-except``,
-  ``wall-clock``) over ``racon_tpu_torch/`` and ``chip_smoke.py``;
+  ``wall-clock``, ``thread-discipline``) over ``racon_tpu_torch/`` and
+  ``chip_smoke.py``;
 * **build audit** (`build_audit.py`), in place of the jaxpr audit: the
   CUDA-source audit on the CPU, and on the card (``--plans``) the
-  launch-plan audit over the driver's whole window-class grid.
+  launch-plan audit over the driver's whole window-class grid;
+* **concurrency auditor** (`concurrency/`, ``--concurrency`` and
+  ``--contracts``): lock discipline and lock order over the threads'
+  roles, and the fault-point, degrade-edge and wire-protocol contracts.
 
-Part 2 adds the concurrency auditor and its contracts (with the
-``thread-discipline`` rule), the protocol model checker and the
-determinism taint audit.
+The JAX package's protocol model checker and determinism taint audit are
+not ported yet.
 
 Suppression: append ``# lint: disable=<rule-id>`` to the flagged line,
 or record accepted debt in a baseline file (``--write-baseline``): the
 CLI then fails only on new violations.
 
-Importing this package, running the lint, the source audit or
-``--sanitize-report`` imports no torch; only the plan audit and an armed
-polish do.
+Importing this package, running the lint, the source audit, the
+concurrency auditor or ``--sanitize-report`` imports no torch; only the
+plan audit and an armed polish do.
 """
 
 from .lint import Violation, iter_source_files, run_lint  # noqa: F401

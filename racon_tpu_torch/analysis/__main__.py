@@ -1,14 +1,20 @@
-"""`python -m racon_tpu_torch.analysis`: run the AST lint and the
-CUDA-source audit over the port (and, with ``--plans``, the launch-plan
-audit on the card); exit 1 on new (non-baselined) violations.
+"""`python -m racon_tpu_torch.analysis`: run the AST lint, the
+CUDA-source audit, the concurrency auditor and its contracts over the port
+(and, with ``--plans``, the launch-plan audit on the card); exit 1 on new
+(non-baselined) violations.
 
 The port's copy of the JAX package's CLI (racon_tpu/analysis/__main__.py)
 with the flags whose engines the port has: ``--sanitize-report``,
 ``--list-rules``, ``--paths``, ``--baseline``, ``--write-baseline``,
-``--json`` and ``--no-lint``; ``--no-build-audit`` in place of
-``--no-jaxpr``, and ``--plans [--device cuda]`` for the card's part.
+``--json``, ``--no-lint``, ``--concurrency`` and ``--contracts``;
+``--no-build-audit`` in place of ``--no-jaxpr``, and ``--plans [--device
+cuda]`` for the card's part. As in the JAX CLI, a full-tree run with no
+audit flag runs the lint, the source audit and both audits; an explicit
+``--concurrency`` or ``--contracts`` runs only that audit, scoped to
+``--paths`` where given; a ``--paths`` run with neither stays lint-only.
 Exit codes: 0 clean, 1 violations (or sanitizer findings), 2 a report
-that cannot be read or a plan audit without a card.
+that cannot be read, a plan audit without a card, or a ``--contracts``
+scope with no contract anchor in it.
 """
 
 from __future__ import annotations
@@ -17,9 +23,33 @@ import argparse
 import json
 import os
 import sys
+import time
+from collections import Counter
 from typing import List
 
 from . import build_audit, lint
+
+#: The audits' rule ids with their summaries (``--list-rules``; the JAX
+#: CLI's wording).
+CONCURRENCY_RULES = (
+    ("unguarded-mutation",
+     "shared state mutated by >=2 thread roles without one lock held at "
+     "every site"),
+    ("lock-order-cycle", "lock-acquisition-order digraph must be acyclic"),
+)
+CONTRACT_RULES = (
+    ("lattice-drill", "every record_degrade edge needs a port test drill"),
+    ("lattice-docs",
+     "every record_degrade edge needs a table row in README.md's port "
+     "section"),
+    ("fault-drill", "every registered fault point needs a port test drill"),
+    ("fault-docs",
+     "every registered fault point needs a table row in README.md's port "
+     "section"),
+    ("protocol-mismatch",
+     "wire-protocol producers/consumers must agree field-for-field with "
+     "the declared spec"),
+)
 
 
 def _sanitize_report(path: str, as_json: bool) -> int:
@@ -72,12 +102,24 @@ def main(argv=None) -> int:
                    help="accept every current violation into the "
                         "baseline file and exit 0")
     p.add_argument("--paths", nargs="+", default=None, metavar="REL",
-                   help="lint only these repo-relative files instead of "
-                        "the whole tree; the build audit is skipped")
+                   help="analyse only these repo-relative files instead "
+                        "of the whole tree; the build audit is skipped. "
+                        "Default is lint-only; an explicit --concurrency "
+                        "or --contracts runs that audit scoped to the "
+                        "paths")
     p.add_argument("--no-build-audit", action="store_true",
                    help="skip the CUDA-source audit (AST lint only)")
     p.add_argument("--no-lint", action="store_true",
                    help="skip the AST lint")
+    p.add_argument("--concurrency", action="store_true",
+                   help="run only the lock-discipline audit "
+                        "(unguarded-mutation / lock-order-cycle); may be "
+                        "combined with --contracts")
+    p.add_argument("--contracts", action="store_true",
+                   help="run only the contract cross-checks (degrade-edge "
+                        "drills and docs, fault-point drills and docs, "
+                        "wire-protocol field agreement); may be combined "
+                        "with --concurrency")
     p.add_argument("--plans", action="store_true",
                    help="also run the launch-plan audit over the driver's "
                         "window classes and depth buckets (needs the card)")
@@ -100,16 +142,54 @@ def main(argv=None) -> int:
         from .rules import ALL_RULES
         for rule in ALL_RULES:
             print(f"{rule.id:18s} {rule.doc}")
-        for rid, doc in build_audit.SOURCE_RULES + build_audit.PLAN_RULES:
+        for rid, doc in (build_audit.SOURCE_RULES + build_audit.PLAN_RULES
+                         + CONCURRENCY_RULES + CONTRACT_RULES):
             print(f"{rid:18s} {doc}")
         return 0
 
     root = args.repo_root or lint.repo_root_for()
     violations: List[lint.Violation] = []
-    if not args.no_lint:
-        violations.extend(lint.run_lint(root, paths=args.paths))
-    if not args.no_build_audit and args.paths is None:
-        violations.extend(build_audit.run_source_audit(root))
+    ran = set()           # the rule ids whose engines ran (--json counts)
+    audits_selected = args.concurrency or args.contracts
+    if not audits_selected:
+        if not args.no_lint:
+            violations.extend(lint.run_lint(root, paths=args.paths))
+            from .rules import ALL_RULES
+            ran.update(r.id for r in ALL_RULES)
+        if not args.no_build_audit and args.paths is None:
+            violations.extend(build_audit.run_source_audit(root))
+            ran.update(rid for rid, _ in build_audit.SOURCE_RULES)
+    # The concurrency and contract audits: an explicit flag always wins
+    # (scoped to --paths where given); otherwise they ride along on a
+    # full-tree default run, and a --paths run stays lint-only.
+    full_default = (not audits_selected and not args.no_lint
+                    and args.paths is None)
+    from . import concurrency
+    audits = {}
+    try:
+        if args.concurrency or full_default:
+            t0 = time.perf_counter()
+            model = concurrency.build_model(root, paths=args.paths)
+            violations.extend(concurrency.run_concurrency(root,
+                                                          model=model))
+            ran.update(rid for rid, _ in CONCURRENCY_RULES)
+            audits["concurrency"] = {
+                "seconds": round(time.perf_counter() - t0, 3),
+                "thread_entries": [
+                    {"role": te.role, "path": te.relpath, "line": te.line}
+                    for te in sorted(model.thread_entries,
+                                     key=lambda te: (te.relpath, te.line))],
+                "roles": sorted({te.role for te in model.thread_entries})}
+        if args.contracts or full_default:
+            t0 = time.perf_counter()
+            violations.extend(concurrency.run_contracts(root,
+                                                        paths=args.paths))
+            ran.update(rid for rid, _ in CONTRACT_RULES)
+            audits["contracts"] = {
+                "seconds": round(time.perf_counter() - t0, 3)}
+    except concurrency.UnsupportedScope as e:
+        print(f"[analysis] {e}", file=sys.stderr)
+        return 2
     plans = None
     if args.plans:
         try:
@@ -118,6 +198,7 @@ def main(argv=None) -> int:
             print(f"[analysis] {e}", file=sys.stderr)
             return 2
         violations.extend(plans.violations)
+        ran.update(rid for rid, _ in build_audit.PLAN_RULES)
 
     baseline_path = args.baseline or os.path.join(
         root, "racon_tpu_torch", "analysis", "baseline.json")
@@ -133,9 +214,12 @@ def main(argv=None) -> int:
     from . import astcache
     n_base = len(violations) - len(new)
     if args.as_json:
+        counts = Counter(v.rule for v in new)
         payload = {"total": len(violations), "baselined": n_base,
                    "new": [vars(v) for v in new],
-                   "astcache": astcache.stats()}
+                   "rules": {rid: counts.get(rid, 0)
+                             for rid in sorted(ran | set(counts))},
+                   "astcache": astcache.stats(), **audits}
         if plans is not None:
             payload["plans"] = {**plans.summary,
                                 "occupancy": plans.occupancy}

@@ -3,13 +3,12 @@
 The port's counterparts of the JAX package's rules
 (racon_tpu/analysis/rules/): ``env-registry`` and ``knob-docs``
 (knobs.py), ``fault-point`` (faultpoints.py), ``device-except``
-(excepts.py) and ``wall-clock`` (clock.py). Three JAX rules have none
-here: ``tracer-leak`` (the port traces nothing: a kernel is a CUDA source
-called through ctypes) and ``kernel-cache-key`` (the port builds one
-library a source, not a kernel a shape and a device topology, so there is
-no cache key to get wrong); ``thread-discipline`` comes with the
-concurrency auditor it rests on (the port's counterpart of
-``concurrency/roles.py``).
+(excepts.py), ``wall-clock`` (clock.py) and ``thread-discipline``
+(threads.py, over the roles of ``concurrency/roles.py``). Two JAX rules
+have none here: ``tracer-leak`` (the port traces nothing: a kernel is a
+CUDA source called through ctypes) and ``kernel-cache-key`` (the port
+builds one library a source, not a kernel a shape and a device topology,
+so there is no cache key to get wrong).
 
 Every rule is an object with:
 
@@ -55,6 +54,7 @@ from .knobs import EnvRegistryRule, KnobDocsRule  # noqa: E402
 from .faultpoints import FaultPointRule       # noqa: E402
 from .excepts import DeviceExceptRule         # noqa: E402
 from .clock import WallClockRule              # noqa: E402
+from .threads import ThreadsRule              # noqa: E402
 
 #: All rules, in documentation order.
 ALL_RULES = (
@@ -63,6 +63,7 @@ ALL_RULES = (
     FaultPointRule(),
     DeviceExceptRule(),
     WallClockRule(),
+    ThreadsRule(),
 )
 
 RULES_BY_ID = {r.id: r for r in ALL_RULES}

@@ -648,9 +648,10 @@ class Coordinator:
                 self._count("flight_dumps", len(dumps))
             # pool counters (spawn_failures, scale faults) merge under the
             # coordinator's own, which win on overlap
-            counters = dict(self.pool.counters)
-            counters.update(self.counters)
-            self.phase.extra.update(counters)
+            with self._cv:
+                counters = dict(self.pool.counters)
+                counters.update(self.counters)
+                self.phase.extra.update(counters)
             if self.report_path:
                 self.report.write(self.report_path)
             result = {

@@ -369,6 +369,9 @@ class TorchPolisher:
         self._worker = None
         self._collapsed = False
         self._quarantined: List[int] = []
+        # the memory report's writes: align-worker's (a quarantined chunk,
+        # the collapse) and the main thread's once that worker is joined
+        self._mem_lock = threading.Lock()
         self._align_spans: List[Tuple[float, float]] = []
         self._prep_spans: List[Tuple[float, float]] = []
         self.stats = {}
@@ -546,8 +549,9 @@ class TorchPolisher:
     def _quarantine_chunk(self, ci: int, exc: BaseException) -> None:
         _note(f"WARNING: chunk {ci} working set degraded "
               f"({type(exc).__name__}: {exc}); quarantining the chunk")
-        self._quarantined.append(ci)
-        self._mem_rep.record_quarantine(ci, exc)
+        with self._mem_lock:
+            self._quarantined.append(ci)
+            self._mem_rep.record_quarantine(ci, exc)
 
     @staticmethod
     def _release_ws(ws_paths) -> None:
@@ -564,9 +568,10 @@ class TorchPolisher:
         the worker no longer runs ahead of consensus."""
         if not self.budget.hard_latched():
             return False
-        if not self._collapsed:
-            self._mem_rep.record_degrade("pipelined", "sequential")
-        self._collapsed = True
+        with self._mem_lock:
+            if not self._collapsed:
+                self._mem_rep.record_degrade("pipelined", "sequential")
+            self._collapsed = True
         return True
 
     def _prepare_chunk(self, ci: int, chunk_path: str):
@@ -674,10 +679,11 @@ class TorchPolisher:
         self.stats = total
         self.report.attach(align_rep)
         self.report.attach(cons_rep)
-        self._mem_rep.extra.update(
-            peak_rss_mb=round(total["peak_rss_mb"], 1),
-            budget_mb=self.budget.budget_mb, streamed=total["streamed"],
-            pressure_level=total["pressure_level"])
+        with self._mem_lock:
+            self._mem_rep.extra.update(
+                peak_rss_mb=round(total["peak_rss_mb"], 1),
+                budget_mb=self.budget.budget_mb, streamed=total["streamed"],
+                pressure_level=total["pressure_level"])
         self.report.attach(self._mem_rep)
         return out
 

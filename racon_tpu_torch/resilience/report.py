@@ -45,8 +45,8 @@ def consensus_tiers(poa_kernel: str) -> Tuple[str, ...]:
     return (poa_kernel, "host", "backbone", "journal")
 
 
-class PhaseReport:
-    """Serving accounting for one phase (a single writer)."""
+class PhaseReport:  # concurrency: one writer at a time; Coordinator and FleetPlane write their instance under their own _cv once their threads start, TorchPolisher its memory report under _mem_lock, and any other instance is written on one thread, or handed from one thread to the next through a queue.Queue
+    """Serving accounting for one phase (one writer at a time)."""
 
     def __init__(self, phase: str, tiers: Tuple[str, ...]):
         self.phase = phase
