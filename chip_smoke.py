@@ -40,8 +40,9 @@ smoke started):
   K = 128 builds on lowerr_band's), holds it against the plain PyTorch
   version (tolerance 0: all outputs are integers; the aligner's whole
   batch; a POA build's outputs on up to PLAIN_SAMPLE windows of the
-  launch, spread evenly over it, the banded build's hit windows first,
-  since the plain POA version loops over windows in Python on the host;
+  launch, spread evenly over it, the banded build's on up to BAND_SAMPLE
+  of its hit windows and BAND_SAMPLE others, since the plain POA version
+  loops over windows in Python on the host;
   the banded build at wband = 0 on the whole launch against the flat
   build) and times the whole launch; the v2 lines also give the kernel's per-phase times (init,
   dp, end_pick, traceback, update, consensus: max and mean over the
@@ -141,8 +142,8 @@ smoke started):
   depth 32, 3 warm calls): ms, the cost model's bound, ms over it, and
   both kernels' outputs on 2 sampled windows equal to the plain
   version's; then one kernel_check line per POA kernel on a batch with N
-  (code 4) at 5% in backbones and layers, every window equal to the
-  plain version;
+  (code 4) at 5% in backbones and layers, PLAIN_SAMPLE windows spread
+  over it equal to the plain version;
 * watchdog: the parity set on the card with RACON_TORCH_FAULT's
   poa.run.ls:hang=60 (through faults.configure) and device_timeout_s=2:
   WatchdogTimeout within 15 s of the polish's start;
@@ -181,10 +182,13 @@ smoke started):
   job's stages and unattributed share, every chunk under a job and the
   stages summing to the job's wall (required);
   the coordinator must have made no CUDA context. distrib_kill: the same on FLEET_SMALL (half the chunked
-  cell's scale, against its own sequential polish) with
-  RACON_TORCH_FAULT="worker.result:kill=1", which the coordinator hands
-  to worker 0 alone: the same FASTA, one worker dead, the killed chunk
-  re-dispatched and resumed from its journal (journal_replayed > 0).
+  cell's scale, against its own sequential polish) under the protocol
+  model's witness schedule (analysis_protocol: the shortest clean run
+  through worker_die and lease_reclaim, compiled to
+  RACON_TORCH_FAULT="worker.result:kill=1:count=1" with --fault-worker
+  0, so the coordinator hands it to worker 0 alone): the same FASTA, one
+  worker dead, the killed chunk re-dispatched and resumed from its
+  journal (journal_replayed > 0).
   distrib_w4: FLEET_SMALL at four workers. serve_fleet: a daemon with
   ``--fleet-min 1 --fleet-max 2``, started before distrib so that its
   start overlaps the distrib runs, given one chunked-cell job: the
@@ -230,6 +234,15 @@ smoke started):
   file and its starter's) has a name of a registered role
   (concurrency/roles.py) that the model found among its thread entries
   (analysis_phase);
+* analysis_protocol (after analysis_threads): the protocol model checker
+  and the determinism taint audit, on the host's CPU in the smoke's idle
+  pool of host processes: ``--model-check --json`` at the default config
+  on the card and off it (states, transitions, seconds, exhausted, no
+  violation), every model mutation caught on MUTATION_CONFIG in each
+  mode that reaches it, ``--determinism --json`` (the sources by
+  verdict, no leak, no gap), each ``--det-mutate`` entry caught, the
+  full-tree run's new rules 0, and the witness schedule that
+  distrib_kill replays (protocol_phase);
 * probe: the DP-cost probe's gate and per-mode timing table on the card
   (python -m racon_tpu_torch.tools.dp_cost_probe; a "probe mode" line per
   mode with its ns a rank step and ps a DP cell), then every mode held
@@ -309,10 +322,14 @@ CHUNKED = dict(mbp=0.5, coverage=30, seed=11, contigs=4)
 # distrib_w4 on half the chunked cell's scale (the smoke's time).
 DISTRIB_CHUNKS = 4
 FLEET_SMALL = dict(CHUNKED, mbp=0.25)
-# The most windows of one launch that a POA check holds against the plain
-# version, which loops over windows in Python on the host: every window of
-# a smaller launch, an even spread of a larger one's (the smoke's time).
-PLAIN_SAMPLE = 32
+# The most windows of one launch that a flat POA check holds against the
+# plain version, which loops over windows in Python on the host: every
+# window of a smaller launch, an even spread of a larger one's; and of a
+# banded launch, its first BAND_SAMPLE hit windows and BAND_SAMPLE others
+# (the smoke's time: at 32 and 16 these host passes and the N batch's took
+# 85-170 s a run, as the host goes; at most one window a process now).
+PLAIN_SAMPLE = 8
+BAND_SAMPLE = 4
 # The host processes that run the plain versions of the POA checks.
 PLAIN_PROCS = 10
 NO_BINDING_BUDGET_MB = 1 << 20   # 1 TiB: arms streaming, never binds
@@ -672,21 +689,21 @@ def spread(n: int, k: int = PLAIN_SAMPLE):
     return torch.linspace(0, n - 1, min(n, k)).round().long().unique()
 
 
-def check_poa(torch, poa_cuda, rec, procs, ex):
+def start_poa(torch, poa_cuda, rec, procs, ex):
     """The main path's largest POA launch of each depth bucket, held
     against the plain version on up to PLAIN_SAMPLE windows of it spread
     evenly over the launch (the plain version runs on the host, on the
     pool `ex` of `procs` processes; its time is that of all buckets'
-    samples together): the sampled outputs equal, and the DP cells the
-    kernel counts equal the plain version's on the sample and the main
-    path's on the whole launch. The time and the bound are the whole
-    launch's. Returns the kernel's totals and, for the v2 check, the kept
-    launches with their samples, the plain outputs and stats and the plain
-    time. Each launch also prints an "ls POA phases" line (phase_ms of the
-    kernel's clock64() phase counts)."""
-    from racon_tpu_torch.tools.batches import plain_poa_parallel
+    samples together, from their submission to their results' read): the
+    sampled outputs equal, and the DP cells the kernel counts equal the
+    plain version's on the sample and the main path's on the whole launch.
+    The time and the bound are the whole launch's. Queues the plain version
+    and returns a function that waits for it and gives the kernel's totals
+    and, for the v2 check, the kept launches with their samples, the plain
+    outputs and stats and the plain time. Each launch also prints an "ls
+    POA phases" line (phase_ms of the kernel's clock64() phase counts)."""
+    from racon_tpu_torch.tools.batches import plain_poa_submit
 
-    mhz = sm_clock_mhz()
     kept = rec.inputs("poa_consensus")
     require(kept, "no POA launch of the main run was kept to check")
     samples = []
@@ -694,8 +711,16 @@ def check_poa(torch, poa_cuda, rec, procs, ex):
         idx = spread(dev_in[0].shape[0]).to(dev_in[0].device)
         samples.append((idx, [t[idx].contiguous() for t in dev_in]))
     t0 = time.perf_counter()
-    plain = plain_poa_parallel([(cfg, sub) for (_, (cfg, _)), (_, sub) in
-                                zip(kept, samples)], procs, ex=ex)
+    pending = plain_poa_submit([(cfg, sub) for (_, (cfg, _)), (_, sub) in
+                                zip(kept, samples)], procs, ex)
+    return lambda: finish_poa(torch, poa_cuda, procs, kept, samples,
+                              pending, t0)
+
+
+def finish_poa(torch, poa_cuda, procs, kept, samples, pending, t0):
+    """The second half of start_poa."""
+    mhz = sm_clock_mhz()
+    plain = pending()
     plain_ms = (time.perf_counter() - t0) * 1e3
     tot = Totals()
     per_bucket = {}
@@ -740,7 +765,7 @@ def check_poa(torch, poa_cuda, rec, procs, ex):
 
 def check_poa_v2(torch, poa_v2_cuda, checked):
     """The v2 kernel, colstep on and off, on the ls main run's kept POA
-    launches, against the plain outputs check_poa computed on their
+    launches, against the plain outputs start_poa computed on their
     sampled windows: every sampled output equal; on the sample the
     kernel's cells and serial steps equal the plain version's (steps
     without colstep are the DP rows), on the whole launch its cells equal
@@ -828,11 +853,6 @@ def poa_decision(default, ls_ms, v2_ms):
                 r <= 0.95 for r in colstep_over_flat.values())}
 
 
-def check_poa_band(torch, fn, kernel, rec, procs, run, name=None, *, ex):
-    """start_poa_band's check, waited for."""
-    return start_poa_band(torch, fn, kernel, rec, procs, run, name, ex=ex)()
-
-
 def start_poa_band(torch, fn, kernel, rec, procs, run, name=None, *, ex):
     """A POA kernel's banded build (`fn` is its wrapper; `kernel` "v2" or
     "ls", whose banded semantics the plain version runs) on the `run`'s
@@ -840,8 +860,9 @@ def start_poa_band(torch, fn, kernel, rec, procs, run, name=None, *, ex):
     without: at wband = 0 every output equals the flat build's on the
     card; at the ladder's wband the six outputs (band_hit included) equal
     the plain version's on a sample of the launch's windows (its hit
-    windows first, up to 16, and up to 16 others; the plain version runs
-    on the host in `procs` jobs on the pool `ex`), and the band cells the
+    windows first, up to BAND_SAMPLE, and up to BAND_SAMPLE others; the
+    plain version runs on the host in `procs` jobs on the pool `ex`), and
+    the band cells the
     kernel counts equal the plain version's on that sample. The time is the
     whole launch's; the bound counts its band cells. Each launch also
     prints a "<kernel> POA phases" line from the banded run's clock64()
@@ -869,8 +890,8 @@ def start_poa_band(torch, fn, kernel, rec, procs, run, name=None, *, ex):
                 f"{kernel} banded build at wband 0 (depth {cfg.depth}) "
                 f"differs from the flat build by {err0}")
         hit = got[5].cpu()
-        idx = torch.cat([torch.nonzero(hit)[:16, 0],
-                         torch.nonzero(~hit)[:16, 0]]).sort().values
+        idx = torch.cat([torch.nonzero(hit)[:BAND_SAMPLE, 0],
+                         torch.nonzero(~hit)[:BAND_SAMPLE, 0]]).sort().values
         sub = [t[idx.to(t.device)].contiguous() for t in dev_in]
         runs.append((cfg, dev_in, wband, got, kst, idx, err0))
         samples.append((cfg, sub, wband[idx.to(wband.device)].contiguous()))
@@ -1569,9 +1590,10 @@ def fasta_text(records) -> str:
 
 def distrib_run(reader, d, tmp, name, workers, fault=None):
     """One ``python -m racon_tpu_torch.cli distrib`` polish of `d` on the
-    card with `workers` workers and DISTRIB_CHUNKS chunks, traced, with
-    `fault` as RACON_TORCH_FAULT (the coordinator hands it to worker 0
-    alone): (its FASTA, its wall, the coordinator's result.json, the
+    card with `workers` workers and DISTRIB_CHUNKS chunks, traced, under
+    the fault schedule `fault` (a protocol-model replay.Schedule: its
+    environment, and ``--fault-worker``, the worker the coordinator hands
+    the spec to): (its FASTA, its wall, the coordinator's result.json, the
     device track of every chunk trace merged as ``obs merge`` merges
     them, the fleet breakdown of those merged with the coordinator's
     trace, which holds the dispatches, and critpath_summary's reading of
@@ -1592,8 +1614,10 @@ def distrib_run(reader, d, tmp, name, workers, fault=None):
            d["reads"], d["overlaps"], d["draft"]]
     env = child_env()
     env.pop("RACON_TORCH_FAULT", None)
-    if fault:
-        env["RACON_TORCH_FAULT"] = fault
+    if fault is not None:
+        env.update(fault.env())
+        for key, val in fault.kwargs().items():
+            cmd[-3:-3] = [f"--{key.replace('_', '-')}", str(val)]
     t0 = time.perf_counter()
     r = subprocess.run(cmd, env=env, stdout=subprocess.DEVNULL,
                        stderr=subprocess.PIPE, text=True, timeout=900)
@@ -1709,11 +1733,14 @@ def distrib_line(phase, workers, mbp, text, wall, result, track, seq_fasta,
             "critpath": crit, "identical": True}
 
 
-def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
+def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp,
+                 witness):
     """The fleet on the card (module note): distrib on the chunked cell
     against its sequential polish (the chunked phase's), distrib_kill and
     distrib_w4 on FLEET_SMALL against its own sequential polish run just
-    before them, and serve_fleet: a daemon started first, in a thread,
+    before them (distrib_kill under the protocol model's `witness`
+    schedule: its RACON_TORCH_FAULT spec and fault_worker), and
+    serve_fleet: a daemon started first, in a thread,
     so that its start (and its floor worker's) overlaps the distrib runs,
     as a resident daemon's does, then given one chunked-cell job.
     Returns FLEET_SMALL's data set and its sequential FASTA text."""
@@ -1750,7 +1777,9 @@ def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
         torch.cuda.empty_cache()
         small = (d_small, fasta_text(small_seq), small_wall,
                  FLEET_SMALL["mbp"])
-        runs += [("distrib_kill", 2, "worker.result:kill=1", *small),
+        require(witness.events == ("worker_die",), f"distrib_kill: the "
+                f"witness schedule injects {witness.events}")
+        runs += [("distrib_kill", 2, witness, *small),
                  ("distrib_w4", 4, None, *small)]
         for phase, workers, fault, data, want, want_wall, mbp in runs:
             text, wall, result, track, breakdown, crit = distrib_run(
@@ -1765,7 +1794,8 @@ def fleet_phases(torch, racon_tpu_torch, simulate, d, seq, seq_wall, tmp):
                         f"dead {c.get('workers_dead')}")
                 require(redone, f"{phase}: no chunk was re-dispatched with "
                         f"a journal replay: {line['chunks_by_index']}")
-                line.update(fault=fault,
+                line.update(fault=fault.spec, fault_worker=fault.worker,
+                            schedule_events=list(fault.events),
                             redispatched=[r["index"] for r in redone])
             emit(line)
 
@@ -2120,6 +2150,151 @@ def analysis_phase(torch, racon_tpu_torch, d, kernel, gpu, tmp):
           "sanitize_report_rc": rcs,
           "phase_s": time.perf_counter() - t0})
     thread_census(conc["roles"])
+    return doc["rules"]
+
+
+# The protocol model's mutations in the smoke: two submitters, so that the
+# admission race is reachable, and two chunks, so that each graph check
+# stays small (the CPU tests run the same config).
+MUTATION_CONFIG = dict(chunks=("A", "A"), submit_ests=(2, 2))
+# The full-tree analysis run's model and determinism rules, required at 0.
+PROTOCOL_RULES = ("fault-model", "model-site", "model-fault",
+                  "model-coverage", "determinism-leak", "fingerprint-gap",
+                  "fingerprint-overkey")
+
+
+def analysis_cli(argv):
+    """One ``python -m racon_tpu_torch.analysis`` run in this process (a
+    host pool's): (exit code, standard output, seconds)."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, ROOT)
+    from racon_tpu_torch.analysis.__main__ import main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def model_mutations(card: bool):
+    """Every seeded mutation of the protocol model on MUTATION_CONFIG, on
+    the card or off it, in a host pool's process: ({mutation: the
+    invariants that caught it}, seconds)."""
+    sys.path.insert(0, ROOT)
+    from racon_tpu_torch.analysis.protocol import MUTATIONS, Config, check
+
+    t0 = time.perf_counter()
+    out = {}
+    for name, _doc, _expected, _overrides in MUTATIONS:
+        res = check(Config(card=card, **MUTATION_CONFIG), mutation=name)
+        out[name] = sorted({v.invariant for v in res.violations})
+    return out, time.perf_counter() - t0
+
+
+def witness_schedule():
+    """The model's witness run (replay.witness_trace: the shortest clean
+    run through worker_die and lease_reclaim, on the card) and its
+    compiled schedule, in a host pool's process: (the trace's events,
+    the Schedule, seconds)."""
+    sys.path.insert(0, ROOT)
+    from racon_tpu_torch.analysis.protocol import replay
+    from racon_tpu_torch.analysis.protocol.checker import _fmt_event
+
+    t0 = time.perf_counter()
+    trace, sched = replay.witness_trace()
+    return [_fmt_event(e) for e in trace], sched, time.perf_counter() - t0
+
+
+def protocol_phase(pool, full_rules):
+    """analysis_protocol: the protocol model checker and the determinism
+    taint audit on this host's CPU, their runs spread over the host pool
+    `pool` (idle by now). ``--model-check --json`` at the default config
+    on the card and off it: exhausted, no violation; every model
+    mutation caught on MUTATION_CONFIG in each mode that reaches it (the
+    failed-job one on the card only); ``--determinism --json``: every
+    SOURCES entry classified, no leak, no gap, no warning; each
+    ``--det-mutate`` entry exits 1 (caught); `full_rules`, the full-tree
+    run's counts (analysis_plans), 0 for each of PROTOCOL_RULES. Returns
+    the witness schedule that distrib_kill replays."""
+    sys.path.insert(0, ROOT)
+    from racon_tpu_torch.analysis.determinism import MUTANTS
+    from racon_tpu_torch.analysis.protocol import MUTATIONS
+
+    t0 = time.perf_counter()
+    jobs = {mode: pool.submit(analysis_cli, ["--model-check", "--json"]
+                              + (["--mc-off-card"] if mode == "off_card"
+                                 else []))
+            for mode in ("card", "off_card")}
+    jobs["determinism"] = pool.submit(analysis_cli,
+                                      ["--determinism", "--json"])
+    for name, *_ in MUTANTS:
+        jobs[f"det:{name}"] = pool.submit(analysis_cli,
+                                          ["--det-mutate", name])
+    for mode in ("card", "off_card"):
+        jobs[f"mut:{mode}"] = pool.submit(model_mutations, mode == "card")
+    jobs["witness"] = pool.submit(witness_schedule)
+    res = {k: f.result() for k, f in jobs.items()}
+    wall = time.perf_counter() - t0
+
+    model = {}
+    for mode in ("card", "off_card"):
+        rc, out, secs = res[mode]
+        doc = json.loads(out)
+        mc = doc["model_check"]
+        require(rc == 0 and doc["new"] == [] and mc["exhausted"],
+                f"--model-check ({mode}) exited {rc}: {doc['new']}")
+        model[mode] = {k: mc[k] for k in ("config", "states", "transitions",
+                                          "elapsed_s", "exhausted")}
+        model[mode]["cli_s"] = secs
+    mutations = {}
+    for mode in ("card", "off_card"):
+        caught, secs = res[f"mut:{mode}"]
+        for name, _doc, expected, _ in MUTATIONS:
+            want = ([] if name == "failed-job-gathers" and mode == "off_card"
+                    else [expected])
+            require(caught[name] == want, f"model mutation {name} ({mode}):"
+                    f" caught by {caught[name]}, not {want}")
+        mutations[mode] = {"caught": sum(bool(v) for v in caught.values()),
+                           "of": len(caught), "seconds": secs}
+    rc, out, det_s = res["determinism"]
+    doc = json.loads(out)
+    det = doc["determinism"]
+    require(rc == 0 and doc["new"] == [] and
+            doc["determinism_warnings"] == [] and
+            det["verdicts"] == {"cost-only": det["sources"]},
+            f"--determinism exited {rc}: {doc['new']} {det}")
+    det_mutants = {}
+    for name, _doc, expected, _ in MUTANTS:
+        rc, out, secs = res[f"det:{name}"]
+        require(rc == 1 and f"[{expected}]" in out and "CAUGHT" in out,
+                f"--det-mutate {name} exited {rc}: {out[-500:]}")
+        det_mutants[name] = {"rule": expected, "seconds": secs}
+    new_rules = {r: full_rules.get(r) for r in PROTOCOL_RULES}
+    require(all(n == 0 for n in new_rules.values()),
+            f"the full-tree run's new rules counted {new_rules}")
+    trace, sched, witness_s = res["witness"]
+    require(sched.events == ("worker_die",) and sched.worker == 0,
+            f"the witness schedule is {sched}")
+    emit({"phase": "analysis_protocol", "wall_s": wall,
+          "host": f"{os.cpu_count()} cores; the runs on the smoke's host "
+                  f"pool of processes",
+          "model_check": model,
+          "mutations": {"config": MUTATION_CONFIG, **mutations},
+          "determinism": {"sources": det["sources"],
+                          "verdicts": det["verdicts"],
+                          "leaks": doc["rules"]["determinism-leak"],
+                          "gaps": doc["rules"]["fingerprint-gap"],
+                          "warnings": len(doc["determinism_warnings"]),
+                          "sites": det["sites"], "seconds": det_s,
+                          "audit_s": det["seconds"]},
+          "det_mutants": det_mutants, "full_tree_rules": new_rules,
+          "witness": {"trace": trace, "spec": sched.spec,
+                      "fault_worker": sched.worker,
+                      "events": list(sched.events), "seconds": witness_s}})
+    return sched
 
 
 def thread_census(model_roles) -> None:
@@ -2612,30 +2787,46 @@ def kernel_bench_phase(torch):
               "plain_windows": idx, "plain_s": plain_s, "max_abs_err": err})
 
 
-def check_n_bases(torch, ex):
+def start_n_bases(torch, ex):
     """Both POA kernels on a batch with N (code 4) at 5% in backbones and
     layers (tools.batches.poa_batch, 32 windows of -w 500 and 2..32
-    layers), each held against the plain version on every window
-    (tolerance 0; the plain version on the pool `ex`): one kernel_check
-    line a kernel."""
+    layers), each held against the plain version on PLAIN_SAMPLE windows
+    spread over the batch (tolerance 0; the plain version on the pool
+    `ex`, from its submission to its results' read; the kernel's DP cells
+    on those windows equal the plain version's): one kernel_check line a
+    kernel. Queues the plain version and returns a function that waits
+    for it and runs the checks."""
     from racon_tpu_torch.ops import poa, poa_driver
-    from racon_tpu_torch.tools.batches import plain_poa_parallel, poa_batch
+    from racon_tpu_torch.tools.batches import plain_poa_submit, poa_batch
 
     cfg = poa_driver.make_config(500, 32, 5, -4, -8)
     packed = poa_batch(cfg, 32, 41, 500, n_rate=0.05)
     dev_in = poa.batch_to_tensors(packed, "cuda")
+    idx = spread(dev_in[0].shape[0]).to(dev_in[0].device)
+    sub = [t[idx].contiguous() for t in dev_in]
     t0 = time.perf_counter()
-    ((want, pst),) = plain_poa_parallel([(cfg, dev_in)], PLAIN_PROCS, ex=ex)
+    pending = plain_poa_submit([(cfg, sub)], PLAIN_PROCS, ex)
+    return lambda: finish_n_bases(torch, cfg, packed, dev_in, idx, sub,
+                                  pending, t0)
+
+
+def finish_n_bases(torch, cfg, packed, dev_in, idx, sub, pending, t0):
+    """The second half of start_n_bases."""
+    from racon_tpu_torch.ops import poa_driver
+
+    ((want, pst),) = pending()
     plain_ms = (time.perf_counter() - t0) * 1e3
     for kernel, name in POA_NAME.items():
         fn = poa_driver.kernel_for(kernel)
-        st = {}
+        st, sst = {}, {}
         got = fn(cfg, *dev_in, stats=st)
+        fn(cfg, *sub, stats=sst)
         torch.cuda.synchronize()
-        err = max_abs_err(want, got)
-        require(err == 0 and st["cells"] == pst["cells"], f"the {kernel} POA "
-                f"kernel on the N batch: max_abs_err {err}, cells "
-                f"{st['cells']} against the plain version's {pst['cells']}")
+        err = max_abs_err(want, [g[idx] for g in got])
+        require(err == 0 and sst["cells"] == pst["cells"], f"the {kernel} "
+                f"POA kernel on the N batch: max_abs_err {err}, cells "
+                f"{sst['cells']} on the sample against the plain version's "
+                f"{pst['cells']}")
         ms = cuda_ms(torch, lambda: fn(cfg, *dev_in), 3)
         b_ms, b_by = bound(poa_bytes(dev_in, got),
                            POA_OPS_PER_CELL * st["cells"])
@@ -2646,7 +2837,9 @@ def check_n_bases(torch, ex):
               "n_codes": int((packed[0] == 4).sum() + (packed[4] == 4).sum()),
               "dp_cells": st["cells"], "failed": int(got[3].sum()),
               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-              "plain_on": f"host, {PLAIN_PROCS} processes, every window",
+              "plain_windows": len(idx),
+              "plain_on": f"host, {PLAIN_PROCS} processes, the sampled "
+                          f"windows",
               "bound_ms": b_ms, "bound_by": b_by})
 
 
@@ -2922,9 +3115,12 @@ def main() -> int:
         trace_wall, trace_path, cells, trace_stats = trace_phase(
             torch, racon_tpu_torch, cuda_lib, d, runs[first], plain_s, tmp,
             keep)
+        # the N batch's plain pass runs on the host pool while the card
+        # runs kernel_bench
+        n_bases = start_n_bases(torch, plain_ex)
         costmodel_phase(trace_path, cells, trace_stats)
         kernel_bench_phase(torch)
-        check_n_bases(torch, plain_ex)
+        n_bases()
         watchdog_phase(racon_tpu_torch, d_par)
         # serve: the resident daemon on the main cell
         serve_phase(torch, racon_tpu_torch, d, d_par, runs[first], plain_s,
@@ -3013,16 +3209,20 @@ def main() -> int:
         # version (the POA checks' plain passes on one pool of host
         # processes, plain_ex)
         procs = max(1, min(8, os.cpu_count() or 1))
-        (poa_row, ls_ms), poa_plain = check_poa(torch, poa_cuda, rec_ls,
-                                                PLAIN_PROCS, plain_ex)
+        # the three POA checks' plain passes on the host pool at once,
+        # while the card runs the kernels
+        flat = start_poa(torch, poa_cuda, rec_ls, PLAIN_PROCS, plain_ex)
+        band_v2 = start_poa_band(torch, poa_v2_cuda.poa_consensus_v2, "v2",
+                                 rec_band, PLAIN_PROCS, "main_band",
+                                 ex=plain_ex)
+        band_ls = start_poa_band(torch, poa_cuda.poa_consensus, "ls",
+                                 rec_ls_band, PLAIN_PROCS, "main_ls_band",
+                                 ex=plain_ex)
+        (poa_row, ls_ms), poa_plain = flat()
         v2_row, v2_ms = check_poa_v2(torch, poa_v2_cuda, poa_plain)
         checked = {"poa_consensus": poa_row, "poa_consensus_v2": v2_row,
-                   "poa_consensus_v2_band": check_poa_band(
-                       torch, poa_v2_cuda.poa_consensus_v2, "v2", rec_band,
-                       PLAIN_PROCS, "main_band", ex=plain_ex),
-                   "poa_consensus_band": check_poa_band(
-                       torch, poa_cuda.poa_consensus, "ls", rec_ls_band,
-                       PLAIN_PROCS, "main_ls_band", ex=plain_ex),
+                   "poa_consensus_v2_band": band_v2(),
+                   "poa_consensus_band": band_ls(),
                    "hirschberg_edge": check_edge(torch, ac, rec),
                    "hirschberg_base": check_base(torch, ac, rec),
                    "hirschberg_edge_k128": check_edge(
@@ -3099,14 +3299,18 @@ def main() -> int:
               "windows_device": lbstats["consensus"]["device"]})
         # analysis: the plan audit, and the armed polish of the parity
         # set against its card bytes
-        analysis_phase(torch, racon_tpu_torch, d_par, first, gpu, tmp)
+        full_rules = analysis_phase(torch, racon_tpu_torch, d_par, first,
+                                    gpu, tmp)
+        # the protocol model checker and the determinism audit, on the
+        # host pool the CPU polishes have left idle
+        witness = protocol_phase(cpu_pool, full_rules)
         # host: the host backend on the parity set
         host_phase(racon_tpu_torch, native, d_par, gpu, procs)
         # the fleet: the chunked cell through worker processes that share
         # the card, once every CPU polish of the pool has ended
         d_small, small_text = fleet_phases(
             torch, racon_tpu_torch, simulate, d_chunked, chunked_seq,
-            chunked_wall, tmp)
+            chunked_wall, tmp, witness)
         # the stripe, the sweep and the wrapper
         stripe_phase(torch, racon_tpu_torch, cuda_lib, d, runs[first],
                      trace_wall, tmp)

@@ -1,6 +1,6 @@
 """The port's analysis layer: the runtime sanitizer, the AST lint, the
-build audit and the concurrency auditor; one CLI, ``python -m
-racon_tpu_torch.analysis``.
+build audit, the concurrency auditor, the protocol model checker and the
+determinism taint audit; one CLI, ``python -m racon_tpu_torch.analysis``.
 
 The counterpart of the JAX package's ``racon_tpu/analysis``:
 
@@ -18,18 +18,27 @@ The counterpart of the JAX package's ``racon_tpu/analysis``:
   launch-plan audit over the driver's whole window-class grid;
 * **concurrency auditor** (`concurrency/`, ``--concurrency`` and
   ``--contracts``): lock discipline and lock order over the threads'
-  roles, and the fault-point, degrade-edge and wire-protocol contracts.
-
-The JAX package's protocol model checker and determinism taint audit are
-not ported yet.
+  roles, and the fault-point, degrade-edge, wire-protocol and
+  fault-model contracts;
+* **protocol model checker** (`protocol/`, ``--model-check``,
+  ``--mutate``, ``--emit-schedule``): the fleet chunk lifecycle's
+  bounded state space on the card and off it, its invariants, the
+  model's conformance to the code, and counterexamples compiled into
+  ``RACON_TORCH_FAULT`` schedules with their ``fault_worker``;
+* **determinism taint audit** (`determinism/`, ``--determinism``,
+  ``--emit-manifest``, ``--det-mutate``): no value the journal's
+  fingerprint leaves out (``fingerprint.py`` SOURCES) reaches the
+  consensus or CIGAR install seams, and every complete fingerprint
+  covers the output-affecting domain.
 
 Suppression: append ``# lint: disable=<rule-id>`` to the flagged line,
 or record accepted debt in a baseline file (``--write-baseline``): the
 CLI then fails only on new violations.
 
 Importing this package, running the lint, the source audit, the
-concurrency auditor or ``--sanitize-report`` imports no torch; only the
-plan audit and an armed polish do.
+concurrency auditor, the model checker, the determinism audit or
+``--sanitize-report`` imports no torch; only the plan audit and an armed
+polish do.
 """
 
 from .lint import Violation, iter_source_files, run_lint  # noqa: F401

@@ -17,10 +17,11 @@ extracted statically from the analysed tree:
 * **Fault points**: every name in ``resilience/faults.py``
   ``KNOWN_POINTS`` must appear in a port test and in a table row of
   README.md's port section. A JAX test or a row under ``docs/`` does
-  not count: the two packages share point names, not drills. The JAX
-  package's ``fault-model`` check (a fleet point claimed by a
-  protocol-model transition) comes with the port's protocol model
-  checker.
+  not count: the two packages share point names, not drills. Every
+  fleet-scoped point (``worker.*``, ``pool.*``, ``lease.*``) must also
+  be claimed by a transition of the protocol model
+  (``analysis/protocol/model.py`` ``TRANSITIONS``): ``fault-model``,
+  skipped where the tree has no model.
 * **Wire protocol**: producers and consumers in ``serve/server.py``,
   ``serve/client.py``, ``distrib/coordinator.py`` and
   ``distrib/worker.py`` are cross-checked field for field against the
@@ -46,6 +47,7 @@ LATTICE_DRILL = "lattice-drill"
 LATTICE_DOCS = "lattice-docs"
 FAULT_DRILL = "fault-drill"
 FAULT_DOCS = "fault-docs"
+FAULT_MODEL = "fault-model"
 PROTOCOL_RULE = "protocol-mismatch"
 
 _FAULTS_REL = f"{PACKAGE}/resilience/faults.py"
@@ -212,6 +214,29 @@ def _fault_checks(repo_root: str, tests, rows) -> List[Violation]:
                 FAULT_DOCS, _FAULTS_REL, line,
                 f"fault point {point} has no docs row: {_WHERE_ROWS} "
                 f"mentions it"))
+    out.extend(_fault_model_checks(repo_root))
+    return out
+
+
+def _fault_model_checks(repo_root: str) -> List[Violation]:
+    """Every fleet-scoped KNOWN_POINTS entry must be claimed by a
+    protocol-model transition: a fault point the model does not know
+    about is a failure mode no interleaving ever exercises. Skipped
+    where the tree carries no protocol model (fixture mini-trees)."""
+    from ..protocol import conformance      # local: avoids an import cycle
+    entries, _ = conformance._transitions(repo_root)
+    if entries is None:
+        return []
+    claimed = {e[3] for e in entries if e[3] is not None}
+    out: List[Violation] = []
+    for point, line in fault_points(repo_root):
+        if (point.startswith(conformance.FLEET_PREFIXES)
+                and point not in claimed):
+            out.append(Violation(
+                FAULT_MODEL, _FAULTS_REL, line,
+                f"fleet fault point {point} is not claimed by any "
+                f"protocol-model transition "
+                f"(analysis/protocol/model.py TRANSITIONS)"))
     return out
 
 

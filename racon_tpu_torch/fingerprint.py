@@ -1,5 +1,6 @@
 """The journal's fingerprint: the identity of one polishing problem, and
-the serve daemon's paths of a job.
+the serve daemon's paths of a job; and the registry that the determinism
+audit (``racon_tpu_torch/analysis/determinism``) holds them against.
 
 A copy of the JAX package's ``journal_fingerprint`` and
 ``serve_job_paths`` (racon_tpu/fingerprint.py), with its schema version
@@ -11,11 +12,25 @@ polisher's ``racon_kwargs`` with the pipeline's defaults filled in, less
 ``num_threads``: polisher._racon_params) and a backend string:
 ``"torch"`` for TorchPolisher, ``"host"`` for CpuPolisher. What only
 schedules the work is left out because it cannot change the bytes: the
-thread count, and the card's own arguments (``device``, ``poa_kernel``,
-``band``, ``band_slack``, ``band_max_widenings``, ``batch_windows``,
-``pipeline_depth`` and the chunked modes), which TorchPolisher takes
-apart from racon's. So a journal written on the card with the v2 kernel
-resumes on the CPU with ls.
+thread count, the card's own arguments (every keyword of
+``TorchPolisher.__init__`` but ``racon_kwargs``), which TorchPolisher
+takes apart from racon's, and the fault spec. So a journal written on
+the card with the v2 kernel resumes on the CPU with ls.
+
+Three pure literals describe that contract, and the determinism audit
+reads them from the AST (never by import):
+
+* ``SOURCES``: every value the fingerprint leaves out, where it is read
+  (a parameter at its function's entry, or an environment read) and
+  whether it may change the output bytes. The audit proves each
+  cost-only source's value reaches no install seam
+  (``set_consensus``, ``set_job_cigar``): ``determinism-leak``;
+* ``OUTPUT_SOURCES``: the inputs every complete composition must cover,
+  with ``source:<name>`` of each source declared output-affecting
+  (``fingerprint-gap``);
+* ``SITES``: each fingerprint composition and what its components
+  cover; a component keyed only on cost-only, taint-clean sources is a
+  ``fingerprint-overkey`` warning.
 """
 
 from __future__ import annotations
@@ -31,6 +46,99 @@ JOURNAL_VERSION = 1
 #: Polish parameters left out of the fingerprint: they cannot change the
 #: output bytes (the thread count only schedules work).
 EXCLUDED_PARAMS = ("num_threads",)
+
+#: The values the fingerprint leaves out, as (name, file, callable, where,
+#: affects_output): `where` is the parameter whose value enters the
+#: callable, or ``env:<NAME>`` for an environment read inside it. PURE
+#: LITERAL: the determinism audit parses it from the AST.
+SOURCES = (
+    ("device", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "device", False),
+    ("devices", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "devices", False),
+    ("batch_windows", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "batch_windows", False),
+    ("poa_kernel", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "poa_kernel", False),
+    ("band", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "band", False),
+    ("band_slack", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "band_slack", False),
+    ("band_max_widenings", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "band_max_widenings", False),
+    ("pipeline_phases", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "pipeline_phases", False),
+    ("handoff_depth", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "handoff_depth", False),
+    ("stream_input", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "stream_input", False),
+    ("memory_budget_mb", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "memory_budget_mb", False),
+    ("spill_dir", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "spill_dir", False),
+    ("pipeline_depth", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "pipeline_depth", False),
+    ("journal_fsync", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "journal_fsync", False),
+    ("trace_path", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "trace_path", False),
+    ("device_timeout_s", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "device_timeout_s", False),
+    ("device_memory_share", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "device_memory_share", False),
+    ("sanitize", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "sanitize", False),
+    ("sanitize_parity", "racon_tpu_torch/polisher.py",
+     "TorchPolisher.__init__", "sanitize_parity", False),
+    ("num_threads", "racon_tpu_torch/pipeline.py",
+     "Pipeline.__init__", "num_threads", False),
+    ("RACON_TORCH_FAULT", "racon_tpu_torch/resilience/faults.py",
+     "active_spec", "env:RACON_TORCH_FAULT", False),
+)
+
+#: The inputs every complete fingerprint composition must cover (the
+#: audit adds ``source:<name>`` for each source declared
+#: output-affecting). PURE LITERAL.
+OUTPUT_SOURCES = (
+    "input:sequences",
+    "input:overlaps",
+    "input:target",
+    "input:params",
+    "input:backend",
+)
+
+#: The fingerprint compositions. PURE LITERAL. Per site: ``helper`` names
+#: the function below that builds the key; ``complete: True`` means the
+#: key must cover every output-affecting source; ``components`` maps each
+#: key component to the tokens it covers, and ``site:<name>`` nests
+#: another site's coverage (a serve job's directory holds its journal).
+SITES = {
+    "journal": {
+        "helper": "journal_fingerprint",
+        "description": "resilience/journal.py header: may a resume "
+                       "replay this journal's records?",
+        "complete": True,
+        "components": {
+            "schema": ("const:journal-version",),
+            "backend": ("input:backend",),
+            "params": ("input:params",),
+            "input_bytes": ("input:sequences", "input:overlaps",
+                            "input:target"),
+        },
+    },
+    "serve_job_dir": {
+        "helper": "serve_job_paths",
+        "description": "serve/scheduler.py per-job artifact namespace: "
+                       "the job id and backend key the journal a re-run "
+                       "resumes",
+        "complete": True,
+        "components": {
+            "job_id": ("input:job_id",),
+            "backend": ("input:backend",),
+            "journal": ("site:journal",),
+        },
+    },
+}
 
 
 def journal_fingerprint(paths: Sequence[str], params: dict,

@@ -10,7 +10,9 @@ importing it.
 
 The library is built with ``make`` into ``build/`` at first use. A file
 lock serialises that build, so several test workers or processes that
-reach it at once build it once.
+reach it at once build it once. The same lock builds the native CLI
+binary, ``build/racon_tpu_torch`` (racon's flags and rampler's ``split``
+and ``subsample``; ``ensure_cli_built``).
 """
 
 from __future__ import annotations
@@ -24,38 +26,41 @@ from typing import Optional
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _BUILD = os.path.join(_DIR, "build")
 _LIB_PATH = os.path.join(_BUILD, "libracon_host.so")
+#: The native CLI binary.
+CLI_PATH = os.path.join(_BUILD, "racon_tpu_torch")
+#: The source of the binary's main alone (the library does not link it).
+_CLI_MAIN = "rt_main.cpp"
 
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _newer_than_lib(path: str) -> bool:
-    try:
-        lib_mtime = os.path.getmtime(_LIB_PATH)
-    except OSError:
-        return True
-    return os.path.getmtime(path) > lib_mtime
-
-
-def _stale() -> bool:
+def _stale(target: str) -> bool:
+    """Whether `target` (the library or the binary) is missing or older
+    than one of its sources or the Makefile."""
     src_dir = os.path.join(_DIR, "src")
     inputs = [os.path.join(src_dir, f) for f in os.listdir(src_dir)
-              if f.endswith((".cpp", ".hpp"))]
+              if f.endswith((".cpp", ".hpp"))
+              and (f != _CLI_MAIN or target == CLI_PATH)]
     inputs.append(os.path.join(_DIR, "Makefile"))
-    return not os.path.exists(_LIB_PATH) or any(
-        _newer_than_lib(p) for p in inputs)
+    try:
+        built = os.path.getmtime(target)
+    except OSError:
+        return True
+    return any(os.path.getmtime(p) > built for p in inputs)
 
 
-def ensure_built() -> str:
-    """Build libracon_host.so if missing or stale. Returns its path."""
-    if not _stale():
-        return _LIB_PATH
+def _build(target: str) -> str:
+    """``make`` `target` under the build lock if it is stale."""
+    if not _stale(target):
+        return target
     os.makedirs(_BUILD, exist_ok=True)
     with open(os.path.join(_BUILD, ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
-            if _stale():  # another process may have built it meanwhile
+            if _stale(target):  # another process may have built it
                 proc = subprocess.run(
-                    ["make", "-j", str(os.cpu_count() or 4)],
+                    ["make", "-j", str(os.cpu_count() or 4),
+                     os.path.relpath(target, _DIR)],
                     cwd=_DIR, capture_output=True, text=True)
                 if proc.returncode != 0:
                     raise RuntimeError(
@@ -64,7 +69,18 @@ def ensure_built() -> str:
                         f"{proc.stderr}")
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)
-    return _LIB_PATH
+    return target
+
+
+def ensure_built() -> str:
+    """Build libracon_host.so if missing or stale. Returns its path."""
+    return _build(_LIB_PATH)
+
+
+def ensure_cli_built() -> str:
+    """Build the native CLI binary if missing or stale. Returns its
+    path."""
+    return _build(CLI_PATH)
 
 
 def load() -> ctypes.CDLL:

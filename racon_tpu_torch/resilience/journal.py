@@ -230,6 +230,9 @@ def replay_windows(pipeline, journal: Optional[Journal], n: int,
             if not 0 <= i < n:
                 continue
             rec = journal.windows[i]
+            # determinism: replayed bytes are journal records
+            # fingerprint-matched to this exact run's inputs (the
+            # `journal` site in racon_tpu_torch/fingerprint.py)
             pipeline.set_consensus(i, rec.payload, rec.polished)
             done.add(i)
         if report is not None and done:
@@ -258,6 +261,9 @@ def replay_cigars(pipeline, journal: Optional[Journal], n: int,
         for job in sorted(journal.cigars):
             if not 0 <= job < n:
                 continue
+            # determinism: replayed CIGARs are journal records
+            # fingerprint-matched to this exact run's inputs (the
+            # `journal` site in racon_tpu_torch/fingerprint.py)
             pipeline.set_job_cigar(job, journal.cigars[job].cigar)
             done.add(job)
         if report is not None and done:

@@ -7,9 +7,9 @@ and ubsan targets).
   into a build directory under tmp_path (``BUILD=``) and runs both clean
   under ThreadSanitizer (the one subprocess, with a 300 s timeout).
 * The suppression files hold no entry, the harness names the port's
-  runtime, and the Makefile keeps ``all`` (what ``native.ensure_built``
-  runs) as its default target and every sanitizer build out of
-  ``build/``.
+  runtime, and the Makefile keeps ``all`` (the library and the native
+  CLI binary) as its default target, the binary's main in its lint gate
+  and every sanitizer build out of ``build/``.
 """
 
 import os
@@ -65,9 +65,13 @@ def test_makefile_targets():
     mk = _read("Makefile")
     first = re.search(r"^([\w$()./-]+):", mk, re.M).group(1)
     assert first == "all"
-    assert re.search(r"^all: \$\(BUILD\)/libracon_host\.so$", mk, re.M)
+    assert re.search(r"^all: \$\(BUILD\)/libracon_host\.so "
+                     r"\$\(BUILD\)/racon_tpu_torch$", mk, re.M)
     for t in TARGETS:
         assert re.search(rf"^{t}:", mk, re.M), t
     for mode in ("asan", "tsan", "ubsan"):
         assert f"BUILD=$(BUILD)-{mode}" in mk
-    assert "rt_main" not in mk    # the port has no native CLI
+    # the native CLI binary: its target, and its main in the lint gate
+    assert re.search(r"^\$\(BUILD\)/racon_tpu_torch: .*rt_main\.o$", mk,
+                     re.M)
+    assert re.search(r"^lint:\n\t.*src/rt_main\.cpp", mk, re.M)
